@@ -1,0 +1,1 @@
+"""Workload configurations of the port (copies of ``repro.configs``)."""
