@@ -3,22 +3,36 @@
 
     python3 chip_smoke.py
 
-1. Reads the card's name and power limit, builds the CUDA kernels from
-   ``src/repro_torch/csrc`` with ``nvcc`` and prints the build seconds.
-2. Holds each kernel (``peel_wave``, ``bitmap_support``) bitwise against its
-   plain PyTorch version on the card: at the unit-test shapes (row and word
-   slabs, words with bit 31 set) and at the slice's width on a 65,536-row
-   chunk of the slashdot-like bitmap; then times one full wave of each at
-   that shape (CUDA events, median) beside its bound and the plain version.
-3. Drives the main path: ``DynamicGraph(support_method="bitmap")`` on the
+1. Reads the card's name and power limit, builds the CUDA sources in
+   ``src/repro_torch/csrc`` with ``nvcc`` (one process each, started
+   together) and prints the build seconds and the ``-Xptxas -v`` reports.
+2. Holds each truss kernel (``peel_wave``, ``bitmap_support``) bitwise
+   against its plain PyTorch version on the card: at the unit-test shapes
+   (row and word slabs, words with bit 31 set) and at the slice's width on
+   a 65,536-row chunk of the slashdot-like bitmap; then times one full wave
+   of each at that shape (CUDA events, median) beside its bound and the
+   plain version.
+3. Holds the attention kernel (``flash_attention``) against its plain
+   version: the reference's sweep, a non-causal case whose length is no
+   multiple of the tile, and the slice's shapes, ``[64, 4096, 128]`` bf16
+   (without and with a 1,024 window) and the prefill's GQA layout.
+4. Drives the truss path: ``DynamicGraph(support_method="bitmap")`` on the
    slashdot-like power-law graph (77,360 nodes, 980,614 edges), checked
    against the pure-Python oracle; three fused 2,000-update batches, a few
    progressive single updates, one batch with ``engine="recompute"``, one
    more batch of each engine under ``torch.profiler``, then
    ``max_truss``/``k_truss``/``index.query`` checked against a host
    connected-components pass, and a final from-scratch oracle check.
-4. Fails unless both kernels were launched by the main path, prints the
-   kernels line, the card line, and last the device line.
+5. Times the attention kernel at ``[64, 4096, 128]`` bf16 beside its
+   bound, its plain version and ``scaled_dot_product_attention``.
+6. Drives the LM serving path at the full width and depth of
+   ``qwen3-0.6b`` with seeded random weights: prefill of 4 x 4,096 tokens
+   (K3 28 times a call), one more under ``torch.profiler``, then
+   ``DecodeEngine`` serving four 512-token prompts with 16 new tokens each,
+   checked against prefill's argmax within a tolerance measured from a
+   ``decode_step`` replay of the prompts.
+7. Fails unless every kernel was launched by its path, prints the kernels
+   line, the card line, and last the device line.
 
 Every failed check raises, so the exit code is non-zero.  The script needs
 a CUDA device, ``nvcc`` and the rest of this checkout; it imports no JAX.
@@ -30,6 +44,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -37,9 +52,20 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 N_NODES, M_PER_NODE, N_EDGES = 77_360, 12, 980_614   # configs SLASHDOT analogue
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
-INT_OPS_PER_S = 67e12         # the card's non-tensor-core peak (fp32 table row)
+CUDA_CORE_OPS_PER_S = 67e12   # the card's non-tensor-core peak (fp32 table row)
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 TEST_SHAPES = ((1, 1), (7, 3), (64, 32), (130, 37), (513, 129))
 CHUNK_ROWS = 65_536
+SOURCES = ("bitmap_popcount", "flash_attention")
+K3_SWEEP = ((1, 64, 16), (2, 300, 32), (4, 128, 64))
+K3_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
+K3_PATH_RTOL, K3_PATH_ATOL = 1.6e-2, 1e-3   # about one bf16 step of each value
+LOGIT_RTOL = 3e-2    # prefill vs decode_step, of max |logit| (bf16 paths)
+K3_SHAPE = (64, 4096, 128)    # [BH, S, Dh]: 4 prompts x 16 heads at 4,096
+LM_ARCH = "qwen3-0.6b"
+PREFILL_BATCH, PREFILL_SEQ = 4, 4096
+PARAM_COUNT = 596_041_728     # transformer.param_count of qwen3-0.6b
+SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 512, 16, 640
 
 
 def log(msg: str) -> None:
@@ -144,7 +170,7 @@ def bound_ms(bitmap, rows_used: int, slot_bytes: int, n_slots: int,
     (ms, 'bytes' | 'operations', bytes)."""
     n_bytes = rows_used * bitmap.shape[1] * 4 + slot_bytes * n_slots
     t_bytes = n_bytes / HBM_BYTES_PER_S
-    t_ops = 3 * word_pairs / INT_OPS_PER_S
+    t_ops = 3 * word_pairs / CUDA_CORE_OPS_PER_S
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations", n_bytes)
 
@@ -259,10 +285,14 @@ def update_batch(rng, present: set, n_del: int, n_ins: int):
     return [(0, a, b) for a, b in dels] + [(1, a, b) for a, b in sorted(ins)]
 
 
-def profiled(fn):
+def profiled(fn) -> float:
     """Run ``fn`` under ``torch.profiler``; log the device's busy share of
-    the wall time (a lower bound: the profiler slows the host) and the
-    kernels that took the most device time."""
+    the wall time and the device ops that took the most time.  Busy is the
+    union of the intervals in which a kernel, copy or fill ran on the card
+    (device events only: a CPU op's device time would count its kernels a
+    second time), over the host's wall time; a lower bound, since the
+    profiler slows the host.  Returns the busy share."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     sync("cuda")
@@ -272,13 +302,24 @@ def profiled(fn):
         fn()
         sync("cuda")
         wall = time.perf_counter() - t0
-    rows = [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    busy = sum(r[1] for r in rows) / 1e6
+    spans, by_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        us, n = by_name.get(e.name, (0.0, 0))
+        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy_us += max(b - max(a, end), 0.0)
+        end = max(end, b)
+    busy = busy_us / 1e6
     log(f"profile: wall {wall:.3f} s, device busy {busy:.3f} s "
-        f"({100 * busy / wall:.1f}%); top device time:")
-    for key, us, n in sorted(rows, key=lambda r: -r[1])[:8]:
+        f"({100 * busy / wall:.1f}%) over {len(spans)} device ops; "
+        f"top device time:")
+    for key, (us, n) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
         log(f"  {us / 1e3:9.1f} ms  x{n:<6d} {key[:90]}")
+    return busy / wall
 
 
 def drive_main_path(core, edges: np.ndarray, dev):
@@ -335,6 +376,286 @@ def drive_main_path(core, edges: np.ndarray, dev):
     return g, sec
 
 
+def build_all(_build) -> None:
+    """Compile every CUDA source at once (one ``nvcc`` each, started
+    together); log the build seconds and each compiler report."""
+    t = time.perf_counter()
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        paths = list(pool.map(_build.build, SOURCES))
+    log(f"kernels built in {time.perf_counter() - t:.1f} s (in parallel)")
+    for name, path in zip(SOURCES, paths):
+        _build.library(name)
+        log(f"--- {name} -> {path}")
+        log((path.parent / "build.log").read_text().strip())
+
+
+def _normal(rng, shape, dtype, dev):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device=dev, dtype=dtype)
+
+
+def check_close(got, exp, tol: float, what: str,
+                rtol: float | None = None) -> float:
+    """Max |kernel - plain| in fp32; raises where an element is off by more
+    than ``tol`` (absolute) or, with ``rtol``, by more than ``tol + rtol *
+    |plain|`` (``torch.testing.assert_close``), or on a shape, type or
+    finiteness mismatch."""
+    if got.shape != exp.shape or got.dtype != exp.dtype:
+        raise AssertionError(f"{what}: {got.dtype}{tuple(got.shape)} vs "
+                             f"{exp.dtype}{tuple(exp.shape)}")
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: non-finite kernel output")
+    err = float((got.float() - exp.float()).abs().max())
+    if rtol is not None:
+        try:
+            torch.testing.assert_close(got.float(), exp.float(), rtol=rtol,
+                                       atol=tol)
+        except AssertionError as e:
+            raise AssertionError(f"{what}: {e}") from None
+    elif not err <= tol:
+        raise AssertionError(f"{what}: max |kernel - plain| = {err} > {tol}")
+    return err
+
+
+def check_flash_attention(ops, ref, dev) -> dict:
+    """K3 against its plain version on the card; returns the max abs error
+    of each group of cases."""
+    errs, mean_abs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        e = 0.0
+        for bh, sq, dh in K3_SWEEP:
+            rng = np.random.default_rng(bh * sq)
+            q, k, v = (_normal(rng, (bh, sq, dh), dtype, dev) for _ in range(3))
+            for window in (None, 32):
+                e = max(e, check_close(
+                    ops.flash_attention(q, k, v, window=window),
+                    ref.attention_ref(q, k, v, window=window), K3_TOL[dtype],
+                    f"K3 sweep {bh}x{sq}x{dh} w={window} {dtype}"))
+        errs[f"sweep {str(dtype)[6:]}"] = e
+    rng = np.random.default_rng(100)
+    q, k, v = (_normal(rng, (3, 100, 64), torch.float32, dev) for _ in range(3))
+    errs["causal=False S=100"] = check_close(
+        ops.flash_attention(q, k, v, causal=False),
+        ref.attention_ref(q, k, v, causal=False), 2e-5, "K3 causal=False")
+
+    # the path's shapes: |o| is about 0.03 at a median causal row (a row
+    # averages ~S/2 values of v), so these are held to about one bf16 step
+    # of each value, not to the sweep's absolute 3e-2
+    bh, s, dh = K3_SHAPE
+    rng = np.random.default_rng(1)
+    q, k, v = (_normal(rng, K3_SHAPE, torch.bfloat16, dev) for _ in range(3))
+    for window in (None, 1024):
+        name = f"{list(K3_SHAPE)} bf16 window={window}"
+        got = ops.flash_attention(q, k, v, window=window)
+        errs[name], mean_abs[name] = 0.0, 0.0
+        for c in range(0, bh, 8):      # plain version 8 heads at a time
+            exp = ref.attention_ref(q[c:c + 8], k[c:c + 8], v[c:c + 8],
+                                    window=window)
+            errs[name] = max(errs[name], check_close(
+                got[c:c + 8], exp, K3_PATH_ATOL, f"K3 {K3_SHAPE} w={window}",
+                K3_PATH_RTOL))
+            mean_abs[name] += float(exp.float().abs().mean()) / (bh // 8)
+    hq = bh // PREFILL_BATCH
+    qh = _normal(rng, (PREFILL_BATCH, s, hq, dh), torch.bfloat16, dev)
+    kh, vh = (_normal(rng, (PREFILL_BATCH, s, hq // 2, dh), torch.bfloat16, dev)
+              for _ in range(2))
+    name = f"prefill GQA {list(qh.shape)} q / {kh.shape[2]} kv heads bf16"
+    exp = ref.chunked_attention_ref(
+        qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
+        causal=True, window=None).transpose(1, 2)
+    errs[name] = check_close(ops.flash_attention_heads(qh, kh, vh), exp,
+                             K3_PATH_ATOL, "K3 GQA prefill", K3_PATH_RTOL)
+    mean_abs[name] = float(exp.float().abs().mean())
+    for name, e in errs.items():
+        held = (f" (mean |plain| {mean_abs[name]:.3g}; held to atol "
+                f"{K3_PATH_ATOL:g} + rtol {K3_PATH_RTOL:g} x |plain|)"
+                if name in mean_abs else "")
+        log(f"K3 vs plain, {name}: max abs err {e:.3g}{held}")
+    return errs
+
+
+def attention_pairs(s: int, causal: bool, window) -> int:
+    """Unmasked (q, k) pairs of one head with Sq == Skv == s."""
+    q = np.arange(s)
+    hi = q + 1 if causal else np.full(s, s)
+    lo = np.zeros(s, np.int64) if window is None else np.maximum(q - window + 1, 0)
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+def time_flash_attention(ops, ref, dev):
+    """K3 at ``[64, 4096, 128]`` bf16, causal: kernel, plain version and
+    ``scaled_dot_product_attention`` (the yardstick; the port never calls
+    it), CUDA events, median of 10 after warm-up; the bound from this
+    run's inputs.  Returns (ms, plain_ms, library_ms, bound_ms, bound_by)."""
+    import torch.nn.functional as F
+
+    bh, s, dh = K3_SHAPE
+    rng = np.random.default_rng(2)
+    q, k, v = (_normal(rng, K3_SHAPE, torch.bfloat16, dev) for _ in range(3))
+    ms = time_ms(lambda: ops.flash_attention(q, k, v), 10)
+    ops.use_kernels(False)
+    try:
+        plain_ms = time_ms(lambda: ops.flash_attention(q, k, v), 10)
+    finally:
+        ops.use_kernels(True)
+    q4, k4, v4 = q[None], k[None], v[None]   # [1, BH, S, Dh] views
+    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
+        q4, k4, v4, is_causal=True), 10)
+    hq = bh // PREFILL_BATCH
+    qh = _normal(rng, (PREFILL_BATCH, s, hq, dh), torch.bfloat16, dev)
+    kh, vh = (_normal(rng, (PREFILL_BATCH, s, hq // 2, dh), torch.bfloat16, dev)
+              for _ in range(2))
+    gqa_ms = time_ms(lambda: ops.flash_attention_heads(qh, kh, vh), 10)
+
+    flops = 4 * dh * bh * attention_pairs(s, True, None)
+    n_bytes = 4 * q.numel() * q.element_size()       # q, k, v read; o written
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    bound = 1e3 * max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    log(f"K3 {list(K3_SHAPE)} bf16 causal: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms; "
+        f"bound {bound:.4f} ms by {by} ({flops / 1e9:.1f} GFLOP at "
+        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16; {n_bytes / 1e6:.1f} MB "
+        f"= {1e3 * t_bytes:.4f} ms); fp32 CUDA-core floor "
+        f"{1e3 * flops / CUDA_CORE_OPS_PER_S:.3f} ms; achieved "
+        f"{flops / ms / 1e9:.1f} TFLOP/s")
+    log(f"K3 prefill layout {list(qh.shape)} q / {kh.shape[2]} kv heads bf16: "
+        f"{gqa_ms:.3f} ms (K/V read at 8 heads: "
+        f"{(qh.numel() * 2 + kh.numel() * 2) * 2 / 1e6:.1f} MB)")
+    del q, k, v, q4, k4, v4, qh, kh, vh
+    torch.cuda.empty_cache()
+    return ms, plain_ms, lib_ms, bound, by
+
+
+def drive_lm_path(fa, dev) -> dict:
+    """Prefill and serving of ``qwen3-0.6b`` at full width and depth, seeded
+    random weights on the card; returns the path's metrics."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+    from repro_torch.serving import DecodeEngine, Request
+
+    cfg = get_config(LM_ARCH).model
+    out = {}
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    sync(dev)
+    n_total = sum(x.numel() for x in _leaves(params))
+    uncounted = (cfg.n_layers * 2 * cfg.head_dim * cfg.qk_norm) + cfg.d_model
+    if not n_total - uncounted == transformer.param_count(cfg) == PARAM_COUNT:
+        raise AssertionError(f"{n_total} parameters - {uncounted} (qk-norm, "
+                             f"final norm) != param_count "
+                             f"{transformer.param_count(cfg)}")
+    log(f"{LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"param_count {transformer.param_count(cfg):,} (+ {uncounted:,} "
+        f"qk-norm and final-norm scales = {n_total:,} tensors' elements), "
+        f"init {time.perf_counter() - t:.1f} s")
+
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ))).to(dev)
+
+    def prefill(toks):
+        n = fa.LAUNCHES
+        t0 = time.perf_counter()
+        logits = transformer.prefill(cfg, params, toks)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        if fa.LAUNCHES - n != cfg.n_layers:
+            raise AssertionError(f"prefill launched K3 {fa.LAUNCHES - n} "
+                                 f"times, expected {cfg.n_layers}")
+        if logits.shape != (toks.shape[0], cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
+                                 f"not finite or of the wrong shape")
+        return logits, dt
+
+    n_tok = PREFILL_BATCH * PREFILL_SEQ
+    for i in range(2):
+        _, dt = prefill(tokens)
+        log(f"prefill [{PREFILL_BATCH}, {PREFILL_SEQ}] call {i}: {dt:.3f} s, "
+            f"{n_tok / dt:,.0f} tokens/s, logits finite, K3 launched "
+            f"{cfg.n_layers} times")
+    out["prefill_s"], out["prefill_tok_s"] = dt, n_tok / dt
+    out["prefill_busy"] = profiled(lambda: prefill(tokens))
+    del tokens
+    torch.cuda.empty_cache()
+
+    prompts = rng.integers(1, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT))
+    eng = DecodeEngine(cfg, params, batch_slots=SERVE_SLOTS,
+                       max_seq=SERVE_MAX_SEQ, device=dev)
+    cache_mb = sum(t.numel() * t.element_size() for t in eng.cache.values()) / 1e6
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p.tolist(), max_new=SERVE_NEW))
+    t = time.perf_counter()
+    done = sorted(eng.run(), key=lambda r: r.rid)
+    sync(dev)
+    dt = time.perf_counter() - t
+    waves = SERVE_PROMPT - 1 + SERVE_NEW
+    if len(done) != SERVE_SLOTS or any(len(r.out) != SERVE_NEW for r in done):
+        raise AssertionError("the engine did not finish every request")
+    out["serve_s"] = dt
+    out["decode_tok_s"] = SERVE_SLOTS * SERVE_NEW / dt
+    out["wave_ms"] = 1e3 * dt / waves
+    log(f"serve: {SERVE_SLOTS} requests x ({SERVE_PROMPT} prompt + "
+        f"{SERVE_NEW} new) tokens, cache {tuple(eng.cache['k'].shape)} bf16 "
+        f"x2 = {cache_mb:.0f} MB: {dt:.2f} s, {waves} waves "
+        f"({out['wave_ms']:.2f} ms each), {out['decode_tok_s']:.1f} new "
+        f"tokens/s, {SERVE_SLOTS * waves / dt:.0f} tokens/s through "
+        f"decode_step")
+
+    # consistency: the engine's first token against prefill's argmax
+    ptoks = torch.from_numpy(prompts).to(dev)
+    logits_p, _ = prefill(ptoks)                    # s = 512: K3 runs
+    cache = transformer.init_cache(cfg, SERVE_SLOTS, SERVE_PROMPT, device=dev)
+    logits_d = None
+
+    def replay(positions):
+        nonlocal logits_d
+        for pos in positions:
+            logits_d, _ = transformer.decode_step(cfg, params, cache,
+                                                  ptoks[:, pos], pos)
+
+    replay(range(SERVE_PROMPT - 8))
+    out["decode_busy"] = profiled(                  # the last 8 waves
+        lambda: replay(range(SERVE_PROMPT - 8, SERVE_PROMPT)))
+    dmax = float((logits_d - logits_p).abs().max())
+    lmax = float(logits_p.abs().max())
+    tol = 2 * dmax
+    top2 = logits_p.topk(2, dim=-1).values
+    margins = (top2[:, 0] - top2[:, 1]).tolist()
+    argmax_p = logits_p.argmax(-1).tolist()
+    first = [r.out[0] for r in done]
+    agree = sum(a == b for a, b in zip(first, argmax_p))
+    log(f"consistency: max |prefill - decode_step replay| logit = {dmax:.4g} "
+        f"(largest |logit| {lmax:.4g}; limit {LOGIT_RTOL:g} x that = "
+        f"{LOGIT_RTOL * lmax:.4g}); argmax tolerance 2x the gap = {tol:.4g}; "
+        f"prefill top-2 margins {[round(m, 4) for m in margins]}; first "
+        f"tokens {first}, prefill argmax {argmax_p}: {agree}/{SERVE_SLOTS} "
+        f"agree; replay argmax {logits_d.argmax(-1).tolist()}")
+    if not dmax <= LOGIT_RTOL * lmax:
+        raise AssertionError(f"decode_step replay differs from prefill by "
+                             f"{dmax} > {LOGIT_RTOL} x {lmax}")
+    for f, a, m in zip(first, argmax_p, margins):
+        if f != a and m >= tol:
+            raise AssertionError(f"first token {f} != prefill argmax {a} at "
+                                 f"top-2 margin {m} >= {tol}")
+    out.update(dlogit=dmax, agree=agree, margins=margins)
+    del params, eng, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, list):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -342,20 +663,20 @@ def main() -> int:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch import core
     from repro_torch.data.synthetic import powerlaw_graph
-    from repro_torch.kernels import _build, bitmap_support, ops, peel_wave, ref
+    from repro_torch.kernels import (_build, bitmap_support, flash_attention,
+                                     ops, peel_wave, ref)
 
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 stays fp32
+    torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    t = time.perf_counter()
-    lib_path = _build.build("bitmap_popcount")
-    _build.library()
-    log(f"kernels built in {time.perf_counter() - t:.1f} s -> {lib_path}")
-    log((lib_path.parent / "build.log").read_text().strip())
+    build_all(_build)
 
     err = check_test_shapes(ops, ref, dev)
     log(f"test shapes: kernels == plain versions (tolerance: bitwise; "
         f"max abs err {err})")
+    k3_errs = check_flash_attention(ops, ref, dev)
 
     edges = powerlaw_graph(N_NODES, M_PER_NODE, seed=0)
     if len(edges) != N_EDGES:
@@ -363,21 +684,32 @@ def main() -> int:
                              f"expected {N_EDGES}")
     full = full_width_checks(core, ops, ref, edges, dev)
 
-    peel_wave.LAUNCHES = bitmap_support.LAUNCHES = 0
+    peel_wave.LAUNCHES = bitmap_support.LAUNCHES = flash_attention.LAUNCHES = 0
     t = time.perf_counter()
     g, sec = drive_main_path(core, edges, dev)
     launches = {"peel_wave": peel_wave.LAUNCHES,
                 "bitmap_support": bitmap_support.LAUNCHES}
-    log(f"main path: {time.perf_counter() - t:.1f} s, launches {launches}")
+    log(f"truss path: {time.perf_counter() - t:.1f} s, launches {launches}")
     t = time.perf_counter()
     final = g.edge_list()
     if g.phi_dict() != core.oracle.scratch_phi(N_NODES, map(tuple, final.tolist())):
         raise AssertionError("final phi differs from a from-scratch oracle")
     log(f"final phi == oracle over {len(final)} edges "
         f"({time.perf_counter() - t:.1f} s); phases {sec}")
+    del g
+    torch.cuda.empty_cache()
+
+    k3_time = time_flash_attention(ops, ref, dev)
+
+    peel_wave.LAUNCHES = bitmap_support.LAUNCHES = flash_attention.LAUNCHES = 0
+    t = time.perf_counter()
+    lm = drive_lm_path(flash_attention, dev)
+    launches["flash_attention"] = flash_attention.LAUNCHES
+    log(f"LM path: {time.perf_counter() - t:.1f} s, launches "
+        f"{flash_attention.LAUNCHES}; {json.dumps(lm)}")
     for name, n in launches.items():
         if n <= 0:
-            raise AssertionError(f"{name} was not launched on the main path")
+            raise AssertionError(f"{name} was not launched on its path")
 
     sources = {"peel_wave": "src/repro/kernels/peel_wave.py:50",
                "bitmap_support": "src/repro/kernels/bitmap_support.py:41"}
@@ -390,6 +722,14 @@ def main() -> int:
             "replaces": sources[name], "launches": launches[name],
             "max_abs_err": max(err_k, err), "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": None})
+    ms, pms, lms, bms, by = k3_time
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:83",
+        "launches": launches["flash_attention"],
+        "max_abs_err": max(k3_errs.values()), "ms": ms, "plain_ms": pms,
+        "bound_ms": bms, "bound_by": by, "library_ms": lms})
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

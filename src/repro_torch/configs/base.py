@@ -1,0 +1,84 @@
+"""Config schema: architecture + input-shape cells (the LM half of
+``repro/configs/base.py``, copied so the port imports nothing of ``repro``).
+
+Every LM architecture gets one ``<id>.py`` exporting ``CONFIG``; ``smoke`` is
+a reduced same-family config for the CPU tests.  ``family`` stays a field so
+that ``launch/serve.py`` dispatches as the reference does.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    kind: str                 # train | prefill | decode | long_decode |
+                              # full_graph | minibatch | batched_graphs |
+                              # train_batch | serve | retrieval
+    params: dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def __hash__(self):
+        return hash((self.name, self.kind, tuple(sorted(self.params.items()))))
+
+    def __eq__(self, other):
+        return (self.name, self.kind, self.params) == (other.name, other.kind, other.params)
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv: int
+    d_ff: int
+    vocab: int
+    head_dim: int = 128
+    norm: str = "rmsnorm"
+    mlp: str = "swiglu"           # swiglu | geglu | gelu
+    qk_norm: bool = False
+    window: int | None = None     # sliding-window attention (Mixtral)
+    moe_experts: int = 0          # 0 => dense
+    moe_top_k: int = 2
+    moe_capacity: float = 1.25    # GShard capacity factor
+    rope_theta: float = 1e6
+    tie_embeddings: bool = False
+
+    @property
+    def sub_quadratic(self) -> bool:
+        return self.window is not None
+
+
+# The LM family's 4 assigned shape cells
+LM_SHAPES = (
+    ShapeCell("train_4k", "train", {"seq": 4096, "batch": 256}),
+    ShapeCell("prefill_32k", "prefill", {"seq": 32768, "batch": 32}),
+    ShapeCell("decode_32k", "decode", {"seq": 32768, "batch": 128}),
+    ShapeCell("long_500k", "long_decode", {"seq": 524288, "batch": 1}),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchConfig:
+    arch_id: str
+    family: str                   # lm (the port's only family yet)
+    model: Any                    # LMConfig
+    shapes: tuple[ShapeCell, ...]
+    smoke: Any                    # reduced same-family model config
+    notes: str = ""
+
+    def cells(self):
+        for s in self.shapes:
+            # long_500k requires sub-quadratic attention (assignment rule)
+            if (s.kind == "long_decode" and self.family == "lm"
+                    and not self.model.sub_quadratic):
+                continue
+            yield s
+
+    def skipped_cells(self):
+        for s in self.shapes:
+            if (s.kind == "long_decode" and self.family == "lm"
+                    and not self.model.sub_quadratic):
+                yield s

@@ -31,6 +31,12 @@ _SIGNATURES = {
         "bitmap_support_launch": (_P, _P, ctypes.c_longlong, _P, _P,
                                   ctypes.c_int, ctypes.c_int, _P, _P),
     },
+    "flash_attention": {
+        # q, k, v, o, strides[9], batch, n_heads, group, seq, head_dim,
+        # is_bf16, causal, window, scale, stream
+        "flash_attention_launch": (_P, _P, _P, _P, _P) + (ctypes.c_int,) * 8
+                                  + (ctypes.c_float, _P),
+    },
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

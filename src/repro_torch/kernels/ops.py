@@ -1,9 +1,9 @@
-"""Public wrappers around the port's kernels (the truss half of ``repro``'s
-``kernels/ops.py``).
+"""Public wrappers around the port's kernels (the truss and attention
+entries of ``repro``'s ``kernels/ops.py``).
 
 Each wrapper dispatches on the device of the tensors it is given: a CUDA
-tensor launches the hand-written kernel (``peel_wave``, ``bitmap_support``),
-which raises if it cannot run; a CPU tensor takes the plain version in
+tensor launches the hand-written kernel (``peel_wave``, ``bitmap_support``,
+``flash_attention``), which raises if it cannot run; a CPU tensor takes the plain version in
 ``ref``.  There is no fallback from one to the other.  ``use_kernels(False)``
 is the explicit A/B switch that sends every device to the plain version.
 """
@@ -13,6 +13,7 @@ import torch
 
 from . import ref
 from .bitmap_support import bitmap_support_cuda
+from .flash_attention import flash_attention_cuda
 from .peel_wave import peel_wave_cuda
 
 _USE_KERNELS = True
@@ -103,3 +104,25 @@ def peel_wave_gathered(bitmap, eu, ev, alive, k, chunk=None):
     if _on_card(bitmap, eu, ev, alive):
         return peel_wave_cuda(bitmap, bitmap, alive, k, eu, ev)
     return ref.peel_wave_gathered_ref(bitmap, eu, ev, alive, k, chunk)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
+    """K3 in the reference's layout: q, k, v ``[BH, S, Dh]`` (``Sq == Skv``
+    on the card) -> ``[BH, S, Dh]`` in ``q.dtype``."""
+    if _on_card(q, k, v):
+        return flash_attention_cuda(q.unsqueeze(2), k.unsqueeze(2),
+                                    v.unsqueeze(2), causal=causal,
+                                    window=window).squeeze(2)
+    return ref.attention_ref(q, k, v, causal=causal, window=window)
+
+
+def flash_attention_heads(q, k, v, *, causal: bool = True,
+                          window: int | None = None):
+    """K3 in the model's layout — the entry the prefill path calls: q
+    ``[B, S, Hq, Dh]``, k/v ``[B, S, Hkv, Dh]`` (GQA, KV heads read in
+    place on the card) -> ``[B, S, Hq, Dh]`` in ``q.dtype``."""
+    if _on_card(q, k, v):
+        return flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return ref.chunked_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        causal=causal, window=window).transpose(1, 2)

@@ -2,11 +2,14 @@
 
 Bitmaps are int32 tensors carrying uint32 bits.  Popcount is SWAR on the
 words widened to int64 (masks after every shift), so no step depends on
-int32 overflow or on an arithmetic right shift.
+int32 overflow or on an arithmetic right shift.  ``attention_ref``
+materialises the ``[BH, Sq, Skv]`` scores in fp32; ``chunked_attention_ref``
+(the model's layout) keeps them to one ``[q_chunk, kv_chunk]`` block.
 """
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -56,3 +59,77 @@ def peel_wave_gathered_ref(bitmap: torch.Tensor, eu: torch.Tensor,
     """``peel_wave_ref(bitmap[eu], bitmap[ev], alive, k)`` gathered in
     ``chunk``-row batches."""
     return _wave(bitmap_support_gathered_ref(bitmap, eu, ev, chunk), alive, k)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int | None = None) -> torch.Tensor:
+    """[BH, Sq, Dh] x [BH, Skv, Dh] -> [BH, Sq, Dh], fp32 softmax, output in
+    ``q.dtype``; a key is masked where ``q_pos < k_pos`` (causal) or
+    ``q_pos - k_pos >= window``.  Every key lies below ``Skv``, so padding
+    never reaches the normaliser."""
+    sq, dh = q.shape[1], q.shape[2]
+    skv = k.shape[1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * dh ** -0.5
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window is not None:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask[None], s, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def chunked_attention_ref(q, k, v, *, causal: bool, window: int | None,
+                          q_chunk: int = 1024,
+                          kv_chunk: int = 1024) -> torch.Tensor:
+    """Online-softmax attention in plain tensor ops: flash math, O(S·chunk)
+    memory.  q: [B, Hq, Sq, Dh]; k/v: [B, Hkv, Skv, Dh] with Hq % Hkv == 0.
+    The reference's off-TPU path (``layers._chunked_attention``), loop for
+    scan; the model's CPU prefill and K3's plain version in the model's
+    layout, reading KV heads in place."""
+    b, hq, sq, dh = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    group = hq // hkv
+    qg = q.reshape(b, hkv, group, sq, dh)
+    scale = dh ** -0.5
+    qc = min(q_chunk, sq)
+    kc = min(kv_chunk, skv)
+    nq = -(-sq // qc)
+    nk = -(-skv // kc)
+    qg = F.pad(qg, (0, 0, 0, nq * qc - sq))
+    kp = F.pad(k, (0, 0, 0, nk * kc - skv))
+    vp = F.pad(v, (0, 0, 0, nk * kc - skv))
+    q_off = skv - sq  # causal offset: query i attends to kv <= i + q_off
+    dev = q.device
+    outs = []
+    for qi in range(nq):
+        qb = qg[:, :, :, qi * qc:(qi + 1) * qc].float()         # [B,Hkv,G,qc,Dh]
+        m_run = torch.full((b, hkv, group, qc), -1e30, device=dev)
+        l_run = torch.zeros((b, hkv, group, qc), device=dev)
+        o_run = torch.zeros((b, hkv, group, qc, dh), device=dev)
+        qpos = qi * qc + torch.arange(qc, device=dev)[:, None] + q_off
+        for kj in range(nk):
+            kb = kp[:, :, kj * kc:(kj + 1) * kc].float()
+            vb = vp[:, :, kj * kc:(kj + 1) * kc].float()
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qb, kb) * scale
+            kpos = kj * kc + torch.arange(kc, device=dev)[None, :]
+            mask = kpos < skv
+            if causal:
+                mask = mask & (qpos >= kpos)
+            if window is not None:
+                mask = mask & ((qpos - kpos) < window)
+            s = torch.where(mask, s, -1e30)
+            m_new = torch.maximum(m_run, s.amax(-1))
+            p = torch.where(mask, torch.exp(s - m_new[..., None]), 0.0)
+            alpha = torch.exp(m_run - m_new)
+            l_run = l_run * alpha + p.sum(-1)
+            o_run = o_run * alpha[..., None] + torch.einsum(
+                "bhgqk,bhkd->bhgqd", p, vb)
+            m_run = m_new
+        l_run = torch.where(l_run == 0.0, 1.0, l_run)
+        outs.append((o_run / l_run[..., None]).to(q.dtype))
+    out = torch.cat(outs, dim=3)[:, :, :, :sq]                   # [B,Hkv,G,Sq,Dh]
+    return out.reshape(b, hq, sq, dh)

@@ -1,0 +1,212 @@
+"""Shared neural-net substrate of the LM family, the dense half of
+``repro/models/layers.py``: initializers, norms, RoPE, GQA attention (causal
+/ sliding window / qk-norm, prefill and ring-buffer decode) and GLU MLPs.
+
+All modules are (init, apply) pairs over plain dicts of tensors.  Compute
+dtype is bf16 with fp32 params and fp32 softmax/normaliser math, and the
+casts sit where the reference puts them, so bf16 rounds at the same places.
+Prefill attention on a CUDA tensor at ``s >= 512`` launches the hand-written
+kernel K3 (``kernels.ops.flash_attention_heads``); everywhere else it takes
+``_chunked_attention``, exactly as the reference does off the TPU.  Decode
+attention is plain fp32 tensor math, as in the reference, and updates the KV
+cache in place (the reference donates it).
+
+Initializers draw from an explicit ``torch.Generator`` on the device the
+parameters live on; its numbers are not ``jax.random``'s, so the tests carry
+the reference's parameters across with ``transformer.params_from_numpy``.
+The MoE layer is a later slice of the port; the mesh hints
+(``shard_hint``, sequence-parallel attention) wait for the port's mesh.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels import ops as kernel_ops
+from ..kernels.ref import chunked_attention_ref as _chunked_attention
+
+Params = dict[str, Any]
+COMPUTE_DTYPE = torch.bfloat16
+
+
+# ---------------------------------------------------------------------------
+# init helpers
+# ---------------------------------------------------------------------------
+
+def dense_init(gen: torch.Generator, d_in: int, d_out: int,
+               scale: float | None = None) -> torch.Tensor:
+    scale = scale if scale is not None else 1.0 / math.sqrt(d_in)
+    return torch.randn((d_in, d_out), generator=gen, device=gen.device,
+                       dtype=torch.float32) * scale
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
+    return torch.randn((vocab, d), generator=gen, device=gen.device,
+                       dtype=torch.float32) * 0.02
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_init(d: int, kind: str, device="cuda") -> Params:
+    p = {"scale": torch.ones((d,), dtype=torch.float32, device=device)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), dtype=torch.float32, device=device)
+    return p
+
+
+def norm_apply(p: Params, x: torch.Tensor, kind: str,
+               eps: float = 1e-6) -> torch.Tensor:
+    xf = x.float()
+    if kind == "layernorm":
+        mu = xf.mean(-1, keepdim=True)
+        var = xf.var(-1, keepdim=True, correction=0)
+        out = (xf - mu) * torch.rsqrt(var + eps) * p["scale"] + p["bias"]
+    else:  # rmsnorm
+        ms = xf.square().mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"]
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# rotary position embeddings
+# ---------------------------------------------------------------------------
+
+def rope(x: torch.Tensor, positions: torch.Tensor,
+         theta: float = 1e6) -> torch.Tensor:
+    """x: [..., S, H, Dh]; positions: [..., S] (broadcastable)."""
+    dh = x.shape[-1]
+    half = dh // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., None].float() * freqs                  # [..., S, half]
+    cos = torch.cos(ang)[..., None, :]                           # [..., S, 1, half]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def attention_init(gen: torch.Generator, d_model: int, n_heads: int,
+                   n_kv: int, head_dim: int, qk_norm: bool = False) -> Params:
+    p = {
+        "wq": dense_init(gen, d_model, n_heads * head_dim),
+        "wk": dense_init(gen, d_model, n_kv * head_dim),
+        "wv": dense_init(gen, d_model, n_kv * head_dim),
+        "wo": dense_init(gen, n_heads * head_dim, d_model,
+                         scale=1.0 / math.sqrt(n_heads * head_dim)),
+    }
+    if qk_norm:
+        p["q_norm"] = norm_init(head_dim, "rmsnorm", gen.device)
+        p["k_norm"] = norm_init(head_dim, "rmsnorm", gen.device)
+    return p
+
+
+def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
+                    n_heads: int, n_kv: int, head_dim: int,
+                    causal: bool = True, window: int | None = None,
+                    qk_norm: bool = False, rope_theta: float = 1e6,
+                    cache: tuple | None = None,
+                    cache_pos: int | None = None) -> tuple:
+    """x: [B, S, D].  If ``cache`` is given (decode), it is updated in place
+    and returned.
+
+    cache = (k_cache, v_cache): [B, C, n_kv, Dh]; cache_pos: int — absolute
+    position of the incoming token; ring-buffered when C < pos.
+    """
+    b, s, _ = x.shape
+    xc = x.to(COMPUTE_DTYPE)
+    q = (xc @ p["wq"].to(COMPUTE_DTYPE)).reshape(b, s, n_heads, head_dim)
+    k = (xc @ p["wk"].to(COMPUTE_DTYPE)).reshape(b, s, n_kv, head_dim)
+    v = (xc @ p["wv"].to(COMPUTE_DTYPE)).reshape(b, s, n_kv, head_dim)
+    if qk_norm:
+        q = norm_apply(p["q_norm"], q, "rmsnorm")
+        k = norm_apply(p["k_norm"], k, "rmsnorm")
+    q = rope(q, positions, rope_theta)
+    k = rope(k, positions, rope_theta)
+
+    if cache is None:
+        if x.device.type == "cuda" and s >= 512:
+            out = kernel_ops.flash_attention_heads(
+                q, k, v, causal=causal, window=window)      # [B, S, Hq, Dh]
+        else:
+            out = _chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                     v.transpose(1, 2), causal=causal,
+                                     window=window).transpose(1, 2)
+        out = out.reshape(b, s, n_heads * head_dim)
+        new_cache = None
+    else:
+        k_cache, v_cache = cache
+        c = k_cache.shape[1]
+        slot = cache_pos % c  # ring buffer (SWA windows)
+        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+        # decode attention (q_len == 1): bandwidth-bound gather math in fp32
+        ring = torch.arange(c, device=x.device)
+        kv_pos_abs = cache_pos - ((slot - ring) % c)  # abs position per slot
+        valid = (kv_pos_abs >= 0) & (kv_pos_abs <= cache_pos)
+        if window is not None:
+            valid &= (cache_pos - kv_pos_abs) < window
+        group = n_heads // n_kv
+        qg = q.reshape(b, n_kv, group, head_dim)
+        scores = torch.einsum("bkgd,bckd->bkgc", qg.float(),
+                              k_cache.float()) * head_dim ** -0.5
+        scores = torch.where(valid, scores, -1e30)
+        w = torch.softmax(scores, dim=-1)
+        out = torch.einsum("bkgc,bckd->bkgd", w, v_cache.float())
+        out = out.reshape(b, 1, n_heads * head_dim).to(COMPUTE_DTYPE)
+        new_cache = (k_cache, v_cache)
+
+    out = out.to(COMPUTE_DTYPE) @ p["wo"].to(COMPUTE_DTYPE)
+    return out, new_cache
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    return F.gelu(x, approximate="tanh")     # jax.nn.gelu's default
+
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, kind: str) -> Params:
+    if kind in ("swiglu", "geglu"):
+        return {"w_gate": dense_init(gen, d_model, d_ff),
+                "w_up": dense_init(gen, d_model, d_ff),
+                "w_down": dense_init(gen, d_ff, d_model,
+                                     scale=1.0 / math.sqrt(d_ff))}
+    return {"w_up": dense_init(gen, d_model, d_ff),
+            "w_down": dense_init(gen, d_ff, d_model, scale=1.0 / math.sqrt(d_ff))}
+
+
+def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
+    xc = x.to(COMPUTE_DTYPE)
+    if kind in ("swiglu", "geglu"):
+        act = F.silu if kind == "swiglu" else _gelu
+        g = act(xc @ p["w_gate"].to(COMPUTE_DTYPE))
+        u = xc @ p["w_up"].to(COMPUTE_DTYPE)
+        return (g * u) @ p["w_down"].to(COMPUTE_DTYPE)
+    h = _gelu(xc @ p["w_up"].to(COMPUTE_DTYPE))
+    return h @ p["w_down"].to(COMPUTE_DTYPE)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts: a later slice of the port
+# ---------------------------------------------------------------------------
+
+def moe_init(*args, **kwargs):
+    raise NotImplementedError("MoE layers are not ported yet (a later slice "
+                              "of the port; ROADMAP.md)")
+
+
+def moe_apply(*args, **kwargs):
+    raise NotImplementedError("MoE layers are not ported yet (a later slice "
+                              "of the port; ROADMAP.md)")

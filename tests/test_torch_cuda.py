@@ -1,5 +1,6 @@
-"""The port's CUDA kernels on the card: each held bitwise against its plain
-PyTorch version, and the engine on the card equal to the engine on the CPU.
+"""The port's CUDA kernels on the card: each held against its plain PyTorch
+version (K1/K2 bitwise, K3 within a stated tolerance), and the truss engine
+and the LM prefill on the card equal to the same on the CPU.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -10,8 +11,10 @@ import pytest
 import torch
 
 from repro_torch import core
+from repro_torch.configs import get_config
 from repro_torch.data.synthetic import powerlaw_graph
-from repro_torch.kernels import bitmap_support, ops, peel_wave, ref
+from repro_torch.kernels import bitmap_support, flash_attention, ops, peel_wave, ref
+from repro_torch.models import transformer
 
 pytestmark = pytest.mark.cuda
 
@@ -90,3 +93,83 @@ def test_engine_on_card_equals_engine_on_cpu(cuda, method):
         assert (core.stats_dict(g_gpu.last_peel_stats)
                 == core.stats_dict(g_cpu.last_peel_stats))
     assert g_gpu.phi_dict() == core.oracle.scratch_phi(n, present)
+
+
+# ---------------------------------------------------------------------------
+# K3 flash_attention: 2e-5 in fp32, 3e-2 in bf16 (one bf16 rounding of the
+# output apart), as the reference's kernel sweep
+# ---------------------------------------------------------------------------
+
+def _heads(rng, shape, dtype, device):
+    return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
+        device=device, dtype=dtype)
+
+
+@pytest.mark.parametrize("bh,sq,dh", [(1, 64, 16), (2, 300, 32), (4, 128, 64)])
+@pytest.mark.parametrize("window", [None, 32])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_equals_plain_version(cuda, bh, sq, dh, window, dtype):
+    rng = np.random.default_rng(bh * sq)
+    q, k, v = (_heads(rng, (bh, sq, dh), dtype, cuda) for _ in range(3))
+    n = flash_attention.LAUNCHES
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    exp = ref.attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES == n + 1 and got.dtype == dtype
+    tol = 2e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), exp.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("causal,window", [(False, None), (False, 40),
+                                           (True, 100)])
+def test_flash_attention_masks_keys_past_the_end(cuda, causal, window):
+    """S = 100 is no multiple of the kernel's 64-key tile: keys past the
+    end never reach the normaliser, causal or not (R3)."""
+    rng = np.random.default_rng(9)
+    q, k, v = (_heads(rng, (3, 100, 64), torch.float32, cuda) for _ in range(3))
+    got = ops.flash_attention(q, k, v, causal=causal, window=window)
+    exp = ref.attention_ref(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (4, 1)])
+def test_flash_attention_heads_entry_reads_kv_heads_in_place(cuda, hq, hkv):
+    rng = np.random.default_rng(hq * 10 + hkv)
+    b, s, dh = 2, 200, 128
+    q = _heads(rng, (b, s, hq, dh), torch.bfloat16, cuda)
+    k, v = (_heads(rng, (b, s, hkv, dh), torch.bfloat16, cuda) for _ in range(2))
+    got = ops.flash_attention_heads(q, k, v, window=70)
+    exp = ref.chunked_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+        window=70).transpose(1, 2)
+    # about one bf16 step of each value: |o| here is far below the sweep's 3e-2
+    torch.testing.assert_close(got.float(), exp.float(), rtol=1.6e-2, atol=1e-3)
+
+
+def test_flash_attention_rejects_what_it_does_not_take(cuda):
+    q = torch.zeros((1, 64, 2, 48), device=cuda)
+    with pytest.raises(ValueError):          # head_dim 48
+        ops.flash_attention_heads(q, q, q)
+    q = torch.zeros((1, 64, 2, 32), device=cuda)
+    with pytest.raises(ValueError):          # Sq != Skv
+        ops.flash_attention_heads(q, q[:, :32].contiguous(), q[:, :32].contiguous())
+    with pytest.raises(ValueError):          # not contiguous
+        ops.flash_attention_heads(q.transpose(1, 2), q.transpose(1, 2),
+                                  q.transpose(1, 2))
+
+
+def test_prefill_on_card_equals_prefill_on_cpu(cuda):
+    """qwen3 smoke at s = 512: the card's prefill launches K3 once per
+    layer; its logits agree with the CPU's (chunked attention) within 3% of
+    the largest |logit| (bf16 matmuls sum in another order)."""
+    cfg = get_config("qwen3-0.6b").smoke
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    card_params = transformer.params_from_numpy(
+        cfg, transformer.params_to_numpy(params), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 512)))
+    n = flash_attention.LAUNCHES
+    got = transformer.prefill(cfg, card_params, toks.to(cuda)).cpu()
+    assert flash_attention.LAUNCHES == n + cfg.n_layers
+    exp = transformer.prefill(cfg, params, toks)
+    assert (got - exp).abs().max() <= 3e-2 * exp.abs().max()
