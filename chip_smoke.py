@@ -31,7 +31,22 @@
    ``DecodeEngine`` serving four 512-token prompts with 16 new tokens each,
    checked against prefill's argmax within a tolerance measured from a
    ``decode_step`` replay of the prompts.
-7. Fails unless every kernel was launched by its path, prints the kernels
+7. Holds the recsys kernels against their plain versions on the
+   reference's sweeps: the segment sum (``segment_matmul``, fp32 and fp16,
+   ids outside the range, gathered entry) and the CIN layer (``cin``).
+8. Drives the xDeepFM serving path at full width (39 fields of 1,000,000
+   rows, embed 10, CIN 200-200-200, MLP 400-400; about 433M parameters
+   from a seed, on the card) through the reference's three traffic shapes:
+   serve_p99 (batch 512, 200 synchronised calls: p50/p99 ms, rows/s),
+   serve_bulk (batch 262,144, three calls: s/call, rows/s) and
+   retrieval_cand (batch 1 against 1,000,000 candidates, top 100: ms),
+   with the device-busy share of one p99 and one bulk call.  Before it,
+   both kernels are held against their plain versions at the path's
+   shapes (the whole bulk bag sum; the first and last 4,096 rows of each
+   bulk CIN layer); after it, the p99 scores against
+   ``ops.use_kernels(False)`` and 64 rows against the CPU, and both
+   kernels are timed beside their bounds, plain versions and yardsticks.
+9. Fails unless every kernel was launched by its path, prints the kernels
    line, the card line, and last the device line.
 
 Every failed check raises, so the exit code is non-zero.  The script needs
@@ -56,7 +71,7 @@ CUDA_CORE_OPS_PER_S = 67e12   # the card's non-tensor-core peak (fp32 table row)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 TEST_SHAPES = ((1, 1), (7, 3), (64, 32), (130, 37), (513, 129))
 CHUNK_ROWS = 65_536
-SOURCES = ("bitmap_popcount", "flash_attention")
+SOURCES = ("bitmap_popcount", "flash_attention", "segment_sum", "cin")
 K3_SWEEP = ((1, 64, 16), (2, 300, 32), (4, 128, 64))
 K3_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 K3_PATH_RTOL, K3_PATH_ATOL = 1.6e-2, 1e-3   # about one bf16 step of each value
@@ -66,6 +81,19 @@ LM_ARCH = "qwen3-0.6b"
 PREFILL_BATCH, PREFILL_SEQ = 4, 4096
 PARAM_COUNT = 596_041_728     # transformer.param_count of qwen3-0.6b
 SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 512, 16, 640
+RECSYS_ARCH = "xdeepfm"
+RECSYS_PARAMS = 432_841_945   # table, wide weights, CIN, MLP of xdeepfm
+K4_SWEEP = ((10, 4, 3), (100, 16, 17), (1000, 64, 77), (513, 32, 128),
+            (257, 8, 1))
+# the reference's sweep tolerances, absolute plus relative (assert_allclose)
+K4_TOL = {torch.float32: 1e-5, torch.float16: 2e-2}
+K5_SWEEP = ((8, 5, 7, 11, 6), (64, 40, 40, 200, 10), (130, 8, 8, 16, 16),
+            (3, 2, 1, 70, 5))
+K5_TOL = 2e-5
+K5_CHUNK = 4096               # rows of a bulk batch held to the plain version
+SCORE_TOL = 1e-5              # click probabilities, fp32 sums reordered
+P99_CALLS, BULK_CALLS, RETRIEVAL_CALLS, TOP_K = 200, 3, 10, 100
+TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core peak
 
 
 def log(msg: str) -> None:
@@ -656,6 +684,292 @@ def _leaves(tree):
         yield tree
 
 
+def _ids(rng, lo, hi, n, dev):
+    return torch.from_numpy(rng.integers(lo, hi, n).astype(np.int32)).to(dev)
+
+
+def check_recsys_kernels(ops, ref, dev) -> dict:
+    """K4 and K5 against their plain versions on the reference's sweeps;
+    returns the max abs error of each group."""
+    errs = {}
+    for dtype in (torch.float32, torch.float16):
+        e_max = 0.0
+        for e, d, n in K4_SWEEP:
+            rng = np.random.default_rng(e + d + n)
+            m = _normal(rng, (e, d), dtype, dev)
+            seg = _ids(rng, -2, n + 2, e, dev)       # a few ids out of range
+            e_max = max(e_max, check_close(
+                ops.segment_matmul(m, seg, n), ref.segment_matmul_ref(m, seg, n),
+                K4_TOL[dtype], f"K4 sweep {e}x{d}->{n} {dtype}", K4_TOL[dtype]))
+            idx = _ids(rng, -e, e, e, dev)            # negative rows wrap
+            got = ops.segment_matmul_gathered(m, idx, seg, n)
+            e_max = max(e_max, check_close(
+                got, ref.segment_matmul_gathered_ref(m, idx, seg, n),
+                K4_TOL[dtype], f"K4 gathered sweep {e}x{d}->{n} {dtype}",
+                K4_TOL[dtype]))
+            if not torch.equal(got, ops.segment_matmul(m[idx.long()], seg, n)):
+                raise AssertionError("K4 gathered entry != rows entry on the "
+                                     "gathered rows")
+        errs[f"segment_matmul sweep {str(dtype)[6:]}"] = e_max
+    e_max = 0.0
+    for b, h, m, o, d in K5_SWEEP:
+        rng = np.random.default_rng(b + h)
+        xk, x0 = (_normal(rng, (b, f, d), torch.float32, dev) for f in (h, m))
+        w = _normal(rng, (o, h, m), torch.float32, dev) * 0.1
+        e_max = max(e_max, check_close(
+            ops.cin_layer(xk, x0, w), ref.cin_layer_ref(xk, x0, w), K5_TOL,
+            f"K5 sweep {(b, h, m, o, d)}", K5_TOL))
+    errs["cin sweep"] = e_max
+    for name, e in errs.items():
+        log(f"recsys kernels vs plain, {name}: max abs err {e:.3g}")
+    return errs
+
+
+def recsys_bag_inputs(recsys, cfg, batch):
+    """The multi-hot bag sum's inputs as ``_field_embeddings`` builds them:
+    fused-table rows and bag ids (int32, 8 sorted rows per bag)."""
+    mh = batch["multihot_ids"]
+    rows = recsys._field_rows(cfg, mh, cfg.n_sparse - cfg.n_multihot)
+    bags = torch.arange(mh.shape[0] * cfg.n_multihot, dtype=torch.int32,
+                        device=mh.device).repeat_interleave(cfg.bag_size)
+    return rows.reshape(-1).contiguous(), bags
+
+
+def recsys_setup(dev) -> dict:
+    """Parameters of xdeepfm at full width from a seed, on the card, and
+    one device-resident batch of each traffic shape."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import ClickStream
+    from repro_torch.models import recsys
+
+    arch = get_config(RECSYS_ARCH)
+    cfg = arch.model
+    shapes = {c.name: c.params for c in arch.shapes}
+    t = time.perf_counter()
+    params = recsys.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    sync(dev)
+    n_params = sum(x.numel() for x in _leaves(params))
+    if n_params != RECSYS_PARAMS:
+        raise AssertionError(f"{n_params} parameters, expected {RECSYS_PARAMS}")
+    table_mb = params["table"].numel() * 4 / 1e6
+    log(f"{RECSYS_ARCH}: {cfg.n_sparse} fields x {cfg.vocab_per_field:,} rows, "
+        f"embed {cfg.embed_dim}, CIN {cfg.cin_layers}, MLP {cfg.mlp_dims}; "
+        f"{n_params:,} parameters (table {table_mb:.0f} MB) in "
+        f"{time.perf_counter() - t:.1f} s")
+    batches = {}
+    for name in ("serve_p99", "serve_bulk"):
+        nb = ClickStream(cfg, shapes[name]["batch"], seed=0).next()
+        batches[name] = recsys.batch_to_torch(nb, dev)
+    nb = ClickStream(cfg, 1, seed=1).next()
+    retr = recsys.batch_to_torch(nb, dev)
+    retr["candidate_ids"] = torch.arange(
+        shapes["retrieval_cand"]["n_candidates"], dtype=torch.int32, device=dev)
+    batches["retrieval_cand"] = retr
+    return {"recsys": recsys, "cfg": cfg, "params": params,
+            "batches": batches}
+
+
+def check_recsys_path_shapes(ops, ref, rs) -> dict:
+    """K4 and K5 against their plain versions at the path's shapes: the
+    p99 and the whole bulk bag sum; every p99 CIN layer and the first and
+    last ``K5_CHUNK`` rows of each bulk layer (the plain einsum would
+    materialise [B, H, M, D], 84 GB at bulk)."""
+    recsys, cfg, params = rs["recsys"], rs["cfg"], rs["params"]
+    errs = {}
+    for name in ("serve_p99", "serve_bulk"):
+        batch = rs["batches"][name]
+        rows, bags = recsys_bag_inputs(recsys, cfg, batch)
+        nb = bags.shape[0] // cfg.bag_size
+        errs[f"segment_matmul {name} [{rows.shape[0]}, {cfg.embed_dim}]"] = \
+            check_close(ops.segment_matmul_gathered(params["table"], rows, bags, nb),
+                        ref.segment_matmul_gathered_ref(params["table"], rows,
+                                                        bags, nb),
+                        K4_TOL[torch.float32], f"K4 {name}",
+                        K4_TOL[torch.float32])
+        x0 = recsys._field_embeddings(cfg, params, batch).contiguous()
+        xk = x0
+        for i, w in enumerate(params["cin"]):
+            got = ops.cin_layer(xk, x0, w)
+            b = x0.shape[0]
+            parts = ((slice(0, b),) if b <= 2 * K5_CHUNK else
+                     (slice(0, K5_CHUNK), slice(b - K5_CHUNK, b)))
+            e = 0.0
+            for sl in parts:
+                e = max(e, check_close(got[sl], ref.cin_layer_ref(
+                    xk[sl], x0[sl], w), K5_TOL, f"K5 {name} layer {i + 1}",
+                    K5_TOL))
+            rows_note = "all rows" if len(parts) == 1 else \
+                f"rows [0, {K5_CHUNK}) and [{b - K5_CHUNK}, {b})"
+            errs[f"cin {name} layer {i + 1} {list(xk.shape)}, {rows_note}"] = e
+            xk = got
+        del x0, xk, got
+    torch.cuda.empty_cache()
+    for name, e in errs.items():
+        log(f"recsys kernels vs plain at the path's shapes, {name}: max abs "
+            f"err {e:.3g}")
+    return errs
+
+
+def drive_recsys_path(rs, dev) -> dict:
+    """The xDeepFM serving path at full width through the reference's
+    three traffic shapes; returns the path's metrics and the last p99
+    scores."""
+    recsys, cfg, params = rs["recsys"], rs["cfg"], rs["params"]
+    out = {}
+
+    def call(fn, *args):
+        t0 = time.perf_counter()
+        res = fn(cfg, params, *args)
+        sync(dev)
+        return res, time.perf_counter() - t0
+
+    p99 = rs["batches"]["serve_p99"]
+    b = p99["sparse_ids"].shape[0]
+    call(recsys.serve, p99)                                # warm-up
+    times = []
+    for _ in range(P99_CALLS):
+        scores, dt = call(recsys.serve, p99)
+        times.append(dt)
+    ms = 1e3 * np.asarray(times)
+    out["p99_p50_ms"] = float(np.percentile(ms, 50))
+    out["p99_p99_ms"] = float(np.percentile(ms, 99))
+    out["p99_rows_s"] = b / (np.median(ms) / 1e3)
+    if scores.shape != (b,) or not bool(((scores > 0) & (scores < 1)).all()):
+        raise AssertionError("serve_p99 scores not in (0, 1) or of the wrong "
+                             "shape")
+    log(f"serve_p99: batch {b}, {P99_CALLS} synchronised calls: p50 "
+        f"{out['p99_p50_ms']:.3f} ms, p99 {out['p99_p99_ms']:.3f} ms, "
+        f"{out['p99_rows_s']:,.0f} rows/s; mean ctr "
+        f"{float(scores.mean()):.4f}")
+    out["p99_busy"] = profiled(lambda: call(recsys.serve, p99))
+
+    bulk = rs["batches"]["serve_bulk"]
+    nb = bulk["sparse_ids"].shape[0]
+    secs = []
+    for i in range(BULK_CALLS):
+        bs, dt = call(recsys.serve, bulk)
+        secs.append(dt)
+        log(f"serve_bulk call {i}: batch {nb:,}, {dt:.3f} s, "
+            f"{nb / dt:,.0f} rows/s")
+    if bs.shape != (nb,) or not bool(torch.isfinite(bs).all()):
+        raise AssertionError("serve_bulk scores not finite or of the wrong shape")
+    out["bulk_s"] = float(np.median(secs))
+    out["bulk_rows_s"] = nb / out["bulk_s"]
+    del bs
+    out["bulk_busy"] = profiled(lambda: call(recsys.serve, bulk))
+
+    retr = rs["batches"]["retrieval_cand"]
+    ms = []
+    for _ in range(RETRIEVAL_CALLS + 1):
+        (top, idx), dt = call(recsys.retrieval_score, retr)
+        ms.append(1e3 * dt)
+    out["retrieval_ms"] = float(np.median(ms[1:]))
+    if top.shape != (TOP_K,) or not bool((top[:-1] >= top[1:]).all()):
+        raise AssertionError("retrieval top-k not sorted or of the wrong shape")
+    log(f"retrieval_cand: 1 query x {retr['candidate_ids'].shape[0]:,} "
+        f"candidates, top {TOP_K}: {out['retrieval_ms']:.3f} ms (median of "
+        f"{RETRIEVAL_CALLS})")
+    rs["p99_scores"], rs["top"] = scores, (top, idx)
+    return out
+
+
+def check_recsys_outputs(ops, rs, dev) -> dict:
+    """The path's outputs against the plain route on the same card and
+    against the CPU: p99 scores and the retrieval top-k."""
+    recsys, cfg, params = rs["recsys"], rs["cfg"], rs["params"]
+    p99, retr = rs["batches"]["serve_p99"], rs["batches"]["retrieval_cand"]
+    ops.use_kernels(False)
+    try:
+        plain = recsys.serve(cfg, params, p99)
+        ptop, pidx = recsys.retrieval_score(cfg, params, retr)
+    finally:
+        ops.use_kernels(True)
+    errs = {"p99 scores vs use_kernels(False)": check_close(
+        rs["p99_scores"], plain, SCORE_TOL, "p99 scores kernels vs plain")}
+    top, idx = rs["top"]
+    errs["retrieval top-k scores vs use_kernels(False)"] = check_close(
+        top, ptop, SCORE_TOL, "retrieval scores kernels vs plain")
+    gaps = (ptop[:-1] - ptop[1:]).abs()
+    clear = torch.ones_like(ptop, dtype=torch.bool)
+    clear[:-1] &= gaps > SCORE_TOL
+    clear[1:] &= gaps > SCORE_TOL
+    if not torch.equal(idx[clear], pidx[clear]):
+        raise AssertionError("retrieval candidates differ where the score "
+                             "gaps exceed the tolerance")
+    # 64 rows on the CPU (plain versions throughout) against the card
+    cpu_params = recsys.params_from_numpy(recsys.params_to_numpy(params),
+                                          device="cpu")
+    sub = {k: v[:64].cpu() for k, v in p99.items()}
+    errs["64 p99 rows vs the CPU"] = check_close(
+        rs["p99_scores"][:64].cpu(), recsys.serve(cfg, cpu_params, sub),
+        SCORE_TOL, "p99 scores card vs CPU")
+    for name, e in errs.items():
+        log(f"recsys outputs, {name}: max abs err {e:.3g} (tolerance "
+            f"{SCORE_TOL:g})")
+    log(f"retrieval candidates equal to the plain route's at the "
+        f"{int(clear.sum())}/{TOP_K} places whose score gaps exceed "
+        f"{SCORE_TOL:g}")
+    return errs
+
+
+def time_recsys_kernels(ops, ref, rs, dev) -> dict:
+    """K4 on the bulk bag sum and K5 on a p99 layer-2 call: kernel, plain
+    version and one PyTorch call of the same function (the yardstick; the
+    port never calls it), CUDA events, median; bounds from this run's
+    inputs."""
+    import torch.nn.functional as F
+
+    recsys, cfg, params = rs["recsys"], rs["cfg"], rs["params"]
+    table = params["table"]
+    res = {}
+    for name in ("serve_p99", "serve_bulk"):
+        rows, bags = recsys_bag_inputs(recsys, cfg, rs["batches"][name])
+        nb, e, d = bags.shape[0] // cfg.bag_size, rows.shape[0], cfg.embed_dim
+        ms = time_ms(lambda: ops.segment_matmul_gathered(table, rows, bags, nb), 10)
+        sort_ms = time_ms(lambda: torch.sort(bags, stable=True), 10)
+        plain_ms = time_ms(lambda: ref.segment_matmul_gathered_ref(
+            table, rows, bags, nb), 5)
+        rows64 = rows.long()
+        offsets = torch.arange(0, e, cfg.bag_size, device=dev)
+        lib_ms = time_ms(lambda: F.embedding_bag(rows64, table, offsets,
+                                                 mode="sum"), 10)
+        n_rows = int(torch.unique(rows).numel())
+        n_bytes = 4 * e + 4 * e + 4 * d * n_rows + 4 * d * nb
+        t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, e * d / CUDA_CORE_OPS_PER_S
+        bound = 1e3 * max(t_bytes, t_ops)
+        by = "bytes" if t_bytes >= t_ops else "operations"
+        log(f"K4 {name} bag sum [{e:,}, {d}] -> {nb:,} bags: kernel {ms:.4f} ms "
+            f"(the id sort alone {sort_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"embedding_bag {lib_ms:.4f} ms; bound {bound:.4f} ms by {by} "
+            f"({n_bytes / 1e6:.1f} MB: {n_rows:,} distinct rows)")
+        res[f"segment_matmul {name}"] = (ms, plain_ms, lib_ms, bound, by)
+
+    x0 = recsys._field_embeddings(cfg, params, rs["batches"]["serve_p99"])
+    x0 = x0.contiguous()
+    xk = ops.cin_layer(x0, x0, params["cin"][0])
+    w = params["cin"][1]
+    b, h, d = xk.shape
+    m, o = x0.shape[1], w.shape[0]
+    ms = time_ms(lambda: ops.cin_layer(xk, x0, w), 20)
+    plain_ms = time_ms(lambda: ref.cin_layer_ref(xk, x0, w), 10)
+    lib_ms = time_ms(lambda: torch.einsum("bhd,bmd,ohm->bod", xk, x0, w), 10)
+    flops = 2 * b * d * o * h * m
+    n_bytes = 4 * (xk.numel() + x0.numel() + w.numel() + b * o * d)
+    t_ops, t_bytes = flops / CUDA_CORE_OPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    bound = 1e3 * max(t_ops, t_bytes)
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    layer1 = time_ms(lambda: ops.cin_layer(x0, x0, params["cin"][0]), 20)
+    log(f"K5 p99 layer 2 xk {list(xk.shape)} x0 {list(x0.shape)} w "
+        f"{list(w.shape)}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
+        f"fp32), plain {plain_ms:.4f} ms, torch.einsum {lib_ms:.4f} ms; bound "
+        f"{bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at "
+        f"{CUDA_CORE_OPS_PER_S / 1e12:.0f} TFLOP/s fp32 CUDA cores; TF32 "
+        f"tensor-core figure {1e3 * flops / TF32_FLOPS_PER_S:.4f} ms); layer 1 "
+        f"{list(x0.shape)} x {list(params['cin'][0].shape)}: {layer1:.4f} ms")
+    res["cin"] = (ms, plain_ms, lib_ms, bound, by)
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -707,6 +1021,25 @@ def main() -> int:
     launches["flash_attention"] = flash_attention.LAUNCHES
     log(f"LM path: {time.perf_counter() - t:.1f} s, launches "
         f"{flash_attention.LAUNCHES}; {json.dumps(lm)}")
+
+    from repro_torch.kernels import cin, segment_matmul
+    k45_errs = check_recsys_kernels(ops, ref, dev)
+    rs = recsys_setup(dev)
+    k45_errs.update(check_recsys_path_shapes(ops, ref, rs))
+    counters = (peel_wave, bitmap_support, flash_attention, segment_matmul, cin)
+    for mod in counters:
+        mod.LAUNCHES = 0
+    t = time.perf_counter()
+    rec = drive_recsys_path(rs, dev)
+    launches["segment_matmul"] = segment_matmul.LAUNCHES
+    launches["cin"] = cin.LAUNCHES
+    log(f"recsys path: {time.perf_counter() - t:.1f} s, launches "
+        f"segment_matmul {segment_matmul.LAUNCHES}, cin {cin.LAUNCHES}; "
+        f"{json.dumps(rec)}")
+    out_errs = check_recsys_outputs(ops, rs, dev)
+    k45_time = time_recsys_kernels(ops, ref, rs, dev)
+    del rs
+    torch.cuda.empty_cache()
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -730,6 +1063,21 @@ def main() -> int:
         "launches": launches["flash_attention"],
         "max_abs_err": max(k3_errs.values()), "ms": ms, "plain_ms": pms,
         "bound_ms": bms, "bound_by": by, "library_ms": lms})
+    for name, source, replaces, timing in (
+            ("segment_matmul", "segment_sum.cu",
+             "src/repro/kernels/segment_matmul.py:44",
+             k45_time["segment_matmul serve_bulk"]),
+            ("cin", "cin.cu", "src/repro/kernels/cin.py:46", k45_time["cin"])):
+        ms, pms, lms, bms, by = timing
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{source}", "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(e for k, e in k45_errs.items()
+                               if k.startswith(name)),
+            "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
+            "library_ms": lms})
+    log(f"recsys outputs: {json.dumps(out_errs)}")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
-"""Config schema: architecture + input-shape cells (the LM half of
-``repro/configs/base.py``, copied so the port imports nothing of ``repro``).
+"""Config schema: architecture + input-shape cells (the LM and recsys parts
+of ``repro/configs/base.py``, copied so the port imports nothing of
+``repro``).
 
-Every LM architecture gets one ``<id>.py`` exporting ``CONFIG``; ``smoke`` is
+Every architecture gets one ``<id>.py`` exporting ``CONFIG``; ``smoke`` is
 a reduced same-family config for the CPU tests.  ``family`` stays a field so
 that ``launch/serve.py`` dispatches as the reference does.
 """
@@ -51,6 +52,19 @@ class LMConfig:
         return self.window is not None
 
 
+@dataclasses.dataclass(frozen=True)
+class RecsysConfig:
+    name: str
+    n_sparse: int
+    embed_dim: int
+    cin_layers: tuple[int, ...]
+    mlp_dims: tuple[int, ...]
+    vocab_per_field: int = 100_000
+    n_multihot: int = 4           # fields exercising the embedding-bag path
+    bag_size: int = 8
+    n_dense: int = 13
+
+
 # The LM family's 4 assigned shape cells
 LM_SHAPES = (
     ShapeCell("train_4k", "train", {"seq": 4096, "batch": 256}),
@@ -59,12 +73,19 @@ LM_SHAPES = (
     ShapeCell("long_500k", "long_decode", {"seq": 524288, "batch": 1}),
 )
 
+RECSYS_SHAPES = (
+    ShapeCell("train_batch", "train_batch", {"batch": 65536}),
+    ShapeCell("serve_p99", "serve", {"batch": 512}),
+    ShapeCell("serve_bulk", "serve", {"batch": 262144}),
+    ShapeCell("retrieval_cand", "retrieval", {"batch": 1, "n_candidates": 1_000_000}),
+)
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                   # lm (the port's only family yet)
-    model: Any                    # LMConfig
+    family: str                   # lm | recsys (gnn: a later slice)
+    model: Any                    # LMConfig | RecsysConfig
     shapes: tuple[ShapeCell, ...]
     smoke: Any                    # reduced same-family model config
     notes: str = ""

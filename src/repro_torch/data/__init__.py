@@ -1,4 +1,5 @@
-"""Synthetic graph generators of the port (copies of ``repro.data``)."""
+"""Synthetic data of the port (copies of ``repro.data``): graphs and
+recsys click batches."""
 from . import synthetic
 
 __all__ = ["synthetic"]

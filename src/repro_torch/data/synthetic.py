@@ -1,7 +1,8 @@
-"""Synthetic graph generators: Erdos-Renyi and power-law edge lists.
+"""Synthetic data: Erdos-Renyi and power-law edge lists, recsys click
+batches.
 
-Copied from ``repro.data.synthetic`` (graphs only), so seeded graphs are
-the same edge lists in both packages.
+Copied from ``repro.data.synthetic`` (graphs and ``ClickStream``), so a
+seed gives the same numpy arrays in both packages.
 """
 from __future__ import annotations
 
@@ -103,3 +104,29 @@ def powerlaw_graph(n: int, m_per_node: int = 4, seed: int = 0,
         allu, allv = allu[keep], allv[keep]
     out = np.stack([allu, allv], 1)
     return out[np.lexsort((out[:, 1], out[:, 0]))]
+
+
+class ClickStream:
+    """Synthetic CTR batches for xDeepFM (numpy arrays; resumable: a
+    restored ``step`` reproduces the exact batch sequence)."""
+
+    def __init__(self, cfg, batch: int, seed: int = 0, step: int = 0):
+        self.cfg, self.batch = cfg, batch
+        self.seed, self.step = seed, step
+
+    def next(self) -> dict:
+        c = self.cfg
+        rng = np.random.default_rng((self.seed, self.step))
+        self.step += 1
+        return {
+            "sparse_ids": rng.integers(0, c.vocab_per_field,
+                                       size=(self.batch, c.n_sparse), dtype=np.int32),
+            "multihot_ids": rng.integers(0, c.vocab_per_field,
+                                         size=(self.batch, c.n_multihot, c.bag_size),
+                                         dtype=np.int32),
+            "dense": rng.normal(size=(self.batch, c.n_dense)).astype(np.float32),
+            "labels": rng.integers(0, 2, size=(self.batch,)).astype(np.int32),
+        }
+
+    def state_dict(self):
+        return {"seed": self.seed, "step": self.step}

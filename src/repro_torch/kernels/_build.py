@@ -37,6 +37,17 @@ _SIGNATURES = {
         "flash_attention_launch": (_P, _P, _P, _P, _P) + (ctypes.c_int,) * 8
                                   + (ctypes.c_float, _P),
     },
+    "segment_sum": {
+        # src, n_src_rows, indices, sorted_ids, order, e, n, d, dtype,
+        # starts, out, stream
+        "segment_sum_launch": (_P, ctypes.c_longlong, _P, _P, _P,
+                               ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                               ctypes.c_int, _P, _P, _P),
+    },
+    "cin": {
+        # xk, x0, w, out, batch, h, m, d, o, stream
+        "cin_layer_launch": (_P,) * 4 + (ctypes.c_int,) * 5 + (_P,),
+    },
 }
 
 _LOADED: dict[str, ctypes.CDLL] = {}

@@ -1,10 +1,10 @@
-"""Public wrappers around the port's kernels (the truss and attention
-entries of ``repro``'s ``kernels/ops.py``).
+"""Public wrappers around the port's kernels (the entries of ``repro``'s
+``kernels/ops.py``).
 
 Each wrapper dispatches on the device of the tensors it is given: a CUDA
 tensor launches the hand-written kernel (``peel_wave``, ``bitmap_support``,
-``flash_attention``), which raises if it cannot run; a CPU tensor takes the plain version in
-``ref``.  There is no fallback from one to the other.  ``use_kernels(False)``
+``flash_attention``, ``segment_matmul``, ``cin``), which raises if it
+cannot run; a CPU tensor takes the plain version in ``ref``.  There is no fallback from one to the other.  ``use_kernels(False)``
 is the explicit A/B switch that sends every device to the plain version.
 """
 from __future__ import annotations
@@ -13,8 +13,10 @@ import torch
 
 from . import ref
 from .bitmap_support import bitmap_support_cuda
+from .cin import cin_layer_cuda
 from .flash_attention import flash_attention_cuda
 from .peel_wave import peel_wave_cuda
+from .segment_matmul import segment_sum_cuda
 
 _USE_KERNELS = True
 
@@ -126,3 +128,30 @@ def flash_attention_heads(q, k, v, *, causal: bool = True,
     return ref.chunked_attention_ref(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
         causal=causal, window=window).transpose(1, 2)
+
+
+def segment_matmul(messages, seg_ids, num_segments: int):
+    """K4's rows entry, the reference's signature: ``out[s] = Σ messages[i]
+    over seg_ids[i] == s`` -> ``[N, D]`` in ``messages.dtype``; int32 ids,
+    those outside ``[0, N)`` dropped; summed in index order in fp32."""
+    if _on_card(messages, seg_ids):
+        return segment_sum_cuda(messages, seg_ids, num_segments)
+    return ref.segment_matmul_ref(messages, seg_ids, num_segments)
+
+
+def segment_matmul_gathered(table, indices, seg_ids, num_segments: int):
+    """K4's gathered entry — the one ``embedding_bag`` calls:
+    ``segment_matmul(table[indices], seg_ids, N)`` with the rows read in
+    place on the card (``jnp.take`` semantics for the indices)."""
+    if _on_card(table, indices, seg_ids):
+        return segment_sum_cuda(table, seg_ids, num_segments, indices)
+    return ref.segment_matmul_gathered_ref(table, indices, seg_ids,
+                                           num_segments)
+
+
+def cin_layer(xk, x0, w):
+    """K5: ``relu(einsum('bhd,bmd,ohm->bod', xk, x0, w))`` in fp32 ->
+    ``[B, O, D]`` in ``xk.dtype`` (float32 on the card)."""
+    if _on_card(xk, x0, w):
+        return cin_layer_cuda(xk, x0, w)
+    return ref.cin_layer_ref(xk, x0, w)

@@ -5,6 +5,10 @@ words widened to int64 (masks after every shift), so no step depends on
 int32 overflow or on an arithmetic right shift.  ``attention_ref``
 materialises the ``[BH, Sq, Skv]`` scores in fp32; ``chunked_attention_ref``
 (the model's layout) keeps them to one ``[q_chunk, kv_chunk]`` block.
+``segment_matmul_ref`` is ``jax.ops.segment_sum`` (ids outside ``[0, n)``
+dropped); ``take_rows_ref`` is ``jnp.take`` along rows (negative ids wrap,
+ids outside ``[-R, R)`` give NaN rows); ``cin_layer_ref`` is one xDeepFM
+CIN layer.
 """
 from __future__ import annotations
 
@@ -133,3 +137,43 @@ def chunked_attention_ref(q, k, v, *, causal: bool, window: int | None,
         outs.append((o_run / l_run[..., None]).to(q.dtype))
     out = torch.cat(outs, dim=3)[:, :, :, :sq]                   # [B,Hkv,G,Sq,Dh]
     return out.reshape(b, hq, sq, dh)
+
+
+def segment_matmul_ref(messages: torch.Tensor, seg_ids: torch.Tensor,
+                       num_segments: int) -> torch.Tensor:
+    """``out[s] = sum of messages[i] where seg_ids[i] == s`` -> ``[N, D]``:
+    summed in index order in fp32, ids outside ``[0, num_segments)``
+    (negative ones too) dropped, cast to ``messages.dtype`` once."""
+    keep = (seg_ids >= 0) & (seg_ids < num_segments)
+    out = torch.zeros((num_segments,) + tuple(messages.shape[1:]),
+                      dtype=torch.float32, device=messages.device)
+    out.index_add_(0, seg_ids[keep].long(), messages[keep].float())
+    return out.to(messages.dtype)
+
+
+def take_rows_ref(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, indices, axis=0)``: a negative id counts from the
+    end; an id outside ``[-R, R)`` gives a row of NaN (float tables)."""
+    r = table.shape[0]
+    idx = indices.long()
+    idx = torch.where(idx < 0, idx + r, idx)
+    valid = (idx >= 0) & (idx < r)
+    rows = table[torch.where(valid, idx, 0)]
+    return torch.where(valid.reshape((-1,) + (1,) * (table.dim() - 1)), rows,
+                       float("nan"))
+
+
+def segment_matmul_gathered_ref(table: torch.Tensor, indices: torch.Tensor,
+                                seg_ids: torch.Tensor,
+                                num_segments: int) -> torch.Tensor:
+    """``segment_matmul_ref(take_rows_ref(table, indices), seg_ids, n)``."""
+    return segment_matmul_ref(take_rows_ref(table, indices), seg_ids,
+                              num_segments)
+
+
+def cin_layer_ref(xk: torch.Tensor, x0: torch.Tensor,
+                  w: torch.Tensor) -> torch.Tensor:
+    """``relu(einsum('bhd,bmd,ohm->bod'))`` in fp32, output in ``xk.dtype``:
+    xk ``[B, H, D]``, x0 ``[B, M, D]``, w ``[O, H, M]`` -> ``[B, O, D]``."""
+    z = torch.einsum("bhd,bmd,ohm->bod", xk.float(), x0.float(), w.float())
+    return torch.relu(z).to(xk.dtype)

@@ -85,20 +85,44 @@ def test_padding_keys_stay_masked_without_causal():
     assert np.abs(np.asarray(pallas) - np.asarray(exp)).max() > 1e-2
 
 
+def _attention_f64(q, k, v, window):
+    """Causal GQA attention in float64 numpy: the truth both sides are held
+    to, so that a failure names the side that moved."""
+    group = q.shape[1] // k.shape[1]
+    k, v = (np.repeat(x.astype(np.float64), group, axis=1) for x in (k, v))
+    s = np.einsum("bhqd,bhkd->bhqk", q.astype(np.float64), k) * q.shape[-1] ** -0.5
+    pos = np.arange(q.shape[2])
+    mask = pos[:, None] >= pos[None, :]
+    if window is not None:
+        mask &= (pos[:, None] - pos[None, :]) < window
+    s = np.where(mask, s, -np.inf)
+    p = np.exp(s - s.max(-1, keepdims=True))
+    return np.einsum("bhqk,bhkd->bhqd", p / p.sum(-1, keepdims=True), v)
+
+
 @pytest.mark.parametrize("window", [None, 48])
 def test_chunked_attention_matches_reference(window):
     """``_chunked_attention`` with GQA (4 query heads over 2 KV heads),
-    chunks that do not divide S, against ``repro``'s, fp32."""
+    chunks that do not divide S, against ``repro``'s, fp32.  The reference
+    is evaluated to completion before the port runs (JAX dispatches
+    asynchronously and reads the numpy inputs in place), and each side is
+    first held to a float64 truth, so a failure says which side moved."""
     rng = np.random.default_rng(0)
     b, hq, hkv, s, dh = 2, 4, 2, 200, 16
     q = rng.normal(size=(b, hq, s, dh)).astype(np.float32)
     k = rng.normal(size=(b, hkv, s, dh)).astype(np.float32)
     v = rng.normal(size=(b, hkv, s, dh)).astype(np.float32)
-    exp = j_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                    causal=True, window=window, q_chunk=64, kv_chunk=64)
+    exp = np.array(j_chunked(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, window=window, q_chunk=64,
+                             kv_chunk=64))
     got = _chunked_attention(torch.from_numpy(q), torch.from_numpy(k),
                              torch.from_numpy(v), causal=True, window=window,
                              q_chunk=64, kv_chunk=64)
+    truth = _attention_f64(q, k, v, window)
+    np.testing.assert_allclose(exp, truth, rtol=2e-5, atol=2e-5,
+                               err_msg="the reference moved")
+    np.testing.assert_allclose(got.numpy(), truth, rtol=2e-5, atol=2e-5,
+                               err_msg="the port moved")
     _close(got, exp, 2e-5)
 
 

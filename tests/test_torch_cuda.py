@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card: each held against its plain PyTorch
-version (K1/K2 bitwise, K3 within a stated tolerance), and the truss engine
-and the LM prefill on the card equal to the same on the CPU.
+version (K1/K2 bitwise, K3, K4 and K5 within stated tolerances), and the
+truss engine, the LM prefill and the xDeepFM scores on the card equal to
+the same on the CPU.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -13,8 +14,10 @@ import torch
 from repro_torch import core
 from repro_torch.configs import get_config
 from repro_torch.data.synthetic import powerlaw_graph
-from repro_torch.kernels import bitmap_support, flash_attention, ops, peel_wave, ref
-from repro_torch.models import transformer
+from repro_torch.data.synthetic import ClickStream
+from repro_torch.kernels import (bitmap_support, cin, flash_attention, ops,
+                                 peel_wave, ref, segment_matmul)
+from repro_torch.models import recsys, transformer
 
 pytestmark = pytest.mark.cuda
 
@@ -173,3 +176,102 @@ def test_prefill_on_card_equals_prefill_on_cpu(cuda):
     assert flash_attention.LAUNCHES == n + cfg.n_layers
     exp = transformer.prefill(cfg, params, toks)
     assert (got - exp).abs().max() <= 3e-2 * exp.abs().max()
+
+
+# ---------------------------------------------------------------------------
+# K4 segment sum: 1e-5 in fp32, 2e-2 in fp16 (the reference's sweep);
+# K5 CIN layer: 2e-5 in fp32
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("e,d,n", [(10, 4, 3), (100, 16, 17), (1000, 64, 77),
+                                   (513, 32, 128), (257, 8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_segment_matmul_equals_plain_version(cuda, e, d, n, dtype):
+    rng = np.random.default_rng(e + d + n)
+    m = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(
+        cuda, dtype)
+    seg = torch.from_numpy(rng.integers(-2, n + 2, e).astype(np.int32)).to(cuda)
+    launches = segment_matmul.LAUNCHES
+    got = ops.segment_matmul(m, seg, n)
+    exp = ref.segment_matmul_ref(m, seg, n)
+    table = m[: max(e // 2, 1)].contiguous()
+    idx = torch.from_numpy(rng.integers(0, table.shape[0], e).astype(
+        np.int32)).to(cuda)
+    gathered = ops.segment_matmul_gathered(table, idx, seg, n)
+    torch.cuda.synchronize()
+    assert segment_matmul.LAUNCHES == launches + 2 and got.dtype == dtype
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), exp.float(), rtol=tol, atol=tol)
+    # the gathered entry sums the same rows in the same order as the rows
+    # entry on the gathered copy: bitwise equal, and so is a second run
+    assert torch.equal(gathered, ops.segment_matmul(table[idx.long()], seg, n))
+    assert torch.equal(got, ops.segment_matmul(m, seg, n))
+
+
+def test_segment_matmul_gathered_takes_rows_as_jnp_take(cuda):
+    table = torch.arange(18, dtype=torch.float32, device=cuda).reshape(6, 3)
+    idx = torch.tensor([0, -1, 5, 6, -7, 2], dtype=torch.int32, device=cuda)
+    seg = torch.tensor([0, 0, 1, 2, 3, 4], dtype=torch.int32, device=cuda)
+    got = ops.segment_matmul_gathered(table, idx, seg, 5)
+    exp = ref.segment_matmul_gathered_ref(table, idx, seg, 5)
+    torch.testing.assert_close(got, exp, equal_nan=True)
+    assert bool(got[2:4].isnan().all()) and not bool(got[[0, 1, 4]].isnan().any())
+
+
+def test_segment_matmul_at_the_p99_shape(cuda):
+    """xDeepFM serve_p99's bag sum: 16,384 rows of 10 gathered from a
+    4M-row table into 2,048 sorted bags of 8."""
+    rng = np.random.default_rng(0)
+    table = torch.randn((4_000_000, 10), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0)) * 0.01
+    idx = torch.from_numpy(rng.integers(0, 4_000_000, 16_384).astype(
+        np.int32)).to(cuda)
+    seg = torch.arange(2048, dtype=torch.int32, device=cuda).repeat_interleave(8)
+    got = ops.segment_matmul_gathered(table, idx, seg, 2048)
+    exp = ref.segment_matmul_gathered_ref(table, idx, seg, 2048)
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("b,h,m,o,d", [(8, 5, 7, 11, 6), (64, 40, 40, 200, 10),
+                                       (130, 8, 8, 16, 16), (3, 2, 1, 70, 5),
+                                       (512, 40, 40, 200, 10),
+                                       (512, 200, 40, 200, 10)])
+def test_cin_layer_equals_plain_version(cuda, b, h, m, o, d):
+    """The reference's sweep, ragged tiles, and xDeepFM's p99 layers."""
+    rng = np.random.default_rng(b + h)
+    xk = _heads(rng, (b, h, d), torch.float32, cuda)
+    x0 = _heads(rng, (b, m, d), torch.float32, cuda)
+    w = _heads(rng, (o, h, m), torch.float32, cuda) * 0.1
+    if h == 200:       # a layer's scale: w ~ 1 / sqrt(H M), as init_params
+        w = w * (10.0 / np.sqrt(h * m))
+    n = cin.LAUNCHES
+    got = ops.cin_layer(xk, x0, w)
+    exp = ref.cin_layer_ref(xk, x0, w)
+    torch.cuda.synchronize()
+    assert cin.LAUNCHES == n + 1 and got.shape == (b, o, d)
+    torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
+
+
+def test_cin_layer_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros((2, 3, 4), device=cuda)
+    with pytest.raises(ValueError):            # bf16
+        ops.cin_layer(x.bfloat16(), x.bfloat16(), torch.zeros(
+            (5, 3, 3), device=cuda, dtype=torch.bfloat16))
+    with pytest.raises(ValueError):            # w does not contract
+        ops.cin_layer(x, x, torch.zeros((5, 3, 2), device=cuda))
+
+
+def test_recsys_serve_on_card_equals_serve_on_cpu(cuda):
+    """xDeepFM smoke: the card's scores (K4 and K5 on the path) against the
+    CPU's plain versions, 1e-5 (fp32 sums in another order)."""
+    cfg = get_config("xdeepfm").smoke
+    params = recsys.init_params(cfg, torch.Generator().manual_seed(0))
+    card_params = recsys.params_from_numpy(recsys.params_to_numpy(params),
+                                           device=cuda)
+    nb = ClickStream(cfg, 64, seed=1).next()
+    n4, n5 = segment_matmul.LAUNCHES, cin.LAUNCHES
+    got = recsys.serve(cfg, card_params, recsys.batch_to_torch(nb, cuda)).cpu()
+    assert segment_matmul.LAUNCHES == n4 + 2
+    assert cin.LAUNCHES == n5 + len(cfg.cin_layers)
+    exp = recsys.serve(cfg, params, recsys.batch_to_torch(nb, "cpu"))
+    torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
