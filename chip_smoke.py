@@ -5,17 +5,22 @@
 
 1. Reads the card's name and power limit, builds the CUDA sources in
    ``src/repro_torch/csrc`` with ``nvcc`` (one process each, started
-   together) and prints the build seconds and the ``-Xptxas -v`` reports.
+   together) and prints the build seconds and the ``-Xptxas -v`` reports,
+   then each K3 body's registers, spills and shared memory.
 2. Holds each truss kernel (``peel_wave``, ``bitmap_support``) bitwise
    against its plain PyTorch version on the card: at the unit-test shapes
    (row and word slabs, words with bit 31 set) and at the slice's width on
    a 65,536-row chunk of the slashdot-like bitmap; then times one full wave
    of each at that shape (CUDA events, median) beside its bound and the
    plain version.
-3. Holds the attention kernel (``flash_attention``) against its plain
-   version: the reference's sweep, a non-causal case whose length is no
-   multiple of the tile, and the slice's shapes, ``[64, 4096, 128]`` bf16
-   (without and with a 1,024 window) and the prefill's GQA layout.
+3. Holds the attention kernel (``flash_attention``, two bodies: ``wgmma``
+   for bf16 at head dims 64 and 128, ``simt`` for the rest) against its
+   plain version: the reference's sweep, a non-causal case whose length is
+   no multiple of the tile, the wgmma body at head dims 64 and 128 with
+   ragged lengths, a window and a V whose columns differ, the slice's
+   shapes, ``[64, 4096, 128]`` bf16 (without and with a 1,024 window) and
+   the prefill's GQA layout, the SIMT body against the wgmma body there,
+   and the SIMT body at ``gemma-2b``'s MQA layout (head dim 256).
 4. Drives the truss path: ``DynamicGraph(support_method="bitmap")`` on the
    slashdot-like power-law graph (77,360 nodes, 980,614 edges), checked
    against the pure-Python oracle; three fused 2,000-update batches, a few
@@ -23,14 +28,19 @@
    more batch of each engine under ``torch.profiler``, then
    ``max_truss``/``k_truss``/``index.query`` checked against a host
    connected-components pass, and a final from-scratch oracle check.
-5. Times the attention kernel at ``[64, 4096, 128]`` bf16 beside its
+5. Times the attention kernel's bodies at ``[64, 4096, 128]`` bf16 and at
+   the prefill's GQA layout (the wgmma body, then the SIMT body asked for
+   by name), and the SIMT body at ``gemma-2b``'s layout, each beside its
    bound, its plain version and ``scaled_dot_product_attention``.
 6. Drives the LM serving path at the full width and depth of
    ``qwen3-0.6b`` with seeded random weights: prefill of 4 x 4,096 tokens
-   (K3 28 times a call), one more under ``torch.profiler``, then
+   (K3's wgmma body 28 times a call, its SIMT body never), one more under
+   ``torch.profiler``, then
    ``DecodeEngine`` serving four 512-token prompts with 16 new tokens each,
    checked against prefill's argmax within a tolerance measured from a
-   ``decode_step`` replay of the prompts.
+   ``decode_step`` replay of the prompts.  Then prefill of ``gemma-2b``
+   (head dim 256: K3's SIMT body 18 times a call) at full width and depth
+   on 1 x 4,096 tokens, its logits held against the plain route.
 7. Holds the recsys kernels against their plain versions on the
    reference's sweeps: the segment sum (``segment_matmul``, fp32 and fp16,
    ids outside the range, gathered entry) and the CIN layer (``cin``).
@@ -77,7 +87,11 @@ K3_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 K3_PATH_RTOL, K3_PATH_ATOL = 1.6e-2, 1e-3   # about one bf16 step of each value
 LOGIT_RTOL = 3e-2    # prefill vs decode_step, of max |logit| (bf16 paths)
 K3_SHAPE = (64, 4096, 128)    # [BH, S, Dh]: 4 prompts x 16 heads at 4,096
+K3_WGMMA_CASES = ((64, 300), (64, 4096), (128, 300), (128, 1000))  # (Dh, S)
 LM_ARCH = "qwen3-0.6b"
+SIMT_ARCH = "gemma-2b"        # head dim 256: the LM path of K3's SIMT body
+SIMT_BATCH, SIMT_SEQ = 1, 4096
+SIMT_HEADS = (8, 1, 256)      # gemma-2b: query heads, KV heads, head dim
 PREFILL_BATCH, PREFILL_SEQ = 4, 4096
 PARAM_COUNT = 596_041_728     # transformer.param_count of qwen3-0.6b
 SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 512, 16, 640
@@ -417,6 +431,41 @@ def build_all(_build) -> None:
         log((path.parent / "build.log").read_text().strip())
 
 
+def k3_compile_report(_build) -> None:
+    """Each K3 body's registers and spills from ``build.log`` (``-Xptxas
+    -v``) and the dynamic shared memory its launch asks for."""
+    import re
+    log_text = (_build.library_path("flash_attention").parent
+                / "build.log").read_text()
+    lib = _build.library("flash_attention")
+    entry = re.compile(r"Compiling entry function '\S*?(flash_attention_wgmma|"
+                       r"flash_attention_fwd)I(f|13__nv_bfloat16)?Li(\d+)E")
+    spill = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+    regs = re.compile(r"Used (\d+) registers")
+    cur = None
+    for line in log_text.splitlines():
+        m = entry.search(line)
+        if m:
+            wg = m.group(1) == "flash_attention_wgmma"
+            bf16 = wg or m.group(2) != "f"
+            cur = {"body": "wgmma" if wg else "simt",
+                   "dtype": "bf16" if bf16 else "fp32", "d": int(m.group(3))}
+        elif cur is not None and spill.search(line):
+            cur["spill"] = spill.search(line).groups()
+        elif cur is not None and regs.search(line):
+            smem = lib.flash_attention_smem_bytes(
+                int(cur["body"] == "wgmma"), cur["d"],
+                int(cur["dtype"] == "bf16"))
+            note = (" (the consumer warpgroups raise theirs to 240 with "
+                    "setmaxnreg, the producer drops to 24)"
+                    if cur["body"] == "wgmma" else "")
+            log(f"K3 {cur['body']} body, {cur['dtype']} D={cur['d']}: "
+                f"{regs.search(line).group(1)} registers at launch{note}, "
+                f"spill stores/loads {'/'.join(cur.get('spill', ('?', '?')))} "
+                f"bytes, dynamic shared memory {smem:,} bytes")
+            cur = None
+
+
 def _normal(rng, shape, dtype, dev):
     return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(
         device=dev, dtype=dtype)
@@ -445,26 +494,57 @@ def check_close(got, exp, tol: float, what: str,
     return err
 
 
-def check_flash_attention(ops, ref, dev) -> dict:
-    """K3 against its plain version on the card; returns the max abs error
-    of each group of cases."""
-    errs, mean_abs = {}, {}
+def check_flash_attention(ops, ref, fa, dev) -> dict:
+    """K3 against its plain version on the card; returns, per body, the max
+    abs error of each group of cases that body ran."""
+    errs, mean_abs = {"wgmma": {}, "simt": {}}, {}
+
+    def ran(before) -> str:
+        """The one body launched since ``before`` (a copy of the counts)."""
+        diff = {b: n - before[b] for b, n in fa.LAUNCHES_BY_BODY.items()}
+        bodies = [b for b, n in diff.items() if n]
+        if len(bodies) != 1:
+            raise AssertionError(f"expected one body, launches {diff}")
+        return bodies[0]
+
+    def keep(body, name, e):
+        errs[body][name] = max(errs[body].get(name, 0.0), e)
+
     for dtype in (torch.float32, torch.bfloat16):
-        e = 0.0
         for bh, sq, dh in K3_SWEEP:
             rng = np.random.default_rng(bh * sq)
             q, k, v = (_normal(rng, (bh, sq, dh), dtype, dev) for _ in range(3))
             for window in (None, 32):
-                e = max(e, check_close(
-                    ops.flash_attention(q, k, v, window=window),
-                    ref.attention_ref(q, k, v, window=window), K3_TOL[dtype],
-                    f"K3 sweep {bh}x{sq}x{dh} w={window} {dtype}"))
-        errs[f"sweep {str(dtype)[6:]}"] = e
+                n = dict(fa.LAUNCHES_BY_BODY)
+                got = ops.flash_attention(q, k, v, window=window)
+                keep(ran(n), f"sweep {str(dtype)[6:]}", check_close(
+                    got, ref.attention_ref(q, k, v, window=window),
+                    K3_TOL[dtype], f"K3 sweep {bh}x{sq}x{dh} w={window} "
+                    f"{dtype}"))
     rng = np.random.default_rng(100)
     q, k, v = (_normal(rng, (3, 100, 64), torch.float32, dev) for _ in range(3))
-    errs["causal=False S=100"] = check_close(
-        ops.flash_attention(q, k, v, causal=False),
-        ref.attention_ref(q, k, v, causal=False), 2e-5, "K3 causal=False")
+    n = dict(fa.LAUNCHES_BY_BODY)
+    got = ops.flash_attention(q, k, v, causal=False)
+    keep(ran(n), "causal=False S=100", check_close(
+        got, ref.attention_ref(q, k, v, causal=False), 2e-5,
+        "K3 causal=False"))
+
+    # the wgmma body at both head dims: ragged lengths, a window, and a V
+    # whose columns differ (a swapped or transposed V operand would show)
+    for dh, sq in K3_WGMMA_CASES:
+        rng = np.random.default_rng(dh + sq)
+        q, k = (_normal(rng, (2, sq, dh), torch.bfloat16, dev) for _ in range(2))
+        v = (_normal(rng, (2, sq, dh), torch.float32, dev)
+             + torch.linspace(-2.0, 3.0, dh, device=dev)).to(torch.bfloat16)
+        for window in (None, 40):
+            n = dict(fa.LAUNCHES_BY_BODY)
+            got = ops.flash_attention(q, k, v, window=window)
+            if ran(n) != "wgmma":
+                raise AssertionError(f"bf16 D={dh} did not run the wgmma body")
+            keep("wgmma", "D 64/128, S 300/1000/4096, V columns differ",
+                 check_close(got, ref.attention_ref(q, k, v, window=window),
+                             K3_PATH_ATOL, f"K3 wgmma D={dh} S={sq} "
+                             f"w={window}", K3_PATH_RTOL))
 
     # the path's shapes: |o| is about 0.03 at a median causal row (a row
     # averages ~S/2 values of v), so these are held to about one bf16 step
@@ -474,15 +554,22 @@ def check_flash_attention(ops, ref, dev) -> dict:
     q, k, v = (_normal(rng, K3_SHAPE, torch.bfloat16, dev) for _ in range(3))
     for window in (None, 1024):
         name = f"{list(K3_SHAPE)} bf16 window={window}"
+        n = dict(fa.LAUNCHES_BY_BODY)
         got = ops.flash_attention(q, k, v, window=window)
-        errs[name], mean_abs[name] = 0.0, 0.0
+        body = ran(n)
+        mean_abs[name] = 0.0
         for c in range(0, bh, 8):      # plain version 8 heads at a time
             exp = ref.attention_ref(q[c:c + 8], k[c:c + 8], v[c:c + 8],
                                     window=window)
-            errs[name] = max(errs[name], check_close(
+            keep(body, name, check_close(
                 got[c:c + 8], exp, K3_PATH_ATOL, f"K3 {K3_SHAPE} w={window}",
                 K3_PATH_RTOL))
             mean_abs[name] += float(exp.float().abs().mean()) / (bh // 8)
+        if window is None:             # the SIMT body, asked for by name
+            simt = fa.flash_attention_cuda(q[:, :, None], k[:, :, None],
+                                           v[:, :, None], body="simt")[:, :, 0]
+            keep("simt", "SIMT vs wgmma at " + name, check_close(
+                simt, got, K3_PATH_ATOL, "K3 SIMT vs wgmma", K3_PATH_RTOL))
     hq = bh // PREFILL_BATCH
     qh = _normal(rng, (PREFILL_BATCH, s, hq, dh), torch.bfloat16, dev)
     kh, vh = (_normal(rng, (PREFILL_BATCH, s, hq // 2, dh), torch.bfloat16, dev)
@@ -491,14 +578,34 @@ def check_flash_attention(ops, ref, dev) -> dict:
     exp = ref.chunked_attention_ref(
         qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
         causal=True, window=None).transpose(1, 2)
-    errs[name] = check_close(ops.flash_attention_heads(qh, kh, vh), exp,
-                             K3_PATH_ATOL, "K3 GQA prefill", K3_PATH_RTOL)
+    n = dict(fa.LAUNCHES_BY_BODY)
+    got = ops.flash_attention_heads(qh, kh, vh)
+    keep(ran(n), name, check_close(got, exp, K3_PATH_ATOL, "K3 GQA prefill",
+                                   K3_PATH_RTOL))
     mean_abs[name] = float(exp.float().abs().mean())
-    for name, e in errs.items():
-        held = (f" (mean |plain| {mean_abs[name]:.3g}; held to atol "
-                f"{K3_PATH_ATOL:g} + rtol {K3_PATH_RTOL:g} x |plain|)"
-                if name in mean_abs else "")
-        log(f"K3 vs plain, {name}: max abs err {e:.3g}{held}")
+    del qh, kh, vh, exp
+
+    # the SIMT body's LM path: gemma-2b's MQA layout at head dim 256
+    rng = np.random.default_rng(3)
+    hq, hkv, dg = SIMT_HEADS
+    qg = _normal(rng, (SIMT_BATCH, SIMT_SEQ, hq, dg), torch.bfloat16, dev)
+    kg, vg = (_normal(rng, (SIMT_BATCH, SIMT_SEQ, hkv, dg), torch.bfloat16,
+                      dev) for _ in range(2))
+    name = f"{SIMT_ARCH} MQA {list(qg.shape)} q / {hkv} kv head bf16"
+    exp = ref.chunked_attention_ref(
+        qg.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+        causal=True, window=None).transpose(1, 2)
+    n = dict(fa.LAUNCHES_BY_BODY)
+    got = ops.flash_attention_heads(qg, kg, vg)
+    keep(ran(n), name, check_close(got, exp, K3_PATH_ATOL, "K3 gemma MQA",
+                                   K3_PATH_RTOL))
+    mean_abs[name] = float(exp.float().abs().mean())
+    for body, groups in errs.items():
+        for name, e in groups.items():
+            held = (f" (mean |plain| {mean_abs[name]:.3g}; held to atol "
+                    f"{K3_PATH_ATOL:g} + rtol {K3_PATH_RTOL:g} x |plain|)"
+                    if name in mean_abs else "")
+            log(f"K3 {body} body vs plain, {name}: max abs err {e:.3g}{held}")
     return errs
 
 
@@ -510,49 +617,101 @@ def attention_pairs(s: int, causal: bool, window) -> int:
     return int(np.maximum(hi - lo, 0).sum())
 
 
-def time_flash_attention(ops, ref, dev):
-    """K3 at ``[64, 4096, 128]`` bf16, causal: kernel, plain version and
-    ``scaled_dot_product_attention`` (the yardstick; the port never calls
-    it), CUDA events, median of 10 after warm-up; the bound from this
-    run's inputs.  Returns (ms, plain_ms, library_ms, bound_ms, bound_by)."""
+def k3_bound(q, k, flops: float):
+    """Least time of one K3 call: q and k/v read once and o written once
+    (bytes), or ``flops`` at the bf16 tensor-core peak (operations).
+    Returns (ms, 'bytes' | 'operations', bytes)."""
+    n_bytes = 2 * (q.numel() + k.numel()) * q.element_size()
+    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", n_bytes)
+
+
+def time_flash_attention(ops, ref, fa, dev) -> dict:
+    """K3 at ``[64, 4096, 128]`` bf16 causal and at the prefill's GQA layout
+    ``[4, 4096, 16 q / 8 kv, 128]``: the wgmma body and the SIMT body (asked
+    for by name), timed in turns (wgmma, SIMT, SIMT, wgmma), the plain
+    version and ``scaled_dot_product_attention`` (the yardstick; the port
+    never calls it); then the SIMT body at ``gemma-2b``'s layout ``[1,
+    4096, 8 q / 1 kv, 256]`` beside its plain version and SDPA.  CUDA
+    events, median of 10 after warm-up (the plain version and the SIMT body
+    at the path shapes: median of 3); the bounds from this run's inputs.
+    Returns {"flat" | "gqa" | "gemma": {"wgmma", "simt", "plain", "sdpa":
+    ms, "bound": (ms, by, bytes)}}."""
     import torch.nn.functional as F
 
+    def plain_ms(call) -> float:
+        ops.use_kernels(False)
+        try:
+            return time_ms(call, 3)
+        finally:
+            ops.use_kernels(True)
+
+    out = {}
     bh, s, dh = K3_SHAPE
     rng = np.random.default_rng(2)
     q, k, v = (_normal(rng, K3_SHAPE, torch.bfloat16, dev) for _ in range(3))
-    ms = time_ms(lambda: ops.flash_attention(q, k, v), 10)
-    ops.use_kernels(False)
-    try:
-        plain_ms = time_ms(lambda: ops.flash_attention(q, k, v), 10)
-    finally:
-        ops.use_kernels(True)
-    q4, k4, v4 = q[None], k[None], v[None]   # [1, BH, S, Dh] views
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q4, k4, v4, is_causal=True), 10)
     hq = bh // PREFILL_BATCH
     qh = _normal(rng, (PREFILL_BATCH, s, hq, dh), torch.bfloat16, dev)
     kh, vh = (_normal(rng, (PREFILL_BATCH, s, hq // 2, dh), torch.bfloat16, dev)
               for _ in range(2))
-    gqa_ms = time_ms(lambda: ops.flash_attention_heads(qh, kh, vh), 10)
-
-    flops = 4 * dh * bh * attention_pairs(s, True, None)
-    n_bytes = 4 * q.numel() * q.element_size()       # q, k, v read; o written
-    t_ops, t_bytes = flops / BF16_FLOPS_PER_S, n_bytes / HBM_BYTES_PER_S
-    bound = 1e3 * max(t_ops, t_bytes)
-    by = "operations" if t_ops >= t_bytes else "bytes"
-    log(f"K3 {list(K3_SHAPE)} bf16 causal: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, scaled_dot_product_attention {lib_ms:.3f} ms; "
-        f"bound {bound:.4f} ms by {by} ({flops / 1e9:.1f} GFLOP at "
-        f"{BF16_FLOPS_PER_S / 1e12:.0f} TFLOP/s bf16; {n_bytes / 1e6:.1f} MB "
-        f"= {1e3 * t_bytes:.4f} ms); fp32 CUDA-core floor "
-        f"{1e3 * flops / CUDA_CORE_OPS_PER_S:.3f} ms; achieved "
-        f"{flops / ms / 1e9:.1f} TFLOP/s")
-    log(f"K3 prefill layout {list(qh.shape)} q / {kh.shape[2]} kv heads bf16: "
-        f"{gqa_ms:.3f} ms (K/V read at 8 heads: "
-        f"{(qh.numel() * 2 + kh.numel() * 2) * 2 / 1e6:.1f} MB)")
-    del q, k, v, q4, k4, v4, qh, kh, vh
+    pairs = attention_pairs(s, True, None)
+    for key, name, args in (
+            ("flat", f"{list(K3_SHAPE)}", (q[:, :, None], k[:, :, None],
+                                           v[:, :, None])),
+            ("gqa", f"prefill GQA {list(qh.shape)} q / {kh.shape[2]} kv",
+             (qh, kh, vh))):
+        wg = lambda: fa.flash_attention_cuda(*args)                # noqa: E731
+        simt = lambda: fa.flash_attention_cuda(*args, body="simt")  # noqa: E731
+        t = [time_ms(wg, 10), time_ms(simt, 3), time_ms(simt, 3),
+             time_ms(wg, 10)]
+        if key == "flat":
+            pm = plain_ms(lambda: ops.flash_attention(q, k, v))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                q[None], k[None], v[None], is_causal=True), 10)
+        else:
+            pm = plain_ms(lambda: ops.flash_attention_heads(qh, kh, vh))
+            lib = time_ms(lambda: F.scaled_dot_product_attention(
+                qh.transpose(1, 2), kh.transpose(1, 2), vh.transpose(1, 2),
+                is_causal=True, enable_gqa=True), 10)
+        n_heads = args[0].shape[0] * args[0].shape[2]
+        flops = 4 * dh * n_heads * pairs
+        bound = k3_bound(args[0], args[1], flops)
+        r = out[key] = {"wgmma": (t[0] + t[3]) / 2, "simt": (t[1] + t[2]) / 2,
+                        "plain": pm, "sdpa": lib, "bound": bound}
+        log(f"K3 {name} bf16 causal: wgmma body {t[0]:.4f} / {t[3]:.4f} ms "
+            f"({flops / r['wgmma'] / 1e9:.1f} TFLOP/s, "
+            f"{bound[0] / r['wgmma']:.1%} of the bound), SIMT body "
+            f"{t[1]:.3f} / {t[2]:.3f} ms ({flops / r['simt'] / 1e9:.1f}"
+            f" TFLOP/s), plain {pm:.3f} ms, scaled_dot_product_attention "
+            f"{lib:.4f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({flops / 1e9:.1f} GFLOP at {BF16_FLOPS_PER_S / 1e12:.0f} "
+            f"TFLOP/s bf16; {bound[2] / 1e6:.1f} MB = "
+            f"{1e3 * bound[2] / HBM_BYTES_PER_S:.4f} ms); fp32 CUDA-core "
+            f"floor {1e3 * flops / CUDA_CORE_OPS_PER_S:.3f} ms")
+    del q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
-    return ms, plain_ms, lib_ms, bound, by
+
+    hq, hkv, dg = SIMT_HEADS
+    qg = _normal(rng, (SIMT_BATCH, SIMT_SEQ, hq, dg), torch.bfloat16, dev)
+    kg, vg = (_normal(rng, (SIMT_BATCH, SIMT_SEQ, hkv, dg), torch.bfloat16,
+                      dev) for _ in range(2))
+    name = f"{SIMT_ARCH} MQA {list(qg.shape)} q / {hkv} kv"
+    ms = time_ms(lambda: ops.flash_attention_heads(qg, kg, vg), 10)
+    pm = plain_ms(lambda: ops.flash_attention_heads(qg, kg, vg))
+    lib = time_ms(lambda: F.scaled_dot_product_attention(
+        qg.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
+        is_causal=True, enable_gqa=True), 10)
+    flops = 4 * dg * SIMT_BATCH * hq * attention_pairs(SIMT_SEQ, True, None)
+    bound = k3_bound(qg, kg, flops)
+    out["gemma"] = {"simt": ms, "plain": pm, "sdpa": lib, "bound": bound}
+    log(f"K3 {name} bf16 causal: SIMT body {ms:.4f} ms "
+        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {pm:.3f} ms, "
+        f"scaled_dot_product_attention {lib:.4f} ms; bound {bound[0]:.4f} ms "
+        f"by {bound[1]} ({flops / 1e9:.1f} GFLOP; {bound[2] / 1e6:.1f} MB)")
+    del qg, kg, vg
+    torch.cuda.empty_cache()
+    return out
 
 
 def drive_lm_path(fa, dev) -> dict:
@@ -583,7 +742,7 @@ def drive_lm_path(fa, dev) -> dict:
         0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ))).to(dev)
 
     def prefill(toks):
-        n = fa.LAUNCHES
+        n, by_body = fa.LAUNCHES, dict(fa.LAUNCHES_BY_BODY)
         t0 = time.perf_counter()
         logits = transformer.prefill(cfg, params, toks)
         sync(dev)
@@ -591,6 +750,11 @@ def drive_lm_path(fa, dev) -> dict:
         if fa.LAUNCHES - n != cfg.n_layers:
             raise AssertionError(f"prefill launched K3 {fa.LAUNCHES - n} "
                                  f"times, expected {cfg.n_layers}")
+        ran = {b: c - by_body[b] for b, c in fa.LAUNCHES_BY_BODY.items()}
+        if ran != {"wgmma": cfg.n_layers, "simt": 0}:
+            raise AssertionError(f"prefill launched K3's bodies {ran}, "
+                                 f"expected the wgmma body {cfg.n_layers} "
+                                 f"times and the SIMT body never")
         if logits.shape != (toks.shape[0], cfg.vocab) or \
                 not bool(torch.isfinite(logits).all()):
             raise AssertionError(f"prefill logits {tuple(logits.shape)} "
@@ -601,8 +765,8 @@ def drive_lm_path(fa, dev) -> dict:
     for i in range(2):
         _, dt = prefill(tokens)
         log(f"prefill [{PREFILL_BATCH}, {PREFILL_SEQ}] call {i}: {dt:.3f} s, "
-            f"{n_tok / dt:,.0f} tokens/s, logits finite, K3 launched "
-            f"{cfg.n_layers} times")
+            f"{n_tok / dt:,.0f} tokens/s, logits finite, K3's wgmma body "
+            f"launched {cfg.n_layers} times, its SIMT body never")
     out["prefill_s"], out["prefill_tok_s"] = dt, n_tok / dt
     out["prefill_busy"] = profiled(lambda: prefill(tokens))
     del tokens
@@ -669,6 +833,67 @@ def drive_lm_path(fa, dev) -> dict:
                                  f"top-2 margin {m} >= {tol}")
     out.update(dlogit=dmax, agree=agree, margins=margins)
     del params, eng, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_simt_path(ops, fa, dev) -> dict:
+    """Prefill of ``gemma-2b`` (head dim 256, 8 query heads over one KV
+    head) at full width and depth with seeded random weights on 1 x 4,096
+    tokens: K3's SIMT body once per layer, its wgmma body never; the logits
+    held against the same call through the plain route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config(SIMT_ARCH).model
+    if (cfg.n_heads, cfg.n_kv, cfg.head_dim) != SIMT_HEADS:
+        raise AssertionError(f"{SIMT_ARCH}: heads {cfg.n_heads}/{cfg.n_kv} "
+                             f"of {cfg.head_dim}, expected {SIMT_HEADS}")
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    sync(dev)
+    log(f"{SIMT_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} q / {cfg.n_kv} kv heads of {cfg.head_dim}, "
+        f"param_count {transformer.param_count(cfg):,}, init "
+        f"{time.perf_counter() - t:.1f} s")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SIMT_BATCH, SIMT_SEQ))).to(dev)
+    out = {}
+    for i in range(2):
+        by_body = dict(fa.LAUNCHES_BY_BODY)
+        t0 = time.perf_counter()
+        logits = transformer.prefill(cfg, params, tokens)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        ran = {b: c - by_body[b] for b, c in fa.LAUNCHES_BY_BODY.items()}
+        if ran != {"wgmma": 0, "simt": cfg.n_layers}:
+            raise AssertionError(f"{SIMT_ARCH} prefill launched K3's bodies "
+                                 f"{ran}, expected the SIMT body "
+                                 f"{cfg.n_layers} times")
+        if logits.shape != (SIMT_BATCH, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{SIMT_ARCH} logits not finite or of the "
+                                 f"wrong shape")
+        log(f"{SIMT_ARCH} prefill [{SIMT_BATCH}, {SIMT_SEQ}] call {i}: "
+            f"{dt:.3f} s, {SIMT_BATCH * SIMT_SEQ / dt:,.0f} tokens/s, K3's "
+            f"SIMT body launched {cfg.n_layers} times")
+    out["prefill_s"], out["prefill_tok_s"] = dt, SIMT_BATCH * SIMT_SEQ / dt
+    ops.use_kernels(False)
+    try:
+        plain = transformer.prefill(cfg, params, tokens)
+    finally:
+        ops.use_kernels(True)
+    dmax = float((logits - plain).abs().max())
+    lmax = float(plain.abs().max())
+    log(f"{SIMT_ARCH} prefill vs the plain route: max |logit difference| "
+        f"{dmax:.4g} (largest |logit| {lmax:.4g}; limit {LOGIT_RTOL:g} x "
+        f"that = {LOGIT_RTOL * lmax:.4g}); argmax "
+        f"{logits.argmax(-1).tolist()} vs {plain.argmax(-1).tolist()}")
+    if not dmax <= LOGIT_RTOL * lmax:
+        raise AssertionError(f"{SIMT_ARCH} prefill differs from the plain "
+                             f"route by {dmax} > {LOGIT_RTOL} x {lmax}")
+    out["dlogit"] = dmax
+    del params, tokens
     torch.cuda.empty_cache()
     return out
 
@@ -970,6 +1195,14 @@ def time_recsys_kernels(ops, ref, rs, dev) -> dict:
     return res
 
 
+def reset_counts(*mods) -> None:
+    """Set the launch counts of the kernel modules to 0 (and K3's by body)."""
+    for mod in mods:
+        mod.LAUNCHES = 0
+        for body in getattr(mod, "LAUNCHES_BY_BODY", ()):
+            mod.LAUNCHES_BY_BODY[body] = 0
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False", file=sys.stderr)
@@ -986,11 +1219,12 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_all(_build)
+    k3_compile_report(_build)
 
     err = check_test_shapes(ops, ref, dev)
     log(f"test shapes: kernels == plain versions (tolerance: bitwise; "
         f"max abs err {err})")
-    k3_errs = check_flash_attention(ops, ref, dev)
+    k3_errs = check_flash_attention(ops, ref, flash_attention, dev)
 
     edges = powerlaw_graph(N_NODES, M_PER_NODE, seed=0)
     if len(edges) != N_EDGES:
@@ -998,7 +1232,7 @@ def main() -> int:
                              f"expected {N_EDGES}")
     full = full_width_checks(core, ops, ref, edges, dev)
 
-    peel_wave.LAUNCHES = bitmap_support.LAUNCHES = flash_attention.LAUNCHES = 0
+    reset_counts(peel_wave, bitmap_support, flash_attention)
     t = time.perf_counter()
     g, sec = drive_main_path(core, edges, dev)
     launches = {"peel_wave": peel_wave.LAUNCHES,
@@ -1013,22 +1247,28 @@ def main() -> int:
     del g
     torch.cuda.empty_cache()
 
-    k3_time = time_flash_attention(ops, ref, dev)
+    k3_time = time_flash_attention(ops, ref, flash_attention, dev)
 
-    peel_wave.LAUNCHES = bitmap_support.LAUNCHES = flash_attention.LAUNCHES = 0
+    reset_counts(peel_wave, bitmap_support, flash_attention)
     t = time.perf_counter()
     lm = drive_lm_path(flash_attention, dev)
-    launches["flash_attention"] = flash_attention.LAUNCHES
+    launches["flash_attention_wgmma"] = flash_attention.LAUNCHES_BY_BODY["wgmma"]
     log(f"LM path: {time.perf_counter() - t:.1f} s, launches "
-        f"{flash_attention.LAUNCHES}; {json.dumps(lm)}")
+        f"{flash_attention.LAUNCHES_BY_BODY}; {json.dumps(lm)}")
+
+    reset_counts(peel_wave, bitmap_support, flash_attention)
+    t = time.perf_counter()
+    simt_lm = drive_simt_path(ops, flash_attention, dev)
+    launches["flash_attention_simt"] = flash_attention.LAUNCHES_BY_BODY["simt"]
+    log(f"{SIMT_ARCH} prefill path: {time.perf_counter() - t:.1f} s, "
+        f"launches {flash_attention.LAUNCHES_BY_BODY}; {json.dumps(simt_lm)}")
 
     from repro_torch.kernels import cin, segment_matmul
     k45_errs = check_recsys_kernels(ops, ref, dev)
     rs = recsys_setup(dev)
     k45_errs.update(check_recsys_path_shapes(ops, ref, rs))
-    counters = (peel_wave, bitmap_support, flash_attention, segment_matmul, cin)
-    for mod in counters:
-        mod.LAUNCHES = 0
+    reset_counts(peel_wave, bitmap_support, flash_attention, segment_matmul,
+                 cin)
     t = time.perf_counter()
     rec = drive_recsys_path(rs, dev)
     launches["segment_matmul"] = segment_matmul.LAUNCHES
@@ -1055,14 +1295,18 @@ def main() -> int:
             "replaces": sources[name], "launches": launches[name],
             "max_abs_err": max(err_k, err), "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": None})
-    ms, pms, lms, bms, by = k3_time
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention.py:83",
-        "launches": launches["flash_attention"],
-        "max_abs_err": max(k3_errs.values()), "ms": ms, "plain_ms": pms,
-        "bound_ms": bms, "bound_by": by, "library_ms": lms})
+    # each K3 body at its own path's shape: the wgmma body at qwen3's
+    # [64, 4096, 128], the SIMT body at gemma-2b's MQA layout
+    for body, layout in (("wgmma", "flat"), ("simt", "gemma")):
+        tm = k3_time[layout]
+        kernels.append({
+            "name": f"flash_attention_{body}", "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:83",
+            "launches": launches[f"flash_attention_{body}"],
+            "max_abs_err": max(k3_errs[body].values()), "ms": tm[body],
+            "plain_ms": tm["plain"], "bound_ms": tm["bound"][0],
+            "bound_by": tm["bound"][1], "library_ms": tm["sdpa"]})
     for name, source, replaces, timing in (
             ("segment_matmul", "segment_sum.cu",
              "src/repro/kernels/segment_matmul.py:44",

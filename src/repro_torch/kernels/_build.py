@@ -33,9 +33,11 @@ _SIGNATURES = {
     },
     "flash_attention": {
         # q, k, v, o, strides[9], batch, n_heads, group, seq, head_dim,
-        # is_bf16, causal, window, scale, stream
+        # is_bf16, causal, window, scale, wgmma, stream
         "flash_attention_launch": (_P, _P, _P, _P, _P) + (ctypes.c_int,) * 8
-                                  + (ctypes.c_float, _P),
+                                  + (ctypes.c_float, ctypes.c_int, _P),
+        # wgmma, head_dim, is_bf16 -> dynamic shared memory bytes
+        "flash_attention_smem_bytes": (ctypes.c_int,) * 3,
     },
     "segment_sum": {
         # src, n_src_rows, indices, sorted_ids, order, e, n, d, dtype,

@@ -161,6 +161,95 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
                                   q.transpose(1, 2))
 
 
+# The bf16 tensor-core body at head dims 64 and 128: held to the path's
+# rtol 1.6e-2 + atol 1e-3 (about one bf16 step of each value), with a V
+# whose columns differ (a transposed or swapped V operand would show).
+
+def _asym_v(rng, shape, device):
+    v = _heads(rng, shape, torch.float32, device)
+    return (v + torch.linspace(-2.0, 3.0, shape[-1], device=device)).to(
+        torch.bfloat16)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("s", [128, 300, 4096])
+@pytest.mark.parametrize("window", [None, 40])
+def test_wgmma_body_equals_plain_version(cuda, dh, s, window):
+    rng = np.random.default_rng(dh * s + (window or 0))
+    q, k = (_heads(rng, (2, s, dh), torch.bfloat16, cuda) for _ in range(2))
+    v = _asym_v(rng, (2, s, dh), cuda)
+    n = dict(flash_attention.LAUNCHES_BY_BODY)
+    got = ops.flash_attention(q, k, v, causal=True, window=window)
+    exp = ref.attention_ref(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES_BY_BODY == {
+        "wgmma": n["wgmma"] + 1, "simt": n["simt"]}
+    torch.testing.assert_close(got.float(), exp.float(), rtol=1.6e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("hq,hkv", [(16, 8), (4, 1)])
+def test_wgmma_body_reads_kv_heads_in_place(cuda, hq, hkv):
+    rng = np.random.default_rng(hq + hkv)
+    b, s, dh = 2, 700, 128
+    q = _heads(rng, (b, s, hq, dh), torch.bfloat16, cuda)
+    k = _heads(rng, (b, s, hkv, dh), torch.bfloat16, cuda)
+    v = _asym_v(rng, (b, s, hkv, dh), cuda)
+    n = flash_attention.LAUNCHES_BY_BODY["wgmma"]
+    got = ops.flash_attention_heads(q, k, v)
+    exp = ref.chunked_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+        window=None).transpose(1, 2)
+    assert flash_attention.LAUNCHES_BY_BODY["wgmma"] == n + 1
+    torch.testing.assert_close(got.float(), exp.float(), rtol=1.6e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("dh,window", [(64, None), (128, 100)])
+def test_the_two_bodies_agree_on_bf16(cuda, dh, window):
+    """The same bf16 input through the wgmma body and, asked for by name,
+    the SIMT body: each output within one bf16 step of the other."""
+    rng = np.random.default_rng(dh)
+    q, k = (_heads(rng, (2, 1000, 4, dh), torch.bfloat16, cuda)
+            for _ in range(2))
+    v = _asym_v(rng, (2, 1000, 4, dh), cuda)
+    n = dict(flash_attention.LAUNCHES_BY_BODY)
+    fast = flash_attention.flash_attention_cuda(q, k, v, window=window)
+    simt = flash_attention.flash_attention_cuda(q, k, v, window=window,
+                                                body="simt")
+    assert flash_attention.LAUNCHES_BY_BODY == {
+        "wgmma": n["wgmma"] + 1, "simt": n["simt"] + 1}
+    torch.testing.assert_close(fast.float(), simt.float(), rtol=1.6e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("dtype,dh,body", [(torch.bfloat16, 128, "wgmma"),
+                                           (torch.bfloat16, 64, "wgmma"),
+                                           (torch.bfloat16, 32, "simt"),
+                                           (torch.float32, 128, "simt")])
+def test_launches_by_body_show_which_body_ran(cuda, dtype, dh, body):
+    q = _heads(np.random.default_rng(0), (1, 200, 2, dh), dtype, cuda)
+    n = dict(flash_attention.LAUNCHES_BY_BODY)
+    total = flash_attention.LAUNCHES
+    ops.flash_attention_heads(q, q, q)
+    assert flash_attention.LAUNCHES == total + 1
+    n[body] += 1
+    assert flash_attention.LAUNCHES_BY_BODY == n
+
+
+def test_a_body_is_never_switched(cuda):
+    """The wgmma body refuses fp32 and other head dims by name; it is not
+    swapped for the SIMT body."""
+    q = torch.zeros((1, 64, 2, 128), device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_cuda(q, q, q, body="wgmma")
+    q = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_cuda(q, q, q, body="wgmma")
+    with pytest.raises(ValueError):
+        flash_attention.flash_attention_cuda(q, q, q, body="tensor")
+
+
 def test_prefill_on_card_equals_prefill_on_cpu(cuda):
     """qwen3 smoke at s = 512: the card's prefill launches K3 once per
     layer; its logits agree with the CPU's (chunked attention) within 3% of
