@@ -6,7 +6,8 @@
 1. Reads the card's name and power limit, builds the CUDA sources in
    ``src/repro_torch/csrc`` with ``nvcc`` (one process each, started
    together) and prints the build seconds and the ``-Xptxas -v`` reports,
-   then each K3 body's registers, spills and shared memory.
+   then each K3 body's registers, spills and shared memory (failing where
+   a wgmma instantiation spills or asks for more than 232,448 bytes).
 2. Holds each truss kernel (``peel_wave``, ``bitmap_support``) bitwise
    against its plain PyTorch version on the card: at the unit-test shapes
    (row and word slabs, words with bit 31 set) and at the slice's width on
@@ -14,13 +15,14 @@
    of each at that shape (CUDA events, median) beside its bound and the
    plain version.
 3. Holds the attention kernel (``flash_attention``, two bodies: ``wgmma``
-   for bf16 at head dims 64 and 128, ``simt`` for the rest) against its
-   plain version: the reference's sweep, a non-causal case whose length is
-   no multiple of the tile, the wgmma body at head dims 64 and 128 with
-   ragged lengths, a window and a V whose columns differ, the slice's
+   for bf16 at head dims 64, 128 and 256, ``simt`` for the rest) against
+   its plain version: the reference's sweep, a non-causal case whose length
+   is no multiple of the tile, the wgmma body at head dims 64, 128 and 256
+   with ragged lengths, a window and a V whose columns differ, the slice's
    shapes, ``[64, 4096, 128]`` bf16 (without and with a 1,024 window) and
    the prefill's GQA layout, the SIMT body against the wgmma body there,
-   and the SIMT body at ``gemma-2b``'s MQA layout (head dim 256).
+   and both bodies at ``gemma-2b``'s MQA layout (head dim 256), each
+   against the plain version and against each other.
 4. Drives the truss path: ``DynamicGraph(support_method="bitmap")`` on the
    slashdot-like power-law graph (77,360 nodes, 980,614 edges), checked
    against the pure-Python oracle; three fused 2,000-update batches, a few
@@ -28,10 +30,10 @@
    more batch of each engine under ``torch.profiler``, then
    ``max_truss``/``k_truss``/``index.query`` checked against a host
    connected-components pass, and a final from-scratch oracle check.
-5. Times the attention kernel's bodies at ``[64, 4096, 128]`` bf16 and at
-   the prefill's GQA layout (the wgmma body, then the SIMT body asked for
-   by name), and the SIMT body at ``gemma-2b``'s layout, each beside its
-   bound, its plain version and ``scaled_dot_product_attention``.
+5. Times the attention kernel's bodies at ``[64, 4096, 128]`` bf16, at the
+   prefill's GQA layout and at ``gemma-2b``'s layout (the wgmma body and
+   the SIMT body asked for by name, in turns), each beside its bound, its
+   plain version and ``scaled_dot_product_attention``.
 6. Drives the LM serving path at the full width and depth of
    ``qwen3-0.6b`` with seeded random weights: prefill of 4 x 4,096 tokens
    (K3's wgmma body 28 times a call, its SIMT body never), one more under
@@ -39,8 +41,12 @@
    ``DecodeEngine`` serving four 512-token prompts with 16 new tokens each,
    checked against prefill's argmax within a tolerance measured from a
    ``decode_step`` replay of the prompts.  Then prefill of ``gemma-2b``
-   (head dim 256: K3's SIMT body 18 times a call) at full width and depth
-   on 1 x 4,096 tokens, its logits held against the plain route.
+   (head dim 256: K3's wgmma body 18 times a call, its SIMT body never) at
+   full width and depth on 1 x 4,096 tokens, its logits held against the
+   plain route; and the SIMT body's path, prefill of ``gemma-2b``'s smoke
+   config (head dim 32, bf16: the SIMT body once a layer) on 4 x 1,024
+   tokens, the kernel at that shape and the logits held against the plain
+   versions.
 7. Holds the recsys kernels against their plain versions on the
    reference's sweeps: the segment sum (``segment_matmul``, fp32 and fp16,
    ids outside the range, gathered entry) and the CIN layer (``cin``).
@@ -87,11 +93,14 @@ K3_TOL = {torch.float32: 2e-5, torch.bfloat16: 3e-2}
 K3_PATH_RTOL, K3_PATH_ATOL = 1.6e-2, 1e-3   # about one bf16 step of each value
 LOGIT_RTOL = 3e-2    # prefill vs decode_step, of max |logit| (bf16 paths)
 K3_SHAPE = (64, 4096, 128)    # [BH, S, Dh]: 4 prompts x 16 heads at 4,096
-K3_WGMMA_CASES = ((64, 300), (64, 4096), (128, 300), (128, 1000))  # (Dh, S)
+K3_WGMMA_CASES = ((64, 300), (64, 4096), (128, 300), (128, 1000),
+                  (256, 300), (256, 4096))                          # (Dh, S)
 LM_ARCH = "qwen3-0.6b"
-SIMT_ARCH = "gemma-2b"        # head dim 256: the LM path of K3's SIMT body
-SIMT_BATCH, SIMT_SEQ = 1, 4096
-SIMT_HEADS = (8, 1, 256)      # gemma-2b: query heads, KV heads, head dim
+GEMMA_ARCH = "gemma-2b"       # head dim 256: K3's wgmma body with 64-key tiles
+GEMMA_BATCH, GEMMA_SEQ = 1, 4096
+GEMMA_HEADS = (8, 1, 256)     # gemma-2b: query heads, KV heads, head dim
+SIMT_BATCH, SIMT_SEQ = 4, 1024   # gemma-2b's smoke config: K3's SIMT body
+SMEM_LIMIT = 232_448          # dynamic shared memory a block may use
 PREFILL_BATCH, PREFILL_SEQ = 4, 4096
 PARAM_COUNT = 596_041_728     # transformer.param_count of qwen3-0.6b
 SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 512, 16, 640
@@ -431,9 +440,11 @@ def build_all(_build) -> None:
         log((path.parent / "build.log").read_text().strip())
 
 
-def k3_compile_report(_build) -> None:
+def k3_compile_report(_build, fa) -> None:
     """Each K3 body's registers and spills from ``build.log`` (``-Xptxas
-    -v``) and the dynamic shared memory its launch asks for."""
+    -v``) and the dynamic shared memory its launch asks for; raises where a
+    wgmma instantiation spills or needs more shared memory than a block
+    may use, or where one of its head dims is missing from the report."""
     import re
     log_text = (_build.library_path("flash_attention").parent
                 / "build.log").read_text()
@@ -442,7 +453,7 @@ def k3_compile_report(_build) -> None:
                        r"flash_attention_fwd)I(f|13__nv_bfloat16)?Li(\d+)E")
     spill = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
     regs = re.compile(r"Used (\d+) registers")
-    cur = None
+    cur, wgmma_dims = None, set()
     for line in log_text.splitlines():
         m = entry.search(line)
         if m:
@@ -459,11 +470,22 @@ def k3_compile_report(_build) -> None:
             note = (" (the consumer warpgroups raise theirs to 240 with "
                     "setmaxnreg, the producer drops to 24)"
                     if cur["body"] == "wgmma" else "")
+            spills = cur.get("spill", ("?", "?"))
             log(f"K3 {cur['body']} body, {cur['dtype']} D={cur['d']}: "
                 f"{regs.search(line).group(1)} registers at launch{note}, "
-                f"spill stores/loads {'/'.join(cur.get('spill', ('?', '?')))} "
+                f"spill stores/loads {'/'.join(spills)} "
                 f"bytes, dynamic shared memory {smem:,} bytes")
+            if cur["body"] == "wgmma":
+                if spills != ("0", "0") or not 0 < smem <= SMEM_LIMIT:
+                    raise AssertionError(
+                        f"K3 wgmma body D={cur['d']}: spills {spills}, "
+                        f"shared memory {smem} (limit {SMEM_LIMIT})")
+                wgmma_dims.add(cur["d"])
             cur = None
+    if wgmma_dims != set(fa.WGMMA_HEAD_DIMS):
+        raise AssertionError(f"compile report has the wgmma body at "
+                             f"{sorted(wgmma_dims)}, expected "
+                             f"{fa.WGMMA_HEAD_DIMS}")
 
 
 def _normal(rng, shape, dtype, dev):
@@ -529,7 +551,7 @@ def check_flash_attention(ops, ref, fa, dev) -> dict:
         got, ref.attention_ref(q, k, v, causal=False), 2e-5,
         "K3 causal=False"))
 
-    # the wgmma body at both head dims: ragged lengths, a window, and a V
+    # the wgmma body at each head dim: ragged lengths, a window, and a V
     # whose columns differ (a swapped or transposed V operand would show)
     for dh, sq in K3_WGMMA_CASES:
         rng = np.random.default_rng(dh + sq)
@@ -541,7 +563,7 @@ def check_flash_attention(ops, ref, fa, dev) -> dict:
             got = ops.flash_attention(q, k, v, window=window)
             if ran(n) != "wgmma":
                 raise AssertionError(f"bf16 D={dh} did not run the wgmma body")
-            keep("wgmma", "D 64/128, S 300/1000/4096, V columns differ",
+            keep("wgmma", "D 64/128/256, S 300/1000/4096, V columns differ",
                  check_close(got, ref.attention_ref(q, k, v, window=window),
                              K3_PATH_ATOL, f"K3 wgmma D={dh} S={sq} "
                              f"w={window}", K3_PATH_RTOL))
@@ -585,21 +607,53 @@ def check_flash_attention(ops, ref, fa, dev) -> dict:
     mean_abs[name] = float(exp.float().abs().mean())
     del qh, kh, vh, exp
 
-    # the SIMT body's LM path: gemma-2b's MQA layout at head dim 256
+    # gemma-2b's MQA layout at head dim 256: the default body (wgmma) and
+    # the SIMT body asked for by name, each against the plain version and
+    # against each other
     rng = np.random.default_rng(3)
-    hq, hkv, dg = SIMT_HEADS
-    qg = _normal(rng, (SIMT_BATCH, SIMT_SEQ, hq, dg), torch.bfloat16, dev)
-    kg, vg = (_normal(rng, (SIMT_BATCH, SIMT_SEQ, hkv, dg), torch.bfloat16,
+    hq, hkv, dg = GEMMA_HEADS
+    qg = _normal(rng, (GEMMA_BATCH, GEMMA_SEQ, hq, dg), torch.bfloat16, dev)
+    kg, vg = (_normal(rng, (GEMMA_BATCH, GEMMA_SEQ, hkv, dg), torch.bfloat16,
                       dev) for _ in range(2))
-    name = f"{SIMT_ARCH} MQA {list(qg.shape)} q / {hkv} kv head bf16"
+    name = f"{GEMMA_ARCH} MQA {list(qg.shape)} q / {hkv} kv head bf16"
     exp = ref.chunked_attention_ref(
         qg.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
         causal=True, window=None).transpose(1, 2)
+    mean_abs[name] = float(exp.float().abs().mean())
     n = dict(fa.LAUNCHES_BY_BODY)
     got = ops.flash_attention_heads(qg, kg, vg)
-    keep(ran(n), name, check_close(got, exp, K3_PATH_ATOL, "K3 gemma MQA",
-                                   K3_PATH_RTOL))
+    if ran(n) != "wgmma":
+        raise AssertionError(f"{GEMMA_ARCH}'s layout did not run the wgmma "
+                             f"body")
+    keep("wgmma", name, check_close(got, exp, K3_PATH_ATOL, "K3 gemma MQA",
+                                    K3_PATH_RTOL))
+    simt = fa.flash_attention_cuda(qg, kg, vg, body="simt")
+    keep("simt", name, check_close(simt, exp, K3_PATH_ATOL,
+                                   "K3 SIMT gemma MQA", K3_PATH_RTOL))
+    keep("simt", "SIMT vs wgmma at " + name, check_close(
+        simt, got, K3_PATH_ATOL, "K3 SIMT vs wgmma, gemma MQA", K3_PATH_RTOL))
+    del qg, kg, vg, exp, got, simt
+
+    # the SIMT body's path: the prefill of gemma-2b's smoke config (head dim
+    # 32, bf16) at its shape
+    from repro_torch.configs import get_config
+    sm = get_config(GEMMA_ARCH).smoke
+    qs = _normal(rng, (SIMT_BATCH, SIMT_SEQ, sm.n_heads, sm.head_dim),
+                 torch.bfloat16, dev)
+    ks, vs = (_normal(rng, (SIMT_BATCH, SIMT_SEQ, sm.n_kv, sm.head_dim),
+                      torch.bfloat16, dev) for _ in range(2))
+    name = (f"{sm.name} prefill {list(qs.shape)} q / {sm.n_kv} kv head "
+            f"bf16")
+    exp = ref.chunked_attention_ref(
+        qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2),
+        causal=True, window=None).transpose(1, 2)
     mean_abs[name] = float(exp.float().abs().mean())
+    n = dict(fa.LAUNCHES_BY_BODY)
+    got = ops.flash_attention_heads(qs, ks, vs)
+    if ran(n) != "simt":
+        raise AssertionError(f"{sm.name}'s layout did not run the SIMT body")
+    keep("simt", name, check_close(got, exp, K3_PATH_ATOL,
+                                   "K3 SIMT gemma smoke", K3_PATH_RTOL))
     for body, groups in errs.items():
         for name, e in groups.items():
             held = (f" (mean |plain| {mean_abs[name]:.3g}; held to atol "
@@ -628,16 +682,15 @@ def k3_bound(q, k, flops: float):
 
 
 def time_flash_attention(ops, ref, fa, dev) -> dict:
-    """K3 at ``[64, 4096, 128]`` bf16 causal and at the prefill's GQA layout
-    ``[4, 4096, 16 q / 8 kv, 128]``: the wgmma body and the SIMT body (asked
-    for by name), timed in turns (wgmma, SIMT, SIMT, wgmma), the plain
-    version and ``scaled_dot_product_attention`` (the yardstick; the port
-    never calls it); then the SIMT body at ``gemma-2b``'s layout ``[1,
-    4096, 8 q / 1 kv, 256]`` beside its plain version and SDPA.  CUDA
-    events, median of 10 after warm-up (the plain version and the SIMT body
-    at the path shapes: median of 3); the bounds from this run's inputs.
-    Returns {"flat" | "gqa" | "gemma": {"wgmma", "simt", "plain", "sdpa":
-    ms, "bound": (ms, by, bytes)}}."""
+    """K3 at ``[64, 4096, 128]`` bf16 causal, at the prefill's GQA layout
+    ``[4, 4096, 16 q / 8 kv, 128]`` and at ``gemma-2b``'s layout ``[1, 4096,
+    8 q / 1 kv, 256]``: the wgmma body and the SIMT body (asked for by
+    name), timed in turns (wgmma, SIMT, SIMT, wgmma), the plain version and
+    ``scaled_dot_product_attention`` (the yardstick; the port never calls
+    it).  CUDA events, median of 10 after warm-up (the plain version and
+    the SIMT body at the 128 head-dim layouts: median of 3); the bounds from
+    this run's inputs.  Returns {"flat" | "gqa" | "gemma": {"wgmma",
+    "simt", "plain", "sdpa": ms, "bound": (ms, by, bytes)}}."""
     import torch.nn.functional as F
 
     def plain_ms(call) -> float:
@@ -692,23 +745,31 @@ def time_flash_attention(ops, ref, fa, dev) -> dict:
     del q, k, v, qh, kh, vh
     torch.cuda.empty_cache()
 
-    hq, hkv, dg = SIMT_HEADS
-    qg = _normal(rng, (SIMT_BATCH, SIMT_SEQ, hq, dg), torch.bfloat16, dev)
-    kg, vg = (_normal(rng, (SIMT_BATCH, SIMT_SEQ, hkv, dg), torch.bfloat16,
+    hq, hkv, dg = GEMMA_HEADS
+    qg = _normal(rng, (GEMMA_BATCH, GEMMA_SEQ, hq, dg), torch.bfloat16, dev)
+    kg, vg = (_normal(rng, (GEMMA_BATCH, GEMMA_SEQ, hkv, dg), torch.bfloat16,
                       dev) for _ in range(2))
-    name = f"{SIMT_ARCH} MQA {list(qg.shape)} q / {hkv} kv"
-    ms = time_ms(lambda: ops.flash_attention_heads(qg, kg, vg), 10)
-    pm = plain_ms(lambda: ops.flash_attention_heads(qg, kg, vg))
+    name = f"{GEMMA_ARCH} MQA {list(qg.shape)} q / {hkv} kv"
+    wg = lambda: ops.flash_attention_heads(qg, kg, vg)                  # noqa: E731
+    simt = lambda: fa.flash_attention_cuda(qg, kg, vg, body="simt")     # noqa: E731
+    t = [time_ms(wg, 10), time_ms(simt, 10), time_ms(simt, 10),
+         time_ms(wg, 10)]
+    pm = plain_ms(wg)
     lib = time_ms(lambda: F.scaled_dot_product_attention(
         qg.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2),
         is_causal=True, enable_gqa=True), 10)
-    flops = 4 * dg * SIMT_BATCH * hq * attention_pairs(SIMT_SEQ, True, None)
+    flops = 4 * dg * GEMMA_BATCH * hq * attention_pairs(GEMMA_SEQ, True, None)
     bound = k3_bound(qg, kg, flops)
-    out["gemma"] = {"simt": ms, "plain": pm, "sdpa": lib, "bound": bound}
-    log(f"K3 {name} bf16 causal: SIMT body {ms:.4f} ms "
-        f"({flops / ms / 1e9:.1f} TFLOP/s), plain {pm:.3f} ms, "
-        f"scaled_dot_product_attention {lib:.4f} ms; bound {bound[0]:.4f} ms "
-        f"by {bound[1]} ({flops / 1e9:.1f} GFLOP; {bound[2] / 1e6:.1f} MB)")
+    r = out["gemma"] = {"wgmma": (t[0] + t[3]) / 2, "simt": (t[1] + t[2]) / 2,
+                        "plain": pm, "sdpa": lib, "bound": bound}
+    log(f"K3 {name} bf16 causal: wgmma body {t[0]:.4f} / {t[3]:.4f} ms "
+        f"({flops / r['wgmma'] / 1e9:.1f} TFLOP/s, "
+        f"{bound[0] / r['wgmma']:.1%} of the bound), SIMT body "
+        f"{t[1]:.4f} / {t[2]:.4f} ms ({flops / r['simt'] / 1e9:.1f} "
+        f"TFLOP/s; {r['simt'] / r['wgmma']:.2f}x the wgmma body's time), "
+        f"plain {pm:.3f} ms, scaled_dot_product_attention {lib:.4f} ms; "
+        f"bound {bound[0]:.4f} ms by {bound[1]} ({flops / 1e9:.1f} GFLOP; "
+        f"{bound[2] / 1e6:.1f} MB)")
     del qg, kg, vg
     torch.cuda.empty_cache()
     return out
@@ -837,27 +898,37 @@ def drive_lm_path(fa, dev) -> dict:
     return out
 
 
-def drive_simt_path(ops, fa, dev) -> dict:
-    """Prefill of ``gemma-2b`` (head dim 256, 8 query heads over one KV
-    head) at full width and depth with seeded random weights on 1 x 4,096
-    tokens: K3's SIMT body once per layer, its wgmma body never; the logits
-    held against the same call through the plain route."""
+def drive_gemma_prefill(ops, fa, dev, smoke: bool) -> dict:
+    """Prefill of ``gemma-2b`` with seeded random weights, two calls, the
+    logits held against the same call through the plain route.  At full
+    width and depth (8 query heads over one KV head of 256) on 1 x 4,096
+    tokens it is the path of K3's wgmma body at head dim 256, once a layer,
+    the SIMT body never.  With ``smoke``, gemma-2b's smoke config (4 query
+    heads over one KV head of 32, bf16) on 4 x 1,024 tokens is the path of
+    the SIMT body, once a layer, the wgmma body never."""
     from repro_torch.configs import get_config
     from repro_torch.models import transformer
 
-    cfg = get_config(SIMT_ARCH).model
-    if (cfg.n_heads, cfg.n_kv, cfg.head_dim) != SIMT_HEADS:
-        raise AssertionError(f"{SIMT_ARCH}: heads {cfg.n_heads}/{cfg.n_kv} "
-                             f"of {cfg.head_dim}, expected {SIMT_HEADS}")
+    arch = get_config(GEMMA_ARCH)
+    cfg = arch.smoke if smoke else arch.model
+    batch, seq = (SIMT_BATCH, SIMT_SEQ) if smoke else (GEMMA_BATCH, GEMMA_SEQ)
+    body = "simt" if smoke else "wgmma"
+    if not smoke and (cfg.n_heads, cfg.n_kv, cfg.head_dim) != GEMMA_HEADS:
+        raise AssertionError(f"{GEMMA_ARCH}: heads {cfg.n_heads}/{cfg.n_kv} "
+                             f"of {cfg.head_dim}, expected {GEMMA_HEADS}")
+    if fa.body_for(torch.bfloat16, cfg.head_dim) != body:
+        raise AssertionError(f"{cfg.name}: bf16 at head dim {cfg.head_dim} "
+                             f"does not pick the {body} body")
+    expect = {b: cfg.n_layers if b == body else 0 for b in fa.LAUNCHES_BY_BODY}
     t = time.perf_counter()
     params = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0))
     sync(dev)
-    log(f"{SIMT_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+    log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
         f"{cfg.n_heads} q / {cfg.n_kv} kv heads of {cfg.head_dim}, "
         f"param_count {transformer.param_count(cfg):,}, init "
         f"{time.perf_counter() - t:.1f} s")
     tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (SIMT_BATCH, SIMT_SEQ))).to(dev)
+        0, cfg.vocab, (batch, seq))).to(dev)
     out = {}
     for i in range(2):
         by_body = dict(fa.LAUNCHES_BY_BODY)
@@ -866,18 +937,16 @@ def drive_simt_path(ops, fa, dev) -> dict:
         sync(dev)
         dt = time.perf_counter() - t0
         ran = {b: c - by_body[b] for b, c in fa.LAUNCHES_BY_BODY.items()}
-        if ran != {"wgmma": 0, "simt": cfg.n_layers}:
-            raise AssertionError(f"{SIMT_ARCH} prefill launched K3's bodies "
-                                 f"{ran}, expected the SIMT body "
-                                 f"{cfg.n_layers} times")
-        if logits.shape != (SIMT_BATCH, cfg.vocab) or \
+        if ran != expect:
+            raise AssertionError(f"{cfg.name} prefill launched K3's bodies "
+                                 f"{ran}, expected {expect}")
+        if logits.shape != (batch, cfg.vocab) or \
                 not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"{SIMT_ARCH} logits not finite or of the "
+            raise AssertionError(f"{cfg.name} logits not finite or of the "
                                  f"wrong shape")
-        log(f"{SIMT_ARCH} prefill [{SIMT_BATCH}, {SIMT_SEQ}] call {i}: "
-            f"{dt:.3f} s, {SIMT_BATCH * SIMT_SEQ / dt:,.0f} tokens/s, K3's "
-            f"SIMT body launched {cfg.n_layers} times")
-    out["prefill_s"], out["prefill_tok_s"] = dt, SIMT_BATCH * SIMT_SEQ / dt
+        log(f"{cfg.name} prefill [{batch}, {seq}] call {i}: {dt:.3f} s, "
+            f"{batch * seq / dt:,.0f} tokens/s, K3's bodies launched {ran}")
+    out["prefill_s"], out["prefill_tok_s"] = dt, batch * seq / dt
     ops.use_kernels(False)
     try:
         plain = transformer.prefill(cfg, params, tokens)
@@ -885,12 +954,12 @@ def drive_simt_path(ops, fa, dev) -> dict:
         ops.use_kernels(True)
     dmax = float((logits - plain).abs().max())
     lmax = float(plain.abs().max())
-    log(f"{SIMT_ARCH} prefill vs the plain route: max |logit difference| "
+    log(f"{cfg.name} prefill vs the plain route: max |logit difference| "
         f"{dmax:.4g} (largest |logit| {lmax:.4g}; limit {LOGIT_RTOL:g} x "
         f"that = {LOGIT_RTOL * lmax:.4g}); argmax "
         f"{logits.argmax(-1).tolist()} vs {plain.argmax(-1).tolist()}")
     if not dmax <= LOGIT_RTOL * lmax:
-        raise AssertionError(f"{SIMT_ARCH} prefill differs from the plain "
+        raise AssertionError(f"{cfg.name} prefill differs from the plain "
                              f"route by {dmax} > {LOGIT_RTOL} x {lmax}")
     out["dlogit"] = dmax
     del params, tokens
@@ -1219,7 +1288,7 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_all(_build)
-    k3_compile_report(_build)
+    k3_compile_report(_build, flash_attention)
 
     err = check_test_shapes(ops, ref, dev)
     log(f"test shapes: kernels == plain versions (tolerance: bitwise; "
@@ -1252,16 +1321,29 @@ def main() -> int:
     reset_counts(peel_wave, bitmap_support, flash_attention)
     t = time.perf_counter()
     lm = drive_lm_path(flash_attention, dev)
-    launches["flash_attention_wgmma"] = flash_attention.LAUNCHES_BY_BODY["wgmma"]
+    wgmma_paths = {f"{LM_ARCH} prefill":
+                   flash_attention.LAUNCHES_BY_BODY["wgmma"]}
     log(f"LM path: {time.perf_counter() - t:.1f} s, launches "
         f"{flash_attention.LAUNCHES_BY_BODY}; {json.dumps(lm)}")
 
-    reset_counts(peel_wave, bitmap_support, flash_attention)
-    t = time.perf_counter()
-    simt_lm = drive_simt_path(ops, flash_attention, dev)
-    launches["flash_attention_simt"] = flash_attention.LAUNCHES_BY_BODY["simt"]
-    log(f"{SIMT_ARCH} prefill path: {time.perf_counter() - t:.1f} s, "
-        f"launches {flash_attention.LAUNCHES_BY_BODY}; {json.dumps(simt_lm)}")
+    # gemma-2b's prefill (the wgmma body at head dim 256), then its smoke
+    # config's (the SIMT body), each path with the counts set to 0 first
+    simt_paths = {}
+    for smoke, paths in ((False, wgmma_paths), (True, simt_paths)):
+        reset_counts(peel_wave, bitmap_support, flash_attention)
+        t = time.perf_counter()
+        res = drive_gemma_prefill(ops, flash_attention, dev, smoke)
+        name = GEMMA_ARCH + (" smoke config" if smoke else "") + " prefill"
+        paths[name] = flash_attention.LAUNCHES_BY_BODY[
+            "simt" if smoke else "wgmma"]
+        log(f"{name} path: {time.perf_counter() - t:.1f} s, launches "
+            f"{flash_attention.LAUNCHES_BY_BODY}; {json.dumps(res)}")
+    launches["flash_attention_wgmma"] = sum(wgmma_paths.values())
+    launches["flash_attention_simt"] = sum(simt_paths.values())
+    gm = k3_time["gemma"]
+    log(f"K3 at {GEMMA_ARCH}'s layout: the wgmma body {gm['wgmma']:.4f} ms, "
+        f"the SIMT body {gm['simt']:.4f} ms in the same call: "
+        f"{gm['simt'] / gm['wgmma']:.2f}x")
 
     from repro_torch.kernels import cin, segment_matmul
     k45_errs = check_recsys_kernels(ops, ref, dev)
@@ -1295,10 +1377,17 @@ def main() -> int:
             "replaces": sources[name], "launches": launches[name],
             "max_abs_err": max(err_k, err), "ms": ms, "plain_ms": pms,
             "bound_ms": bms, "bound_by": by, "library_ms": None})
-    # each K3 body at its own path's shape: the wgmma body at qwen3's
-    # [64, 4096, 128], the SIMT body at gemma-2b's MQA layout
-    for body, layout in (("wgmma", "flat"), ("simt", "gemma")):
-        tm = k3_time[layout]
+    # K3's bodies: the top-level times of the wgmma body are at qwen3's
+    # [64, 4096, 128], those of the SIMT body at gemma-2b's MQA layout (in
+    # turns with the wgmma body there); "layouts" has each body at each
+    # layout it was timed at, "path" the paths that launched it
+    layouts = {"flat": f"{list(K3_SHAPE)}",
+               "gemma": f"{GEMMA_ARCH} [{GEMMA_BATCH}, {GEMMA_SEQ}, "
+                        f"{GEMMA_HEADS[0]} q / {GEMMA_HEADS[1]} kv, "
+                        f"{GEMMA_HEADS[2]}]"}
+    for body, main_layout, paths in (("wgmma", "flat", wgmma_paths),
+                                     ("simt", "gemma", simt_paths)):
+        tm = k3_time[main_layout]
         kernels.append({
             "name": f"flash_attention_{body}", "route": "cuda",
             "source": "src/repro_torch/csrc/flash_attention.cu",
@@ -1306,7 +1395,14 @@ def main() -> int:
             "launches": launches[f"flash_attention_{body}"],
             "max_abs_err": max(k3_errs[body].values()), "ms": tm[body],
             "plain_ms": tm["plain"], "bound_ms": tm["bound"][0],
-            "bound_by": tm["bound"][1], "library_ms": tm["sdpa"]})
+            "bound_by": tm["bound"][1], "library_ms": tm["sdpa"],
+            "path": paths,
+            "layouts": {layouts[key]: {
+                "ms": k3_time[key][body], "plain_ms": k3_time[key]["plain"],
+                "bound_ms": k3_time[key]["bound"][0],
+                "bound_by": k3_time[key]["bound"][1],
+                "library_ms": k3_time[key]["sdpa"]}
+                for key in ("flat", "gemma")}})
     for name, source, replaces, timing in (
             ("segment_matmul", "segment_sum.cu",
              "src/repro/kernels/segment_matmul.py:44",

@@ -30,57 +30,66 @@
 // v and o; the card's balance is about 295 (bf16 tensor cores) and 20
 // (fp32 CUDA cores).  So the products belong on the tensor cores.
 //
-// The wgmma body (bf16, D = 64 or 128: the model's prefill path) is shaped
-// like FlashAttention-3's forward.  A block of 384 threads owns 128 query
-// rows: warpgroup 0 is the producer, and one of its threads issues every TMA
-// copy (Q once; K and V of each live 128-key tile into a ring of two
+// The wgmma body (bf16, D = 64, 128 or 256: the models' prefill paths) is
+// shaped like FlashAttention-3's forward.  A block of 384 threads owns 128
+// query rows: warpgroup 0 is the producer, and one of its threads issues
+// every TMA copy (Q once; K and V of each live key tile into a ring of two
 // stages, each copy completing on its stage's full mbarrier, each stage
 // handed back on its empty mbarrier); warpgroups 1 and 2 each own 64 query
-// rows.  The producer gives its registers back with setmaxnreg (24 a
-// thread) so the consumers can hold 240.  Tiles arrive through 4-D tensor
-// maps over [B, S, H, D] with the 128-byte swizzle (a box is 64 columns, so
-// a 128-wide row is two boxes); the KV head is a coordinate, and TMA fills
-// rows past S with zeros.  S = Q K^T is wgmma m64n128k16 with both
-// operands in shared memory (K stored [keys, D] is the K-major B it wants),
-// accumulated in fp32 registers.  The softmax runs on that fragment: the
-// element mask only on tiles that straddle the diagonal, the window or S;
-// row max and row sum over the four lanes that share a row; the scale
-// applied in fp32 after the product and folded with log2(e) into exp2f.
-// P goes to bf16 in registers as two terms, hi = P cut to its top 16 bits
-// and lo = bf16(P - hi), each the register A operand of O += P V (wgmma
-// m64nDk16, V read [keys, D] as an MN-major B through the transpose flag),
-// so the product sees P to 2^-16.  The normaliser l sums the unrounded fp32
-// P.  Each consumer issues tile i's Q K^T before tile i - 1's P V and runs
-// tile i's softmax while that P V is in flight; only the rescale of O
-// waits for it.  The
-// epilogue divides by l (0 where l is 0), rounds to bf16 (nearest even),
-// stages the tile through the warpgroup's Q rows in shared memory and
-// stores rows < S with 16-byte stores.  Shared memory at D = 128: Q 32 KB
-// plus two stages of K and V at 32 KB each, 160 KB, one block per SM.
+// rows.  A key tile is 128 keys at D = 64 and 128 and 64 keys at D = 256,
+// where 128-key tiles would need 320 KB of shared memory.  The producer
+// gives its registers back with setmaxnreg (24 a thread) so the consumers
+// can hold 240.  Tiles arrive through 4-D tensor maps over [B, S, H, D]
+// with the 128-byte swizzle (a box is 64 columns of 128 Q rows or of one
+// key tile, so a row of D columns is D / 64 boxes); the KV head is a
+// coordinate, and TMA fills rows past S with zeros.  S = Q K^T is wgmma
+// m64nNk16, N the keys of a tile, with both operands in shared memory (K
+// stored [keys, D] is the K-major B it wants), accumulated in fp32
+// registers.  The softmax runs on that fragment: the element mask only on
+// tiles that straddle the diagonal, the window or S; row max and row sum
+// over the four lanes that share a row; the scale applied in fp32 after the
+// product and folded with log2(e) into exp2f.  A row with no live key yet
+// keeps m = -inf, so its P and its rescale factor are 0; at D = 256 the
+// second key tile of a diagonal block lies wholly above warpgroup 0's rows,
+// which still wait on its full barriers, run its products (all of its P is
+// 0) and hand its stage back.  P goes to bf16 in registers as two terms,
+// hi = P cut to its top 16 bits and lo = bf16(P - hi), each the register A
+// operand of O += P V (wgmma m64nDk16, V read [keys, D] as an MN-major B
+// through the transpose flag), so the product sees P to 2^-16.  The
+// normaliser l sums the unrounded fp32 P.  Each consumer issues tile i's
+// Q K^T before tile i - 1's P V and runs tile i's softmax while that P V is
+// in flight; only the rescale of O waits for it.  The epilogue divides by
+// l (0 where l is 0), rounds to bf16 (nearest even), stages the tile
+// through the warpgroup's Q rows in shared memory and stores rows < S with
+// 16-byte stores.  Shared memory: Q (128 x D x 2 bytes) plus two stages of
+// K and V (keys x D x 2 bytes each): 160 KB at D = 128, 64 + 2 x (32 + 32)
+// = 192 KB at D = 256; one block per SM.  Registers of a consumer thread
+// at D = 256: O 128, S 32, P as hi + lo 32, of the 240.
 //
-// Tolerance of the wgmma body against the fp32 plain version: a bf16 x bf16
-// product is exact in fp32, so S differs from the SIMT body's only in the
-// order of summation, and the output is rounded to bf16 (2^-9 relative) in
-// both bodies.  P alone would add a rounding of 2^-9 relative per weight,
-// and that is relative to each weight, not to the output: where sum p v
-// cancels in a row with few live keys, the error, up to 2^-9 sum p |v| / l,
-// exceeds atol 1e-3 + rtol 1.6e-2 |o| (on the card: up to 2.2 times that
-// limit, in 10 to 30 of 4.2M outputs at [8 heads, 4096, 128], all in the
-// first rows).  With P as hi + lo, lo = P - hi exactly in fp32 (|lo| <
-// 2^-7 P) and its rounding to bf16 leaves P - (hi + lo) at most 2^-16 P, so
-// the bf16 tolerances hold as they were: 3e-2 on the reference's sweep,
-// rtol 1.6e-2 + atol 1e-3 at the path's shapes (worst error under half the
-// limit).  The lo term costs eight more wgmma per tile.
+// Tolerance of the wgmma body against the fp32 plain version, at every
+// head dim: a bf16 x bf16 product is exact in fp32, so S differs from the
+// SIMT body's only in the order of summation, and the output is rounded to
+// bf16 (2^-9 relative) in both bodies.  P alone would add a rounding of
+// 2^-9 relative per weight, and that is relative to each weight, not to
+// the output: where sum p v cancels in a row with few live keys, the
+// error, up to 2^-9 sum p |v| / l, exceeds atol 1e-3 + rtol 1.6e-2 |o| (on
+// the card: up to 2.2 times that limit, in 10 to 30 of 4.2M outputs at [8
+// heads, 4096, 128], all in the first rows).  With P as hi + lo, lo = P -
+// hi exactly in fp32 (|lo| < 2^-7 P) and its rounding to bf16 leaves P -
+// (hi + lo) at most 2^-16 P, so the bf16 tolerances hold as they were:
+// 3e-2 on the reference's sweep, rtol 1.6e-2 + atol 1e-3 at the path's
+// shapes (worst error under half the limit).  None of this depends on D or
+// on the key tile.  The lo term costs one more wgmma per k-step of P V.
 //
-// The SIMT body (fp32 at any head dim, bf16 at D = 16, 32, 256) keeps the
-// first design: one 256-thread block per (b, h, 64-row q-tile), 64-key
-// tiles, products in fp32 on CUDA cores (so its ceiling is the 67 TFLOP/s
-// fp32 rate), Q and K then V staged through shared memory widened to fp32,
-// P through shared memory transposed.  fp32 is held to the reference's
-// 2e-5, which bf16 tensor cores cannot give.  A thread owns rows
-// 4*ty..4*ty+3 of the tile (ty = tid / 16) and, of S, columns tx + 16 j
-// (tx = tid % 16, j < 4), of O, D / 16 columns; row max and row sum are
-// reduced across the 16 lanes of a row with shuffles.
+// The SIMT body (fp32 at any head dim, bf16 at D = 16 and 32; any input
+// when asked for by name) keeps the first design: one 256-thread block per
+// (b, h, 64-row q-tile), 64-key tiles, products in fp32 on CUDA cores (so
+// its ceiling is the 67 TFLOP/s fp32 rate), Q and K then V staged through
+// shared memory widened to fp32, P through shared memory transposed.  fp32
+// is held to the reference's 2e-5, which bf16 tensor cores cannot give.  A
+// thread owns rows 4*ty..4*ty+3 of the tile (ty = tid / 16) and, of S,
+// columns tx + 16 j (tx = tid % 16, j < 4), of O, D / 16 columns; row max
+// and row sum are reduced across the 16 lanes of a row with shuffles.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 //        -Xcompiler -fPIC -o libflash_attention.so flash_attention.cu
@@ -337,7 +346,7 @@ cudaError_t dispatch(int head_dim, const void* q, const void* k,
 }
 
 // ---------------------------------------------------------------------------
-// wgmma body: bf16, D = 64 or 128
+// wgmma body: bf16, D = 64, 128 or 256
 // ---------------------------------------------------------------------------
 
 namespace hopper {
@@ -345,11 +354,13 @@ namespace hopper {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBM = 128;        // query rows of a block (two warpgroups of 64)
-constexpr int kBN = 128;        // keys of a K/V tile
+// keys of a K/V tile: 128, or 64 at D = 256 (shared memory)
+template <int D>
+constexpr int kBN = D == 256 ? 64 : 128;
 constexpr int kStages = 2;      // K/V ring depth
 constexpr int kThreads = 384;   // producer warpgroup + two consumer warpgroups
 constexpr int kBox = 64;        // bf16 columns of one 128-byte swizzled box
-constexpr int kChunkBytes = 128 * 128;   // one 64-column box of 128 rows
+constexpr int kQBox = kBM * 128;         // one 64-column box of Q's 128 rows
 constexpr float kLog2e = 1.4426950408889634f;
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -384,7 +395,8 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   } while (!done);
 }
 
-// box (c0 .. c0 + 63, c1, c2 .. c2 + 127, c3) of a 4-D map into shared memory
+// box (c0 .. c0 + 63, c1, c2 .. c2 + rows - 1, c3) of a 4-D map into shared
+// memory, rows as the map was made with
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
                                          uint32_t bar, int c0, int c1, int c2,
                                          int c3) {
@@ -450,6 +462,23 @@ __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]: A and B from shared memory, both
+// K-major, through descriptors
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t desc_a,
+                                             uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // D[64 x 128] += A[64 x 16] B[16 x 128]: A from registers (four bf16 pairs a
 // thread), B from shared memory through a descriptor, MN-major (transposed)
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
@@ -492,11 +521,56 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)
         "r"(scale_d));
 }
 
+// D[64 x 256] += A[64 x 16] B[16 x 256]: A from registers (four bf16 pairs a
+// thread), B from shared memory through a descriptor, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&a)[4],
+                                              uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, "
+      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
+        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
+        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
+        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
+        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "r"(scale_d));
+}
+
 template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&d)[D / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b) {
-  if constexpr (D == 128) wgmma_rs_n128(d, a, desc_b, 1);
+  if constexpr (D == 256) wgmma_rs_n256(d, a, desc_b, 1);
+  else if constexpr (D == 128) wgmma_rs_n128(d, a, desc_b, 1);
   else wgmma_rs_n64(d, a, desc_b, 1);
+}
+
+// S (+)= Q K^T over one k-step: N keys, N = 128 or 64
+template <int N>
+__device__ __forceinline__ void wgmma_qk(float (&d)[N / 2], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  if constexpr (N == 128) wgmma_ss_n128(d, desc_a, desc_b, scale_d);
+  else wgmma_ss_n64(d, desc_a, desc_b, scale_d);
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -505,15 +579,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 }
 
 // Shared memory, from a 1024-byte aligned base: Q [kBM rows] as D / 64
-// boxes of 16 KB, then K of each stage, then V of each stage (the same
-// shape at kBN rows), then the mbarriers.
+// boxes of 16 KB, then K of each stage, then V of each stage (D / 64 boxes
+// of kBN<D> rows each), then the mbarriers.
 template <int D>
 struct Layout {
-  static constexpr int kTile = kBN * D * 2;           // bytes of one tile
+  static constexpr int kKVBox = kBN<D> * 128;         // one box of a K/V tile
+  static constexpr int kQTile = kQBox * (D / kBox);   // bytes of Q
+  static constexpr int kKVTile = kKVBox * (D / kBox); // bytes of a K/V tile
   static constexpr int kQ = 0;
-  static constexpr int kK = kTile;
-  static constexpr int kV = kTile * (1 + kStages);
-  static constexpr int kBar = kTile * (1 + 2 * kStages);
+  static constexpr int kK = kQTile;
+  static constexpr int kV = kQTile + kKVTile * kStages;
+  static constexpr int kBar = kQTile + 2 * kKVTile * kStages;
   static constexpr int kBytes = kBar + 8 * (1 + 4 * kStages) + 1024;  // + align
 };
 
@@ -525,8 +601,8 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
                       bf16* __restrict__ o, long long o_b, long long o_h,
                       long long o_s, int n_heads, int group, int seq,
                       int causal, int window, float scale_log2) {
-  static_assert(kBM == kBN, "Q and K/V tiles share one size");
   using L = Layout<D>;
+  constexpr int BN = kBN<D>;
   constexpr int kC = D / kBox;                 // 64-column boxes of a row
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -546,10 +622,10 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
   const int b = bh / n_heads, h = bh % n_heads, hk = h / group;
 
   // live key tiles: [kt_lo, kt_hi), the same range for producer and consumers
-  int kt_hi = (seq + kBN - 1) / kBN;
-  if (causal) kt_hi = min(kt_hi, (q0 + kBM - 1) / kBN + 1);
+  int kt_hi = (seq + BN - 1) / BN;
+  if (causal) kt_hi = min(kt_hi, (q0 + kBM - 1) / BN + 1);
   int kt_lo = 0;
-  if (window >= 0) kt_lo = max(0, q0 - window + 1) / kBN;
+  if (window >= 0) kt_lo = max(0, q0 - window + 1) / BN;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -569,24 +645,24 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
     // to the consumers
     asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
     if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, L::kTile);
+      mbar_expect_tx(q_full, L::kQTile);
       for (int c = 0; c < kC; ++c)
-        tma_load(sq + c * kChunkBytes, &tm_q, q_full, c * kBox, h, q0, b);
+        tma_load(sq + c * kQBox, &tm_q, q_full, c * kBox, h, q0, b);
       for (int kt = kt_lo, i = 0; kt < kt_hi; ++kt, ++i) {
         const int s = i % kStages;
         const uint32_t parity = ((i / kStages) & 1) ^ 1;   // first pass free
-        const uint32_t kb = base + L::kK + s * L::kTile;
-        const uint32_t vb = base + L::kV + s * L::kTile;
+        const uint32_t kb = base + L::kK + s * L::kKVTile;
+        const uint32_t vb = base + L::kV + s * L::kKVTile;
         mbar_wait(k_empty(s), parity);
-        mbar_expect_tx(k_full(s), L::kTile);
+        mbar_expect_tx(k_full(s), L::kKVTile);
         for (int c = 0; c < kC; ++c)
-          tma_load(kb + c * kChunkBytes, &tm_k, k_full(s), c * kBox, hk,
-                   kt * kBN, b);
+          tma_load(kb + c * L::kKVBox, &tm_k, k_full(s), c * kBox, hk,
+                   kt * BN, b);
         mbar_wait(v_empty(s), parity);
-        mbar_expect_tx(v_full(s), L::kTile);
+        mbar_expect_tx(v_full(s), L::kKVTile);
         for (int c = 0; c < kC; ++c)
-          tma_load(vb + c * kChunkBytes, &tm_v, v_full(s), c * kBox, hk,
-                   kt * kBN, b);
+          tma_load(vb + c * L::kKVBox, &tm_v, v_full(s), c * kBox, hk,
+                   kt * BN, b);
       }
     }
     return;
@@ -609,34 +685,36 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
   float m[2] = {-INFINITY, -INFINITY};   // running max of raw scores
   float l[2] = {0.f, 0.f};               // this thread's share of the sum
 
-  float sc[64];                          // S of the tile in hand, then P
-  uint32_t p_hi[8][4], p_lo[8][4];       // P of the tile before, in bf16
+  float sc[BN / 2];                      // S of the tile in hand, then P
+  uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];   // P of the tile before, bf16
 
   // S = Q K^T of tile i: D / 16 k-steps of 32 bytes inside the 128-byte
-  // rows; issued, not waited for
+  // rows (a k-step's 64-column box at kk / 4 in Q and in K); issued, not
+  // waited for
   auto issue_qk = [&](int i) {
-    const uint32_t kb = base + L::kK + (i % kStages) * L::kTile;
+    const uint32_t kb = base + L::kK + (i % kStages) * L::kKVTile;
     mbar_wait(k_full(i % kStages), (i / kStages) & 1);
     fence_regs(sc);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk / 4) * kChunkBytes + (kk % 4) * 32;
-      wgmma_ss_n128(sc, smem_desc(q_rows + off, 16), smem_desc(kb + off, 16),
-                    kk > 0);
+      const uint32_t col = (kk % 4) * 32;
+      wgmma_qk<BN>(sc, smem_desc(q_rows + (kk / 4) * kQBox + col, 16),
+                   smem_desc(kb + (kk / 4) * L::kKVBox + col, 16), kk > 0);
     }
     wgmma_commit();
   };
-  // O += P_lo V + P_hi V of tile i: V [keys, D] is an MN-major B; a k-step
-  // is 16 keys, 2 KB; issued, not waited for
+  // O += P_lo V + P_hi V of tile i: V [keys, D] is an MN-major B whose
+  // 64-column boxes lie kKVBox apart (LBO); a k-step is 16 keys, 2 KB;
+  // issued, not waited for
   auto issue_pv = [&](int i) {
-    const uint32_t vb = base + L::kV + (i % kStages) * L::kTile;
+    const uint32_t vb = base + L::kV + (i % kStages) * L::kKVTile;
     mbar_wait(v_full(i % kStages), (i / kStages) & 1);
     fence_regs(acc);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk) {
-      const uint64_t dv = smem_desc(vb + kk * 2048, kChunkBytes);
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dv = smem_desc(vb + kk * 2048, L::kKVBox);
       wgmma_pv<D>(acc, p_lo[kk], dv);
       wgmma_pv<D>(acc, p_hi[kk], dv);
     }
@@ -646,7 +724,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
   // complete
   auto keep_p = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
       for (int x = 0; x < 4; ++x)
         asm volatile("" : "+r"(p_hi[kk][x]), "+r"(p_lo[kk][x]) :: "memory");
@@ -654,12 +732,12 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
   // online softmax of tile i's S in place: sc becomes P (fp32), m and l
   // move on, and the returned factors rescale O
   auto softmax = [&](int i, float (&alpha)[2]) {
-    const int k0 = (kt_lo + i) * kBN;
+    const int k0 = (kt_lo + i) * BN;
     // mask only a tile that straddles the end, the diagonal or the window
-    if (k0 + kBN > seq || (causal && k0 + kBN - 1 > qw) ||
+    if (k0 + BN > seq || (causal && k0 + BN - 1 > qw) ||
         (window >= 0 && qw + 63 - k0 >= window)) {
 #pragma unroll
-      for (int j = 0; j < 16; ++j)
+      for (int j = 0; j < BN / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + 8 * j + 2 * c4 + (e & 1);
@@ -671,7 +749,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
     }
     float mx[2] = {m[0], m[1]}, ms[2];
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
       mx[0] = fmaxf(mx[0], fmaxf(sc[4 * j], sc[4 * j + 1]));
       mx[1] = fmaxf(mx[1], fmaxf(sc[4 * j + 2], sc[4 * j + 3]));
     }
@@ -686,7 +764,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       l[r] *= alpha[r];
     }
 #pragma unroll
-    for (int j = 0; j < 64; ++j) {
+    for (int j = 0; j < BN / 2; ++j) {
       const int r = (j >> 1) & 1;
       sc[j] = exp2f(fmaf(sc[j], scale_log2, -ms[r]));
       l[r] += sc[j];
@@ -698,7 +776,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
   // k-step kk
   auto to_bf16 = [&]() {
 #pragma unroll
-    for (int kk = 0; kk < 8; ++kk)
+    for (int kk = 0; kk < BN / 16; ++kk)
 #pragma unroll
       for (int x = 0; x < 4; ++x) {
         const float a0 = sc[8 * kk + 2 * x], a1 = sc[8 * kk + 2 * x + 1];
@@ -767,7 +845,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
       const float x0 = l[e] == 0.f ? 0.f : acc[4 * j + 2 * e] / l[e];
       const float x1 = l[e] == 0.f ? 0.f : acc[4 * j + 2 * e + 1] / l[e];
       const int unit = (j % 8) ^ (row % 8);
-      *reinterpret_cast<uint32_t*>(stage + (j / 8) * kChunkBytes + row * 128 +
+      *reinterpret_cast<uint32_t*>(stage + (j / 8) * kQBox + row * 128 +
                                    unit * 16 + c4 * 4) = pack_bf16(x0, x1);
     }
   asm volatile("bar.sync %0, 128;\n" :: "r"(1 + cw) : "memory");
@@ -779,7 +857,7 @@ flash_attention_wgmma(const __grid_constant__ CUtensorMap tm_q,
     const int row = idx / kUnits, u = idx % kUnits;
     if (qw + row >= seq) continue;
     const uint4 x = *reinterpret_cast<const uint4*>(
-        stage + (u / 8) * kChunkBytes + row * 128 + ((u % 8) ^ (row % 8)) * 16);
+        stage + (u / 8) * kQBox + row * 128 + ((u % 8) ^ (row % 8)) * 16);
     *reinterpret_cast<uint4*>(ob + (long long)(qw + row) * o_s + u * 8) = x;
   }
 }
@@ -811,16 +889,16 @@ EncodeTiled encoder() {
 }
 
 // [batch, seq, heads, D] bf16 with element strides (batch, head, seq), as a
-// 4-D map (D, heads, seq, batch) read in boxes of 64 x 1 x 128 x 1 with the
+// 4-D map (D, heads, seq, batch) read in boxes of 64 x 1 x rows x 1 with the
 // 128-byte swizzle; rows past seq read as zeros
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int d,
               int heads, int seq, int batch, long long st_b, long long st_h,
-              long long st_s) {
+              long long st_s, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)st_h * 2, (cuuint64_t)st_s * 2,
                                  (cuuint64_t)st_b * 2};
-  const cuuint32_t box[4] = {kBox, 1, kBN, 1};
+  const cuuint32_t box[4] = {kBox, 1, (cuuint32_t)rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
              dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -837,9 +915,12 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (enc == nullptr) return cudaErrorInvalidValue;
   CUtensorMap tm_q, tm_k, tm_v;
   const int n_kv = n_heads / group;
-  if (!make_map(enc, &tm_q, q, D, n_heads, seq, batch, st[0], st[1], st[2]) ||
-      !make_map(enc, &tm_k, k, D, n_kv, seq, batch, st[3], st[4], st[5]) ||
-      !make_map(enc, &tm_v, v, D, n_kv, seq, batch, st[3], st[4], st[5]))
+  if (!make_map(enc, &tm_q, q, D, n_heads, seq, batch, st[0], st[1], st[2],
+                kBM) ||
+      !make_map(enc, &tm_k, k, D, n_kv, seq, batch, st[3], st[4], st[5],
+                kBN<D>) ||
+      !make_map(enc, &tm_v, v, D, n_kv, seq, batch, st[3], st[4], st[5],
+                kBN<D>))
     return cudaErrorInvalidValue;
   constexpr int kSmem = Layout<D>::kBytes;
   auto kernel = flash_attention_wgmma<D>;
@@ -864,6 +945,7 @@ extern "C" int flash_attention_smem_bytes(int wgmma, int head_dim, int is_bf16) 
     if (!is_bf16) return -1;
     if (head_dim == 64) return hopper::Layout<64>::kBytes;
     if (head_dim == 128) return hopper::Layout<128>::kBytes;
+    if (head_dim == 256) return hopper::Layout<256>::kBytes;
     return -1;
   }
   switch (head_dim) {
@@ -875,7 +957,7 @@ extern "C" int flash_attention_smem_bytes(int wgmma, int head_dim, int is_bf16) 
 
 // strides: nine element strides, (batch, head, seq) of q, of k and v, of o.
 // window < 0: no sliding window.  is_bf16: bf16 tensors, else fp32.
-// wgmma: the Hopper body (bf16 with head_dim 64 or 128 only), else SIMT.
+// wgmma: the Hopper body (bf16 with head_dim 64, 128 or 256 only), else SIMT.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o,
     const long long* strides, int batch, int n_heads, int group, int seq,
@@ -888,6 +970,7 @@ extern "C" int flash_attention_launch(
     switch (head_dim) {
       case 64: err = hopper::launch<64>(q, k, v, o, strides, batch, n_heads, group, seq, causal, window, scale, s); break;
       case 128: err = hopper::launch<128>(q, k, v, o, strides, batch, n_heads, group, seq, causal, window, scale, s); break;
+      case 256: err = hopper::launch<256>(q, k, v, o, strides, batch, n_heads, group, seq, causal, window, scale, s); break;
       default: err = cudaErrorInvalidValue;
     }
   } else {

@@ -5,9 +5,9 @@ CUDA source is ``csrc/flash_attention.cu``, with two bodies; its note says
 what bounds K3 on an H100 (operations), what each body does, and why the
 bf16 tolerances hold for the tensor-core body.  ``body_for`` picks the body
 from the dtype and head dim before the launch: ``"wgmma"`` (bf16 tensor
-cores, TMA loads, a K/V ring) for bf16 at head dims 64 and 128, the model's
-prefill path; ``"simt"`` (fp32 on CUDA cores) for fp32 at any head dim and
-bf16 at 16, 32 and 256.
+cores, TMA loads, a K/V ring) for bf16 at head dims 64, 128 and 256, the
+models' prefill paths (qwen3-0.6b at 128, gemma-2b at 256); ``"simt"``
+(fp32 on CUDA cores) for fp32 at any head dim and bf16 at 16 and 32.
 
 The kernel takes the model's layout, q ``[B, S, Hq, Dh]`` and k/v ``[B, S,
 Hkv, Dh]`` with ``Hq % Hkv == 0``: query head ``h`` reads KV head ``h //
@@ -32,7 +32,7 @@ LAUNCHES = 0
 LAUNCHES_BY_BODY = {"wgmma": 0, "simt": 0}
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-WGMMA_HEAD_DIMS = (64, 128)
+WGMMA_HEAD_DIMS = (64, 128, 256)
 _MAX_GRID_Y = 65_535
 _TMA_MAX_STRIDE_BYTES = 1 << 40   # a tensor map's strides lie below 2^40 B
 _TMA_MAX_COORD = (1 << 31) - 1    # its box coordinates are signed 32-bit
@@ -40,7 +40,7 @@ _TMA_MAX_COORD = (1 << 31) - 1    # its box coordinates are signed 32-bit
 
 def body_for(dtype: torch.dtype, head_dim: int) -> str:
     """The body K3 runs for ``dtype`` and ``head_dim``: ``"wgmma"`` for
-    bf16 at head dims 64 and 128, else ``"simt"``."""
+    bf16 at head dims 64, 128 and 256, else ``"simt"``."""
     if dtype == torch.bfloat16 and head_dim in WGMMA_HEAD_DIMS:
         return "wgmma"
     return "simt"

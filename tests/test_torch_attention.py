@@ -154,12 +154,12 @@ def test_heads_entry_matches_flat_entry():
 @pytest.mark.parametrize("dtype,dh,body", [
     (torch.bfloat16, 64, "wgmma"), (torch.bfloat16, 128, "wgmma"),
     (torch.bfloat16, 16, "simt"), (torch.bfloat16, 32, "simt"),
-    (torch.bfloat16, 256, "simt"), (torch.float32, 16, "simt"),
+    (torch.bfloat16, 256, "wgmma"), (torch.float32, 16, "simt"),
     (torch.float32, 32, "simt"), (torch.float32, 64, "simt"),
     (torch.float32, 128, "simt"), (torch.float32, 256, "simt")])
 def test_body_for_picks_the_body(dtype, dh, body):
-    """bf16 at head dims 64 and 128 runs on the tensor cores; fp32 (held to
-    2e-5) and the other bf16 head dims run the SIMT body."""
+    """bf16 at head dims 64, 128 and 256 runs on the tensor cores; fp32
+    (held to 2e-5) and the other bf16 head dims run the SIMT body."""
     assert flash_attention.body_for(dtype, dh) == body
 
 
@@ -170,6 +170,19 @@ def test_tma_refusal_names_what_a_tensor_map_cannot_describe():
     assert flash_attention._tma_refusal("q", x[:-8].view(2, 300, 4, 128)) is None
     why = flash_attention._tma_refusal("q", x[1:-7].view(2, 300, 4, 128))
     assert why is not None and "16-byte" in why
+
+
+def test_tma_refusal_at_head_dim_256():
+    """At head dim 256 (gemma-2b's MQA layout, one KV head) a contiguous
+    bf16 ``[B, S, H, 256]`` maps, whatever S; a base off the 16-byte grid
+    does not, and the refusal names the tensor."""
+    x = torch.zeros(2 * 301 * 256 + 8, dtype=torch.bfloat16)
+    for s in (300, 301):
+        assert flash_attention._tma_refusal(
+            "k", x[:2 * s * 256].view(2, s, 1, 256)) is None
+    why = flash_attention._tma_refusal("k", x[3:3 + 2 * 300 * 256]
+                                       .view(2, 300, 1, 256))
+    assert why is not None and why.startswith("k:") and "16-byte" in why
 
 
 def _wgmma_emulation(q, k, v, *, causal, window, split_p=True):
@@ -213,13 +226,15 @@ def test_wgmma_roundings_match_pallas_kernel_on_the_sweep(bh, sq, dh, window):
 
 
 @functools.lru_cache(maxsize=None)
-def _path_case(window):
-    """``[2, 512, 128]`` bf16 causal: the torch inputs and the Pallas
-    body's output (interpret mode, 128-row blocks as on the card)."""
-    rng = np.random.default_rng(7)
-    (jq, jk, jv), qkv = _qkv(rng, (2, 512, 128), jnp.bfloat16)
+def _path_case(dh, window):
+    """``[2, 512, dh]`` bf16 causal: the torch inputs and the Pallas body's
+    output (interpret mode, 128-row query blocks and the key tile of the
+    card's body at ``dh``: 128 keys, 64 at head dim 256)."""
+    rng = np.random.default_rng(7 if dh == 128 else dh)
+    (jq, jk, jv), qkv = _qkv(rng, (2, 512, dh), jnp.bfloat16)
     exp = flash_attention_kernel(jq, jk, jv, causal=True, window=window,
-                                 interpret=True, q_block=128, kv_block=128)
+                                 interpret=True, q_block=128,
+                                 kv_block=64 if dh == 256 else 128)
     return qkv, np.asarray(exp, np.float32)
 
 
@@ -229,12 +244,15 @@ def _path_excess(got, exp):
     return float((d / (1e-3 + 1.6e-2 * np.abs(exp))).max())
 
 
-@pytest.mark.parametrize("window", [None, 128])
-def test_wgmma_roundings_hold_the_path_tolerance(window):
-    """At head dim 128, the path's ``rtol=1.6e-2, atol=1e-3`` (about one
-    bf16 step of each value) holds with P as hi + lo (P - (hi + lo) is at
-    most 2^-16 P)."""
-    (q, k, v), exp = _path_case(window)
+@pytest.mark.parametrize("dh,window", [
+    pytest.param(128, None, id="None"), pytest.param(128, 128, id="128"),
+    pytest.param(256, None, id="d256-None"),
+    pytest.param(256, 128, id="d256-128")])
+def test_wgmma_roundings_hold_the_path_tolerance(dh, window):
+    """At head dims 128 and 256, the path's ``rtol=1.6e-2, atol=1e-3``
+    (about one bf16 step of each value) holds with P as hi + lo (P - (hi +
+    lo) is at most 2^-16 P, whatever the head dim or the key tile)."""
+    (q, k, v), exp = _path_case(dh, window)
     got = _wgmma_emulation(q, k, v, causal=True, window=window)
     np.testing.assert_allclose(got.float().numpy(), exp, rtol=1.6e-2,
                                atol=1e-3)
@@ -246,6 +264,14 @@ def test_one_bf16_rounding_of_p_misses_the_path_tolerance():
     2^-9 error is relative to each weight, not to the output, and where
     ``sum p v`` cancels in an early row the error exceeds ``1e-3 + 1.6e-2
     |o|`` (the card's run of the single-term body showed the same)."""
-    (q, k, v), exp = _path_case(128)
+    (q, k, v), exp = _path_case(128, 128)
+    got = _wgmma_emulation(q, k, v, causal=True, window=128, split_p=False)
+    assert _path_excess(got, exp) > 1.0
+
+
+def test_one_bf16_rounding_of_p_misses_the_path_tolerance_at_head_dim_256():
+    """The same at head dim 256 with 64-key tiles: one rounding of P exceeds
+    the path's limit, so the D = 256 body keeps P as hi + lo too."""
+    (q, k, v), exp = _path_case(256, 128)
     got = _wgmma_emulation(q, k, v, causal=True, window=128, split_p=False)
     assert _path_excess(got, exp) > 1.0

@@ -161,7 +161,7 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
                                   q.transpose(1, 2))
 
 
-# The bf16 tensor-core body at head dims 64 and 128: held to the path's
+# The bf16 tensor-core body at head dims 64, 128 and 256: held to the path's
 # rtol 1.6e-2 + atol 1e-3 (about one bf16 step of each value), with a V
 # whose columns differ (a transposed or swapped V operand would show).
 
@@ -171,7 +171,7 @@ def _asym_v(rng, shape, device):
         torch.bfloat16)
 
 
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 @pytest.mark.parametrize("s", [128, 300, 4096])
 @pytest.mark.parametrize("window", [None, 40])
 def test_wgmma_body_equals_plain_version(cuda, dh, s, window):
@@ -188,10 +188,12 @@ def test_wgmma_body_equals_plain_version(cuda, dh, s, window):
                                atol=1e-3)
 
 
-@pytest.mark.parametrize("hq,hkv", [(16, 8), (4, 1)])
-def test_wgmma_body_reads_kv_heads_in_place(cuda, hq, hkv):
+@pytest.mark.parametrize("hq,hkv,dh", [
+    pytest.param(16, 8, 128, id="16-8"), pytest.param(4, 1, 128, id="4-1"),
+    pytest.param(8, 1, 256, id="8-1-256")])      # gemma-2b's MQA heads
+def test_wgmma_body_reads_kv_heads_in_place(cuda, hq, hkv, dh):
     rng = np.random.default_rng(hq + hkv)
-    b, s, dh = 2, 700, 128
+    b, s = 2, 700
     q = _heads(rng, (b, s, hq, dh), torch.bfloat16, cuda)
     k = _heads(rng, (b, s, hkv, dh), torch.bfloat16, cuda)
     v = _asym_v(rng, (b, s, hkv, dh), cuda)
@@ -205,7 +207,7 @@ def test_wgmma_body_reads_kv_heads_in_place(cuda, hq, hkv):
                                atol=1e-3)
 
 
-@pytest.mark.parametrize("dh,window", [(64, None), (128, 100)])
+@pytest.mark.parametrize("dh,window", [(64, None), (128, 100), (256, None)])
 def test_the_two_bodies_agree_on_bf16(cuda, dh, window):
     """The same bf16 input through the wgmma body and, asked for by name,
     the SIMT body: each output within one bf16 step of the other."""
@@ -225,6 +227,7 @@ def test_the_two_bodies_agree_on_bf16(cuda, dh, window):
 
 @pytest.mark.parametrize("dtype,dh,body", [(torch.bfloat16, 128, "wgmma"),
                                            (torch.bfloat16, 64, "wgmma"),
+                                           (torch.bfloat16, 256, "wgmma"),
                                            (torch.bfloat16, 32, "simt"),
                                            (torch.float32, 128, "simt")])
 def test_launches_by_body_show_which_body_ran(cuda, dtype, dh, body):
@@ -238,11 +241,14 @@ def test_launches_by_body_show_which_body_ran(cuda, dtype, dh, body):
 
 
 def test_a_body_is_never_switched(cuda):
-    """The wgmma body refuses fp32 and other head dims by name; it is not
-    swapped for the SIMT body."""
-    q = torch.zeros((1, 64, 2, 128), device=cuda)
-    with pytest.raises(ValueError):
-        flash_attention.flash_attention_cuda(q, q, q, body="wgmma")
+    """The wgmma body refuses fp32 (at head dims 128 and 256) and other head
+    dims by name; it is not swapped for the SIMT body."""
+    for dh in (128, 256):
+        q = torch.zeros((1, 64, 2, dh), device=cuda)
+        n = dict(flash_attention.LAUNCHES_BY_BODY)
+        with pytest.raises(ValueError):
+            flash_attention.flash_attention_cuda(q, q, q, body="wgmma")
+        assert flash_attention.LAUNCHES_BY_BODY == n
     q = torch.zeros((1, 64, 2, 32), dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError):
         flash_attention.flash_attention_cuda(q, q, q, body="wgmma")
