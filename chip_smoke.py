@@ -7,7 +7,9 @@
    ``src/repro_torch/csrc`` with ``nvcc`` (one process each, started
    together) and prints the build seconds and the ``-Xptxas -v`` reports,
    then each K3 body's registers, spills and shared memory (failing where
-   a wgmma instantiation spills or asks for more than 232,448 bytes).
+   a wgmma instantiation spills or asks for more than 232,448 bytes), and
+   the same for K5's GEMM and reduction (failing where one spills or asks
+   for more than 232,448 bytes).
 2. Holds each truss kernel (``peel_wave``, ``bitmap_support``) bitwise
    against its plain PyTorch version on the card: at the unit-test shapes
    (row and word slabs, words with bit 31 set) and at the slice's width on
@@ -61,7 +63,11 @@
    shapes (the whole bulk bag sum; the first and last 4,096 rows of each
    bulk CIN layer); after it, the p99 scores against
    ``ops.use_kernels(False)`` and 64 rows against the CPU, and both
-   kernels are timed beside their bounds, plain versions and yardsticks.
+   kernels are timed beside their bounds, plain versions and yardsticks:
+   K5 at a p99 layer 2 beside ``torch.einsum`` and cuBLAS's SGEMM
+   (``torch.matmul``) of the outer product materialised before the timing,
+   and on one whole bulk layer-2 call (TFLOP/s and share of the bound).
+   K5's plan (grid and k slices) is printed for each layer of the path.
 9. Fails unless every kernel was launched by its path, prints the kernels
    line, the card line, and last the device line.
 
@@ -486,6 +492,49 @@ def k3_compile_report(_build, fa) -> None:
         raise AssertionError(f"compile report has the wgmma body at "
                              f"{sorted(wgmma_dims)}, expected "
                              f"{fa.WGMMA_HEAD_DIMS}")
+
+
+def cin_compile_report(_build) -> dict:
+    """K5's registers, spills and shared memory per kernel from
+    ``build.log`` (``-Xptxas -v``) and the GEMM's dynamic shared memory;
+    raises where a kernel spills or needs more shared memory than a block
+    may use, or where the GEMM is missing from the report.  Returns the
+    GEMM's numbers."""
+    import re
+    log_text = (_build.library_path("cin").parent / "build.log").read_text()
+    dynamic = _build.library("cin").cin_layer_smem_bytes()
+    entry = re.compile(r"Compiling entry function '\S*?(cin_gemm|"
+                       r"cin_reduceILi(\d+)E)")
+    spill = re.compile(r"(\d+) bytes spill stores, (\d+) bytes spill loads")
+    regs = re.compile(r"Used (\d+) registers")
+    static_smem = re.compile(r"(\d+) bytes smem")
+    cur, gemm = None, None
+    for line in log_text.splitlines():
+        m = entry.search(line)
+        if m:
+            cur = {"name": "cin_gemm" if m.group(2) is None
+                   else f"cin_reduce<{m.group(2)}>"}
+        elif cur is not None and spill.search(line):
+            cur["spill"] = tuple(map(int, spill.search(line).groups()))
+        elif cur is not None and regs.search(line):
+            sm = static_smem.search(line)
+            shared = (int(sm.group(1)) if sm else 0) + (
+                dynamic if cur["name"] == "cin_gemm" else 0)
+            spills = cur.get("spill", (-1, -1))
+            log(f"K5 {cur['name']}: {regs.search(line).group(1)} registers, "
+                f"spill stores/loads {spills[0]}/{spills[1]} bytes, shared "
+                f"memory {shared:,} bytes")
+            if spills != (0, 0) or shared > SMEM_LIMIT:
+                raise AssertionError(f"K5 {cur['name']}: spills {spills}, "
+                                     f"shared memory {shared} (limit "
+                                     f"{SMEM_LIMIT})")
+            if cur["name"] == "cin_gemm":
+                gemm = {"registers": int(regs.search(line).group(1)),
+                        "spill_bytes": sum(spills), "shared_bytes": shared}
+            cur = None
+    if gemm is None:
+        raise AssertionError("compile report has no cin_gemm")
+    return gemm
 
 
 def _normal(rng, shape, dtype, dev):
@@ -1068,6 +1117,8 @@ def check_recsys_path_shapes(ops, ref, rs) -> dict:
     p99 and the whole bulk bag sum; every p99 CIN layer and the first and
     last ``K5_CHUNK`` rows of each bulk layer (the plain einsum would
     materialise [B, H, M, D], 84 GB at bulk)."""
+    from repro_torch.kernels import cin
+
     recsys, cfg, params = rs["recsys"], rs["cfg"], rs["params"]
     errs = {}
     for name in ("serve_p99", "serve_bulk"):
@@ -1085,6 +1136,12 @@ def check_recsys_path_shapes(ops, ref, rs) -> dict:
         for i, w in enumerate(params["cin"]):
             got = ops.cin_layer(xk, x0, w)
             b = x0.shape[0]
+            shape = (b, xk.shape[1], x0.shape[1], x0.shape[2], w.shape[0])
+            grid = cin.plan(*shape, torch.cuda.get_device_properties(
+                0).multi_processor_count)
+            log(f"K5 plan, {name} layer {i + 1} (b, h, m, d, o) = {shape}: "
+                f"grid {grid}, S = {grid[2]}, "
+                f"{grid[0] * grid[1] * grid[2]:,} blocks")
             parts = ((slice(0, b),) if b <= 2 * K5_CHUNK else
                      (slice(0, K5_CHUNK), slice(b - K5_CHUNK, b)))
             e = 0.0
@@ -1253,14 +1310,44 @@ def time_recsys_kernels(ops, ref, rs, dev) -> dict:
     bound = 1e3 * max(t_ops, t_bytes)
     by = "operations" if t_ops >= t_bytes else "bytes"
     layer1 = time_ms(lambda: ops.cin_layer(x0, x0, params["cin"][0]), 20)
+    # cuBLAS's SGEMM on the same product, the outer product materialised
+    # [B D, H M] before the timing (a second yardstick; fp32, no TF32)
+    prod = (xk[:, :, None, :] * x0[:, None, :, :]).permute(0, 3, 1, 2)
+    prod = prod.reshape(b * d, h * m)
+    w_flat = w.reshape(o, h * m)
+    sgemm_ms = time_ms(lambda: torch.matmul(prod, w_flat.t()), 20)
+    del prod
     log(f"K5 p99 layer 2 xk {list(xk.shape)} x0 {list(x0.shape)} w "
         f"{list(w.shape)}: kernel {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s "
-        f"fp32), plain {plain_ms:.4f} ms, torch.einsum {lib_ms:.4f} ms; bound "
+        f"fp32, {100 * bound / ms:.1f}% of the bound), plain {plain_ms:.4f} "
+        f"ms, torch.einsum {lib_ms:.4f} ms, cuBLAS SGEMM of the materialised "
+        f"[{b * d}, {h * m}] x [{h * m}, {o}] {sgemm_ms:.4f} ms; bound "
         f"{bound:.4f} ms by {by} ({flops / 1e9:.2f} GFLOP at "
         f"{CUDA_CORE_OPS_PER_S / 1e12:.0f} TFLOP/s fp32 CUDA cores; TF32 "
         f"tensor-core figure {1e3 * flops / TF32_FLOPS_PER_S:.4f} ms); layer 1 "
         f"{list(x0.shape)} x {list(params['cin'][0].shape)}: {layer1:.4f} ms")
     res["cin"] = (ms, plain_ms, lib_ms, bound, by)
+    res["cin sgemm_ms"] = sgemm_ms
+
+    # one whole bulk layer-2 call
+    x0 = recsys._field_embeddings(cfg, params, rs["batches"]["serve_bulk"])
+    x0 = x0.contiguous()
+    xk = ops.cin_layer(x0, x0, params["cin"][0])
+    b = xk.shape[0]
+    bulk_ms = time_ms(lambda: ops.cin_layer(xk, x0, w), 3)
+    flops = 2 * b * d * o * h * m
+    n_bytes = 4 * (xk.numel() + x0.numel() + w.numel() + b * o * d)
+    bulk_bound = 1e3 * max(flops / CUDA_CORE_OPS_PER_S,
+                           n_bytes / HBM_BYTES_PER_S)
+    log(f"K5 bulk layer 2 xk {list(xk.shape)} ({4 * xk.numel() / 1e9:.2f} "
+        f"GB) x0 {list(x0.shape)}: kernel {bulk_ms:.3f} ms, "
+        f"{flops / bulk_ms / 1e9:.1f} TFLOP/s fp32, "
+        f"{100 * bulk_bound / bulk_ms:.1f}% of the {bulk_bound:.3f} ms bound "
+        f"({flops / 1e12:.2f} TFLOP)")
+    res["cin bulk layer 2"] = {"ms": bulk_ms, "bound_ms": bulk_bound,
+                               "tflops": flops / bulk_ms / 1e9}
+    del x0, xk
+    torch.cuda.empty_cache()
     return res
 
 
@@ -1289,6 +1376,7 @@ def main() -> int:
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_all(_build)
     k3_compile_report(_build, flash_attention)
+    k5_compile = cin_compile_report(_build)
 
     err = check_test_shapes(ops, ref, dev)
     log(f"test shapes: kernels == plain versions (tolerance: bitwise; "
@@ -1417,6 +1505,11 @@ def main() -> int:
                                if k.startswith(name)),
             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms})
+    # K5 also: cuBLAS's SGEMM at the same p99 shape, one whole bulk layer-2
+    # call, and the GEMM's compile report
+    kernels[-1].update({"sgemm_ms": k45_time["cin sgemm_ms"],
+                        "bulk_layer2": k45_time["cin bulk layer 2"],
+                        "compile": k5_compile})
     log(f"recsys outputs: {json.dumps(out_errs)}")
     print(json.dumps({"kernels": kernels}))
     print(card)

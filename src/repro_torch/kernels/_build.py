@@ -47,8 +47,10 @@ _SIGNATURES = {
                                ctypes.c_int, _P, _P, _P),
     },
     "cin": {
-        # xk, x0, w, out, batch, h, m, d, o, stream
-        "cin_layer_launch": (_P,) * 4 + (ctypes.c_int,) * 5 + (_P,),
+        # xk, x0, w, out, ws, batch, h, m, d, o, slices, stream
+        "cin_layer_launch": (_P,) * 5 + (ctypes.c_int,) * 6 + (_P,),
+        # -> dynamic shared memory bytes of a cin_gemm block
+        "cin_layer_smem_bytes": (),
     },
 }
 

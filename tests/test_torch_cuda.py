@@ -330,9 +330,15 @@ def test_segment_matmul_at_the_p99_shape(cuda):
 @pytest.mark.parametrize("b,h,m,o,d", [(8, 5, 7, 11, 6), (64, 40, 40, 200, 10),
                                        (130, 8, 8, 16, 16), (3, 2, 1, 70, 5),
                                        (512, 40, 40, 200, 10),
-                                       (512, 200, 40, 200, 10)])
+                                       (512, 200, 40, 200, 10),
+                                       (4096, 200, 40, 200, 10),
+                                       (300, 13, 7, 250, 9),
+                                       (2000, 5, 7, 11, 9)])
 def test_cin_layer_equals_plain_version(cuda, b, h, m, o, d):
-    """The reference's sweep, ragged tiles, and xDeepFM's p99 layers."""
+    """The reference's sweep, ragged tiles, xDeepFM's p99 layers (split
+    over k) and a bulk-plan layer 2 (one slice); last, W rows that are not
+    16-byte aligned (H M odd), two output tiles and an epilogue whose runs
+    are no multiple of 4 floats, split over k and in one slice."""
     rng = np.random.default_rng(b + h)
     xk = _heads(rng, (b, h, d), torch.float32, cuda)
     x0 = _heads(rng, (b, m, d), torch.float32, cuda)
@@ -347,6 +353,21 @@ def test_cin_layer_equals_plain_version(cuda, b, h, m, o, d):
     torch.testing.assert_close(got, exp, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("b,slices", [(512, 3), (4096, 1)])
+def test_cin_layer_is_deterministic(cuda, b, slices):
+    """Two calls on the same inputs give the same bits, split over k or
+    not (the partials are added in slice order, with no atomics)."""
+    assert cin.plan(b, 200, 40, 10, 200)[2] == slices
+    rng = np.random.default_rng(b)
+    xk = _heads(rng, (b, 200, 10), torch.float32, cuda)
+    x0 = _heads(rng, (b, 40, 10), torch.float32, cuda)
+    w = _heads(rng, (200, 200, 40), torch.float32, cuda) / np.sqrt(8000)
+    first = ops.cin_layer(xk, x0, w)
+    second = ops.cin_layer(xk, x0, w)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
 def test_cin_layer_rejects_what_it_does_not_take(cuda):
     x = torch.zeros((2, 3, 4), device=cuda)
     with pytest.raises(ValueError):            # bf16
@@ -354,6 +375,11 @@ def test_cin_layer_rejects_what_it_does_not_take(cuda):
             (5, 3, 3), device=cuda, dtype=torch.bfloat16))
     with pytest.raises(ValueError):            # w does not contract
         ops.cin_layer(x, x, torch.zeros((5, 3, 2), device=cuda))
+    with pytest.raises(ValueError):            # not contiguous
+        ops.cin_layer(x.transpose(1, 2).contiguous().transpose(1, 2), x,
+                      torch.zeros((5, 3, 3), device=cuda))
+    with pytest.raises(ValueError):            # w on the CPU
+        cin.cin_layer_cuda(x, x, torch.zeros((5, 3, 3)))
 
 
 def test_recsys_serve_on_card_equals_serve_on_cpu(cuda):

@@ -115,6 +115,74 @@ def test_cin_layer_matches_pallas_kernel(no_launch, b, h, m, o, d):
                                    jnp.asarray(w)), 2e-5)
 
 
+# xDeepFM's CIN layers on the path: (b, h, m, d, o) of layers 1 and 2 (3
+# is layer 2's shape) at serve_p99 and serve_bulk
+P99_LAYERS = [(512, 40, 40, 10, 200), (512, 200, 40, 10, 200)]
+BULK_LAYERS = [(262_144, 40, 40, 10, 200), (262_144, 200, 40, 10, 200)]
+
+
+@pytest.mark.parametrize("shape", P99_LAYERS)
+def test_cin_plan_fills_the_wave_at_p99(shape):
+    """40 row tiles: split over k so the one wave is >= 85% full."""
+    row_tiles, out_tiles, slices = cin.plan(*shape)
+    blocks = row_tiles * out_tiles * slices
+    last = blocks - cin.H100_SMS * ((blocks - 1) // cin.H100_SMS)
+    assert (row_tiles, out_tiles) == (40, 1) and slices > 1
+    assert last >= 0.85 * cin.H100_SMS
+
+
+@pytest.mark.parametrize("shape", BULK_LAYERS)
+def test_cin_plan_takes_one_slice_at_bulk(shape):
+    assert cin.plan(*shape) == (20_480, 1, 1)
+
+
+@pytest.mark.parametrize("b,h,m,o,d", CIN_SWEEP + [(3, 2, 1, 70, 5)])
+def test_cin_plan_is_valid_on_the_sweep(b, h, m, o, d):
+    """Every row and output covered, 1 <= S <= min(h, MAX_SLICES), and the
+    slices' ranges of whole h values cover [0, h) in order."""
+    row_tiles, out_tiles, slices = cin.plan(b, h, m, d, o)
+    assert row_tiles * cin.ROW_TILE >= b * d > (row_tiles - 1) * cin.ROW_TILE
+    assert out_tiles * cin.OUT_TILE >= o > (out_tiles - 1) * cin.OUT_TILE
+    assert 1 <= slices <= min(h, cin.MAX_SLICES)
+    if row_tiles * out_tiles < cin.H100_SMS:
+        assert row_tiles * out_tiles * slices <= cin.H100_SMS
+    ranges = cin.h_ranges(h, slices)
+    assert ranges[0][0] == 0 and ranges[-1][1] == h
+    assert all(lo < hi for lo, hi in ranges)
+    assert all(prev[1] == nxt[0] for prev, nxt in zip(ranges, ranges[1:]))
+
+
+def test_cin_plan_pads_at_most_5_percent_at_o_200():
+    _, out_tiles, _ = cin.plan(512, 200, 40, 10, 200)
+    assert 1 - 200 / (out_tiles * cin.OUT_TILE) <= 0.05
+
+
+def test_cin_split_k_order_of_sums_matches_pallas_kernel():
+    """The kernel's order of sums at p99's plan, emulated on the CPU: S
+    partial einsums over the plan's ranges of h (all of m), added in slice
+    order, then relu; against the Pallas body in interpret mode and
+    ``repro``'s ``cin_layer_ref`` at the reference's 2e-5."""
+    slices = cin.plan(*P99_LAYERS[1])[2]
+    assert slices > 1
+    b, h, m, o, d = 8, 200, 40, 200, 10
+    rng = np.random.default_rng(18)
+    xk = rng.normal(size=(b, h, d)).astype(np.float32)
+    x0 = rng.normal(size=(b, m, d)).astype(np.float32)
+    w = (rng.normal(size=(o, h, m)) / np.sqrt(h * m)).astype(np.float32)
+    txk, tx0, tw = map(torch.from_numpy, (xk, x0, w))
+    total = None
+    for lo, hi in cin.h_ranges(h, slices):
+        part = torch.einsum("bhd,bmd,ohm->bod", txk[:, lo:hi], tx0,
+                            tw[:, lo:hi])
+        total = part if total is None else total + part
+    got = torch.relu(total)
+    exp = cin_layer_kernel(jnp.asarray(xk), jnp.asarray(x0), jnp.asarray(w),
+                           interpret=True, b_block=32, d_block=8)
+    _close(got, exp, 2e-5)
+    _close(got, jref.cin_layer_ref(jnp.asarray(xk), jnp.asarray(x0),
+                                   jnp.asarray(w)), 2e-5)
+
+
 def test_plain_versions_match_reference_refs():
     """``ref.segment_matmul_ref`` and ``ref.cin_layer_ref`` against
     ``repro``'s, including an fp16 cast-once check."""
