@@ -51,20 +51,31 @@
    versions.
 7. Holds the recsys kernels against their plain versions on the
    reference's sweeps: the segment sum (``segment_matmul``, fp32 and fp16,
-   ids outside the range, gathered entry) and the CIN layer (``cin``).
+   ids outside the range, gathered entry; on the same ids sorted, the
+   declared-sorted entry bitwise against the sorting entry and the mean
+   entry against the plain mean; runs of up to 30,000 rows against a
+   float64 sum; indices outside the table giving NaN bags; unsorted ids
+   declared sorted giving an all-NaN output) and the CIN layer (``cin``).
 8. Drives the xDeepFM serving path at full width (39 fields of 1,000,000
    rows, embed 10, CIN 200-200-200, MLP 400-400; about 433M parameters
    from a seed, on the card) through the reference's three traffic shapes:
    serve_p99 (batch 512, 200 synchronised calls: p50/p99 ms, rows/s),
    serve_bulk (batch 262,144, three calls: s/call, rows/s) and
    retrieval_cand (batch 1 against 1,000,000 candidates, top 100: ms),
-   with the device-busy share of one p99 and one bulk call.  Before it,
-   both kernels are held against their plain versions at the path's
-   shapes (the whole bulk bag sum; the first and last 4,096 rows of each
-   bulk CIN layer); after it, the p99 scores against
+   with the device-busy share of one p99 and one bulk call, each of which
+   must show K4's kernels and no sort kernel among its device ops; K4 must
+   launch once per serve or retrieval call.  Before it, both kernels are
+   held against their plain versions at the path's shapes (the p99 and the
+   whole bulk bag sum, where K4's declared-sorted entry must equal its
+   sorting entry and its mean entry the two-call mean, bitwise; the first
+   and last 4,096 rows of each bulk CIN layer); after it, the p99 scores
+   against
    ``ops.use_kernels(False)`` and 64 rows against the CPU, and both
    kernels are timed beside their bounds, plain versions and yardsticks:
-   K5 at a p99 layer 2 beside ``torch.einsum`` and cuBLAS's SGEMM
+   K4's sum, mean and sorting entries at the p99 and bulk bag sums, in
+   turns with their plain versions and ``F.embedding_bag`` (sum and mean),
+   and with the sum entry on the reference's batch-major bag order; K5 at
+   a p99 layer 2 beside ``torch.einsum`` and cuBLAS's SGEMM
    (``torch.matmul``) of the outer product materialised before the timing,
    and on one whole bulk layer-2 call (TFLOP/s and share of the bound).
    K5's plan (grid and k slices) is printed for each layer of the path.
@@ -219,6 +230,20 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
+def host_us(fn, calls: int = 2000) -> float:
+    """Host microseconds a call of ``fn``: ``calls`` calls with no sync
+    between them, after warm-up (what a host-bound caller pays)."""
+    for _ in range(50):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return 1e6 * dt / calls
+
+
 def bound_ms(bitmap, rows_used: int, slot_bytes: int, n_slots: int,
              word_pairs: int):
     """Least time for the work: bitmap rows the inputs touch read once plus
@@ -342,13 +367,15 @@ def update_batch(rng, present: set, n_del: int, n_ins: int):
     return [(0, a, b) for a, b in dels] + [(1, a, b) for a, b in sorted(ins)]
 
 
-def profiled(fn) -> float:
+def profiled(fn, forbid: str | None = None,
+             require: str | None = None) -> float:
     """Run ``fn`` under ``torch.profiler``; log the device's busy share of
     the wall time and the device ops that took the most time.  Busy is the
     union of the intervals in which a kernel, copy or fill ran on the card
     (device events only: a CPU op's device time would count its kernels a
     second time), over the host's wall time; a lower bound, since the
-    profiler slows the host.  Returns the busy share."""
+    profiler slows the host.  Raises if a device op's name holds ``forbid``
+    or none holds ``require`` (case ignored).  Returns the busy share."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -376,6 +403,15 @@ def profiled(fn) -> float:
         f"top device time:")
     for key, (us, n) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
         log(f"  {us / 1e3:9.1f} ms  x{n:<6d} {key[:90]}")
+    if forbid is not None:
+        hits = [k for k in by_name if forbid.lower() in k.lower()]
+        if hits:
+            raise AssertionError(f"device ops named {forbid!r}: {hits}")
+        log(f"profile: no device op named {forbid!r} among "
+            f"{len(by_name)} kinds")
+    if require is not None and not any(require.lower() in k.lower()
+                                       for k in by_name):
+        raise AssertionError(f"no device op named {require!r}")
     return busy / wall
 
 
@@ -1053,7 +1089,24 @@ def check_recsys_kernels(ops, ref, dev) -> dict:
             if not torch.equal(got, ops.segment_matmul(m[idx.long()], seg, n)):
                 raise AssertionError("K4 gathered entry != rows entry on the "
                                      "gathered rows")
+            # the same ids sorted: the declared-sorted entry gives the
+            # sorting entry's bits, the mean entry the plain mean's values
+            seg = torch.sort(seg)[0]
+            got = ops.segment_matmul_gathered(m, idx, seg, n, ids_sorted=True)
+            check_same(got, ops.segment_matmul_gathered(m, idx, seg, n),
+                       f"K4 sorted entry vs sorting entry {e}x{d}->{n} {dtype}")
+            e_max = max(e_max, check_close(
+                got, ref.segment_matmul_gathered_ref(m, idx, seg, n),
+                K4_TOL[dtype], f"K4 sorted sweep {e}x{d}->{n} {dtype}",
+                K4_TOL[dtype]))
+            e_max = max(e_max, check_close(
+                ops.segment_matmul_gathered(m, idx, seg, n, ids_sorted=True,
+                                            mean=True),
+                ref.segment_mean_gathered_ref(m, idx, seg, n), K4_TOL[dtype],
+                f"K4 mean sweep {e}x{d}->{n} {dtype}", K4_TOL[dtype]))
         errs[f"segment_matmul sweep {str(dtype)[6:]}"] = e_max
+    errs["long runs, K4 vs a float64 sum"] = check_k4_long_runs(ops, dev)
+    check_k4_nan_cases(ops, ref, dev)
     e_max = 0.0
     for b, h, m, o, d in K5_SWEEP:
         rng = np.random.default_rng(b + h)
@@ -1068,14 +1121,63 @@ def check_recsys_kernels(ops, ref, dev) -> dict:
     return errs
 
 
-def recsys_bag_inputs(recsys, cfg, batch):
-    """The multi-hot bag sum's inputs as ``_field_embeddings`` builds them:
-    fused-table rows and bag ids (int32, 8 sorted rows per bag)."""
-    mh = batch["multihot_ids"]
-    rows = recsys._field_rows(cfg, mh, cfg.n_sparse - cfg.n_multihot)
-    bags = torch.arange(mh.shape[0] * cfg.n_multihot, dtype=torch.int32,
-                        device=mh.device).repeat_interleave(cfg.bag_size)
-    return rows.reshape(-1).contiguous(), bags
+def check_same(got, exp, what: str) -> None:
+    """Raise unless two outputs hold the same bits where they are numbers
+    and NaN at the same places (NaN payloads are not compared)."""
+    if not (torch.equal(got.isnan(), exp.isnan())
+            and torch.equal(got.nan_to_num(0.0), exp.nan_to_num(0.0))):
+        raise AssertionError(f"{what}: not bitwise equal")
+
+
+def check_k4_long_runs(ops, dev) -> float:
+    """K4's declared-sorted entry on runs of up to 30,000 rows (the kernel
+    takes them 8 at a time, the sum carried in registers): the sorting
+    entry's bits, and within 1e-2 of a float64 sum (the plain version's
+    own fp32 sum drifts by ~1e-3 over such runs).  Returns the max abs
+    error against the float64 sum."""
+    rng = np.random.default_rng(9)
+    seg = np.sort(np.concatenate([np.full(30_000, 2), rng.integers(0, 5, 10_000)]))
+    seg = torch.from_numpy(seg.astype(np.int32)).to(dev)
+    table = _normal(rng, (100_000, 10), torch.float32, dev)
+    idx = _ids(rng, 0, 100_000, seg.shape[0], dev)
+    got = ops.segment_matmul_gathered(table, idx, seg, 5, ids_sorted=True)
+    check_same(got, ops.segment_matmul_gathered(table, idx, seg, 5),
+               "K4 long runs, sorted entry vs sorting entry")
+    exp = torch.zeros((5, 10), dtype=torch.float64, device=dev).index_add_(
+        0, seg.long(), table.double()[idx.long()])
+    err = float((got.double() - exp).abs().max())
+    if not err <= 1e-2:
+        raise AssertionError(f"K4 long runs: max |kernel - float64 sum| = "
+                             f"{err} > 1e-2")
+    return err
+
+
+def check_k4_nan_cases(ops, ref, dev) -> None:
+    """The declared-sorted entry's NaN: indices outside [-R, R) make their
+    bags NaN as the sorting entry and the plain version do (jnp.take); and
+    unsorted ids declared sorted make every output of the call NaN (the
+    sorting entry's are finite)."""
+    table = torch.arange(18, dtype=torch.float32, device=dev).reshape(6, 3)
+    idx = torch.tensor([0, -1, 5, 6, -7, 2], dtype=torch.int32, device=dev)
+    seg = torch.tensor([0, 0, 1, 2, 3, 4], dtype=torch.int32, device=dev)
+    got = ops.segment_matmul_gathered(table, idx, seg, 5, ids_sorted=True)
+    check_same(got, ops.segment_matmul_gathered(table, idx, seg, 5),
+               "K4 out-of-range indices, sorted entry vs sorting entry")
+    check_same(got, ref.segment_matmul_gathered_ref(table, idx, seg, 5),
+               "K4 out-of-range indices, sorted entry vs plain")
+    table = torch.ones((8, 10), device=dev)
+    idx = torch.arange(8, dtype=torch.int32, device=dev)
+    seg = torch.tensor([0, 1, 1, 3, 2, 4, 5, 5], dtype=torch.int32, device=dev)
+    bad = ops.segment_matmul_gathered(table, idx, seg, 6, ids_sorted=True,
+                                      mean=True)
+    sync(dev)
+    if not bool(bad.isnan().all()):
+        raise AssertionError("K4: a false sortedness declaration did not "
+                             "poison the whole output")
+    if bool(ops.segment_matmul_gathered(table, idx, seg, 6).isnan().any()):
+        raise AssertionError("K4 sorting entry gave NaN on unsorted ids")
+    log("K4 false declaration: unsorted ids declared sorted give an all-NaN "
+        f"output ({bad.numel()} values); the sorting entry's are finite")
 
 
 def recsys_setup(dev) -> dict:
@@ -1121,16 +1223,34 @@ def check_recsys_path_shapes(ops, ref, rs) -> dict:
 
     recsys, cfg, params = rs["recsys"], rs["cfg"], rs["params"]
     errs = {}
+    table = params["table"]
     for name in ("serve_p99", "serve_bulk"):
         batch = rs["batches"][name]
-        rows, bags = recsys_bag_inputs(recsys, cfg, batch)
+        rows, bags = recsys.multihot_bags(cfg, batch["multihot_ids"])
         nb = bags.shape[0] // cfg.bag_size
-        errs[f"segment_matmul {name} [{rows.shape[0]}, {cfg.embed_dim}]"] = \
-            check_close(ops.segment_matmul_gathered(params["table"], rows, bags, nb),
-                        ref.segment_matmul_gathered_ref(params["table"], rows,
-                                                        bags, nb),
-                        K4_TOL[torch.float32], f"K4 {name}",
-                        K4_TOL[torch.float32])
+        # the path's entry (declared sorted, the mean fused) and the sum
+        # entry, each bitwise against the sorting route and within the
+        # tolerance of the plain version
+        k4 = f"{name} [{rows.shape[0]}, {cfg.embed_dim}]"
+        got = ops.segment_matmul_gathered(table, rows, bags, nb,
+                                          ids_sorted=True)
+        sorting = ops.segment_matmul_gathered(table, rows, bags, nb)
+        check_same(got, sorting, f"K4 {name}: sorted entry vs sorting entry")
+        errs[f"segment_matmul {k4} sum"] = check_close(
+            got, ref.segment_matmul_gathered_ref(table, rows, bags, nb),
+            K4_TOL[torch.float32], f"K4 {name}", K4_TOL[torch.float32])
+        mean = ops.segment_matmul_gathered(table, rows, bags, nb,
+                                           ids_sorted=True, mean=True)
+        ones = torch.ones((rows.shape[0], 1), device=rows.device)
+        check_same(mean, sorting / torch.clamp(
+            ops.segment_matmul(ones, bags, nb), min=1.0),
+            f"K4 {name}: mean entry vs the two-call mean")
+        errs[f"segment_matmul {k4} mean"] = check_close(
+            mean, ref.segment_mean_gathered_ref(table, rows, bags, nb),
+            K4_TOL[torch.float32], f"K4 {name} mean", K4_TOL[torch.float32])
+        log(f"K4 {name}: sorted entry == sorting entry and mean entry == sum "
+            f"/ clamp(count, 1), bitwise, over {nb:,} bags")
+        del got, sorting, mean, ones
         x0 = recsys._field_embeddings(cfg, params, batch).contiguous()
         xk = x0
         for i, w in enumerate(params["cin"]):
@@ -1166,9 +1286,10 @@ def drive_recsys_path(rs, dev) -> dict:
     three traffic shapes; returns the path's metrics and the last p99
     scores."""
     recsys, cfg, params = rs["recsys"], rs["cfg"], rs["params"]
-    out = {}
+    out = {"calls": 0}
 
     def call(fn, *args):
+        out["calls"] += 1
         t0 = time.perf_counter()
         res = fn(cfg, params, *args)
         sync(dev)
@@ -1192,7 +1313,9 @@ def drive_recsys_path(rs, dev) -> dict:
         f"{out['p99_p50_ms']:.3f} ms, p99 {out['p99_p99_ms']:.3f} ms, "
         f"{out['p99_rows_s']:,.0f} rows/s; mean ctr "
         f"{float(scores.mean()):.4f}")
-    out["p99_busy"] = profiled(lambda: call(recsys.serve, p99))
+    # K4 on the path: declared-sorted ids, so no sort kernel runs
+    out["p99_busy"] = profiled(lambda: call(recsys.serve, p99), forbid="sort",
+                               require="segment_sum")
 
     bulk = rs["batches"]["serve_bulk"]
     nb = bulk["sparse_ids"].shape[0]
@@ -1207,7 +1330,8 @@ def drive_recsys_path(rs, dev) -> dict:
     out["bulk_s"] = float(np.median(secs))
     out["bulk_rows_s"] = nb / out["bulk_s"]
     del bs
-    out["bulk_busy"] = profiled(lambda: call(recsys.serve, bulk))
+    out["bulk_busy"] = profiled(lambda: call(recsys.serve, bulk),
+                                forbid="sort", require="segment_sum")
 
     retr = rs["batches"]["retrieval_cand"]
     ms = []
@@ -1264,36 +1388,87 @@ def check_recsys_outputs(ops, rs, dev) -> dict:
 
 
 def time_recsys_kernels(ops, ref, rs, dev) -> dict:
-    """K4 on the bulk bag sum and K5 on a p99 layer-2 call: kernel, plain
-    version and one PyTorch call of the same function (the yardstick; the
-    port never calls it), CUDA events, median; bounds from this run's
-    inputs."""
+    """K4 on the p99 and bulk bag sums and K5 on a p99 layer-2 call:
+    kernel, plain version and one PyTorch call of the same function (the
+    yardstick; the port never calls it), CUDA events, median; bounds from
+    this run's inputs.  K4's entries and yardsticks are timed in turns, in
+    one order and then the reverse, and each time is the mean of the two
+    medians."""
     import torch.nn.functional as F
 
     recsys, cfg, params = rs["recsys"], rs["cfg"], rs["params"]
     table = params["table"]
     res = {}
     for name in ("serve_p99", "serve_bulk"):
-        rows, bags = recsys_bag_inputs(recsys, cfg, rs["batches"][name])
+        rows, bags = recsys.multihot_bags(
+            cfg, rs["batches"][name]["multihot_ids"])
         nb, e, d = bags.shape[0] // cfg.bag_size, rows.shape[0], cfg.embed_dim
-        ms = time_ms(lambda: ops.segment_matmul_gathered(table, rows, bags, nb), 10)
-        sort_ms = time_ms(lambda: torch.sort(bags, stable=True), 10)
-        plain_ms = time_ms(lambda: ref.segment_matmul_gathered_ref(
-            table, rows, bags, nb), 5)
         rows64 = rows.long()
         offsets = torch.arange(0, e, cfg.bag_size, device=dev)
-        lib_ms = time_ms(lambda: F.embedding_bag(rows64, table, offsets,
-                                                 mode="sum"), 10)
+        # the reference's batch-major bag order, for the layout's share
+        rows_bm = rows.reshape(cfg.n_multihot, -1, cfg.bag_size).transpose(
+            0, 1).reshape(-1)
+        rows_bm64 = rows_bm.long()
+        g = ops.segment_matmul_gathered
+        calls = {
+            "sum": lambda: g(table, rows, bags, nb, ids_sorted=True),
+            "mean": lambda: g(table, rows, bags, nb, ids_sorted=True,
+                              mean=True),
+            "sorting": lambda: g(table, rows, bags, nb),
+            "plain": lambda: ref.segment_matmul_gathered_ref(table, rows,
+                                                             bags, nb),
+            "plain_mean": lambda: ref.segment_mean_gathered_ref(table, rows,
+                                                                bags, nb),
+            "embedding_bag_sum": lambda: F.embedding_bag(
+                rows64, table, offsets, mode="sum"),
+            "embedding_bag_mean": lambda: F.embedding_bag(
+                rows64, table, offsets, mode="mean"),
+            "sum_batch_major": lambda: g(table, rows_bm, bags, nb,
+                                         ids_sorted=True),
+            "embedding_bag_sum_batch_major": lambda: F.embedding_bag(
+                rows_bm64, table, offsets, mode="sum"),
+            "id_sort": lambda: torch.sort(bags, stable=True),
+        }
+        turns = {k: [] for k in calls}
+        for order in (list(calls), list(calls)[::-1]):
+            for k in order:
+                turns[k].append(time_ms(calls[k], 5 if "plain" in k else 10))
+        ms = {k: float(np.mean(v)) for k, v in turns.items()}
+        # bound: ids and indices read once, each distinct row once, the
+        # output written once; diagnostic: the 32-byte sectors the gathered
+        # rows touch (two per 40-byte row), each gather counted
         n_rows = int(torch.unique(rows).numel())
         n_bytes = 4 * e + 4 * e + 4 * d * n_rows + 4 * d * nb
         t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, e * d / CUDA_CORE_OPS_PER_S
         bound = 1e3 * max(t_bytes, t_ops)
         by = "bytes" if t_bytes >= t_ops else "operations"
-        log(f"K4 {name} bag sum [{e:,}, {d}] -> {nb:,} bags: kernel {ms:.4f} ms "
-            f"(the id sort alone {sort_ms:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"embedding_bag {lib_ms:.4f} ms; bound {bound:.4f} ms by {by} "
-            f"({n_bytes / 1e6:.1f} MB: {n_rows:,} distinct rows)")
-        res[f"segment_matmul {name}"] = (ms, plain_ms, lib_ms, bound, by)
+        first = rows64 * (4 * d)
+        sectors = int(((first + 4 * d - 1) // 32 - first // 32 + 1).sum())
+        sector_ms = 1e3 * (8 * e + 32 * sectors + 4 * d * nb) / HBM_BYTES_PER_S
+        log(f"K4 {name} bag sum [{e:,}, {d}] -> {nb:,} bags (in turns, ms, "
+            f"each the mean of two medians): "
+            + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()))
+        log(f"K4 {name}: bound {bound:.4f} ms by {by} ({n_bytes / 1e6:.1f} MB: "
+            f"{n_rows:,} distinct rows); the sum entry at "
+            f"{100 * bound / ms['sum']:.1f}% of it, the mean entry at "
+            f"{100 * bound / ms['mean']:.1f}%; sum vs embedding_bag "
+            f"{ms['embedding_bag_sum'] / ms['sum']:.2f}x, mean vs "
+            f"embedding_bag {ms['embedding_bag_mean'] / ms['mean']:.2f}x; "
+            f"diagnostic, not the bound: {sectors / e:.2f} sectors a gathered "
+            f"row, {sector_ms:.4f} ms at the full memory rate "
+            f"({(8 * e + 32 * sectors + 4 * d * nb) / ms['sum'] / 1e6:.1f} "
+            f"GB/s of such bytes in the sum entry)")
+        res[f"segment_matmul {name}"] = {
+            "ms": ms, "turns": turns, "bound_ms": bound, "bound_by": by,
+            "sector_ms": sector_ms}
+        if name == "serve_p99":      # a call of microseconds: the host's share
+            host = {k: host_us(calls[k]) for k in
+                    ("sum", "mean", "embedding_bag_sum", "embedding_bag_mean")}
+            log(f"K4 serve_p99, host microseconds a call (2,000 calls, no "
+                f"sync between): " + ", ".join(f"{k} {v:.2f}"
+                                              for k, v in host.items()))
+            res[f"segment_matmul {name}"]["host_us"] = host
+        del rows64, rows_bm, rows_bm64, first
 
     x0 = recsys._field_embeddings(cfg, params, rs["batches"]["serve_p99"])
     x0 = x0.contiguous()
@@ -1446,6 +1621,10 @@ def main() -> int:
     log(f"recsys path: {time.perf_counter() - t:.1f} s, launches "
         f"segment_matmul {segment_matmul.LAUNCHES}, cin {cin.LAUNCHES}; "
         f"{json.dumps(rec)}")
+    if segment_matmul.LAUNCHES != rec["calls"]:
+        raise AssertionError(f"K4 launched {segment_matmul.LAUNCHES} times in "
+                             f"{rec['calls']} serve and retrieval calls, "
+                             f"expected once a call")
     out_errs = check_recsys_outputs(ops, rs, dev)
     k45_time = time_recsys_kernels(ops, ref, rs, dev)
     del rs
@@ -1491,10 +1670,14 @@ def main() -> int:
                 "bound_by": k3_time[key]["bound"][1],
                 "library_ms": k3_time[key]["sdpa"]}
                 for key in ("flat", "gemma")}})
+    # K4: the path's entry (declared sorted, the mean fused) at bulk; the
+    # sum and sorting entries and the p99 shape under "entries"
+    k4 = k45_time["segment_matmul serve_bulk"]
+    k4_timing = (k4["ms"]["mean"], k4["ms"]["plain_mean"],
+                 k4["ms"]["embedding_bag_mean"], k4["bound_ms"], k4["bound_by"])
     for name, source, replaces, timing in (
             ("segment_matmul", "segment_sum.cu",
-             "src/repro/kernels/segment_matmul.py:44",
-             k45_time["segment_matmul serve_bulk"]),
+             "src/repro/kernels/segment_matmul.py:44", k4_timing),
             ("cin", "cin.cu", "src/repro/kernels/cin.py:46", k45_time["cin"])):
         ms, pms, lms, bms, by = timing
         kernels.append({
@@ -1505,6 +1688,15 @@ def main() -> int:
                                if k.startswith(name)),
             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms})
+    kernels[-2]["entries"] = {
+        shape: {key: k45_time[f"segment_matmul {shape}"]["ms"][key]
+                for key in ("sum", "mean", "sorting", "plain", "plain_mean",
+                            "embedding_bag_sum", "embedding_bag_mean",
+                            "sum_batch_major")}
+        | {key: k45_time[f"segment_matmul {shape}"][key]
+           for key in ("bound_ms", "sector_ms", "host_us")
+           if key in k45_time[f"segment_matmul {shape}"]}
+        for shape in ("serve_p99", "serve_bulk")}
     # K5 also: cuBLAS's SGEMM at the same p99 shape, one whole bulk layer-2
     # call, and the GEMM's compile report
     kernels[-1].update({"sgemm_ms": k45_time["cin sgemm_ms"],

@@ -40,11 +40,11 @@ _SIGNATURES = {
         "flash_attention_smem_bytes": (ctypes.c_int,) * 3,
     },
     "segment_sum": {
-        # src, n_src_rows, indices, sorted_ids, order, e, n, d, dtype,
-        # starts, out, stream
-        "segment_sum_launch": (_P, ctypes.c_longlong, _P, _P, _P,
-                               ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                               ctypes.c_int, _P, _P, _P),
+        # src, n_src_rows, indices, ids, order, e, n, d, dtype, unit, mean,
+        # scratch, out, stream
+        "segment_sum_launch": (_P, ctypes.c_int, _P, _P, _P,
+                               ctypes.c_longlong) + (ctypes.c_int,) * 5
+                              + (_P, _P, _P),
     },
     "cin": {
         # xk, x0, w, out, ws, batch, h, m, d, o, slices, stream

@@ -139,12 +139,22 @@ def segment_matmul(messages, seg_ids, num_segments: int):
     return ref.segment_matmul_ref(messages, seg_ids, num_segments)
 
 
-def segment_matmul_gathered(table, indices, seg_ids, num_segments: int):
+def segment_matmul_gathered(table, indices, seg_ids, num_segments: int, *,
+                            ids_sorted: bool = False, mean: bool = False):
     """K4's gathered entry — the one ``embedding_bag`` calls:
     ``segment_matmul(table[indices], seg_ids, N)`` with the rows read in
-    place on the card (``jnp.take`` semantics for the indices)."""
+    place on the card (``jnp.take`` semantics for the indices).
+    ``ids_sorted`` declares the ids ascending, so nothing sorts them (a
+    false declaration raises on the CPU and gives all NaN on the card);
+    ``mean`` divides each sum by ``max(count, 1)`` in the same call."""
     if _on_card(table, indices, seg_ids):
-        return segment_sum_cuda(table, seg_ids, num_segments, indices)
+        return segment_sum_cuda(table, seg_ids, num_segments, indices,
+                                ids_sorted=ids_sorted, mean=mean)
+    if ids_sorted:
+        ref.require_sorted(seg_ids)
+    if mean:
+        return ref.segment_mean_gathered_ref(table, indices, seg_ids,
+                                             num_segments)
     return ref.segment_matmul_gathered_ref(table, indices, seg_ids,
                                            num_segments)
 

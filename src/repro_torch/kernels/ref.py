@@ -171,6 +171,27 @@ def segment_matmul_gathered_ref(table: torch.Tensor, indices: torch.Tensor,
                               num_segments)
 
 
+def segment_mean_gathered_ref(table: torch.Tensor, indices: torch.Tensor,
+                              seg_ids: torch.Tensor,
+                              num_segments: int) -> torch.Tensor:
+    """The embedding bag's mean: the plain fp32 sum of the gathered rows
+    over the plain count of in-range ids, ``max(count, 1)``, cast once."""
+    total = segment_matmul_ref(take_rows_ref(table, indices).float(), seg_ids,
+                               num_segments)
+    ones = torch.ones((seg_ids.shape[0], 1), dtype=torch.float32,
+                      device=seg_ids.device)
+    count = segment_matmul_ref(ones, seg_ids, num_segments)
+    return (total / torch.clamp(count, min=1.0)).to(table.dtype)
+
+
+def require_sorted(seg_ids: torch.Tensor) -> None:
+    """Raise ``ValueError`` unless the ids are ascending: what a caller
+    declares with ``ids_sorted=True`` (on the card, the kernel writes NaN
+    instead)."""
+    if bool((seg_ids[1:] < seg_ids[:-1]).any()):
+        raise ValueError("seg_ids declared sorted but not in ascending order")
+
+
 def cin_layer_ref(xk: torch.Tensor, x0: torch.Tensor,
                   w: torch.Tensor) -> torch.Tensor:
     """``relu(einsum('bhd,bmd,ohm->bod'))`` in fp32, output in ``xk.dtype``:

@@ -327,6 +327,118 @@ def test_segment_matmul_at_the_p99_shape(cuda):
     torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
 
 
+def _same(got, exp):
+    """Bitwise equal where numbers, NaN at the same places."""
+    return (torch.equal(got.isnan(), exp.isnan())
+            and torch.equal(got.nan_to_num(0.0), exp.nan_to_num(0.0)))
+
+
+def _sorted_inputs(rng, e, d, n, dtype, device, rows=300):
+    table = torch.from_numpy(rng.normal(size=(rows, d)).astype(
+        np.float32)).to(device, dtype)
+    idx = torch.from_numpy(rng.integers(-rows - 2, rows + 2, e).astype(
+        np.int32)).to(device)                     # a few NaN bags
+    seg = torch.from_numpy(np.sort(rng.integers(-2, n + 2, e)).astype(
+        np.int32)).to(device)
+    return table, idx, seg
+
+
+@pytest.mark.parametrize("e,d,n", [(10, 4, 3), (100, 16, 17), (1000, 64, 77),
+                                   (513, 32, 128), (257, 8, 1), (3000, 300, 50),
+                                   (64, 5, 9)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float16])
+def test_sorted_entry_equals_sorting_entry(cuda, e, d, n, dtype):
+    """Declared-sorted ids (no sort, no order array) give the sorting
+    entry's bits, NaN bags included, in one launch."""
+    rng = np.random.default_rng(e * d + n)
+    table, idx, seg = _sorted_inputs(rng, e, d, n, dtype, cuda)
+    launches = segment_matmul.LAUNCHES
+    got = ops.segment_matmul_gathered(table, idx, seg, n, ids_sorted=True)
+    torch.cuda.synchronize()
+    assert segment_matmul.LAUNCHES == launches + 1 and got.dtype == dtype
+    assert _same(got, ops.segment_matmul_gathered(table, idx, seg, n))
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), ref.segment_matmul_gathered_ref(
+        table, idx, seg, n).float(), rtol=tol, atol=tol, equal_nan=True)
+
+
+def _p99_bags(cuda):
+    rng = np.random.default_rng(0)
+    table = torch.randn((4_000_000, 10), device=cuda,
+                        generator=torch.Generator(cuda).manual_seed(0)) * 0.01
+    idx = torch.from_numpy(rng.integers(0, 4_000_000, 16_384).astype(
+        np.int32)).to(cuda)
+    seg = torch.arange(2048, dtype=torch.int32, device=cuda).repeat_interleave(8)
+    return table, idx, seg
+
+
+def test_sorted_entry_equals_sorting_entry_at_the_p99_shape(cuda):
+    table, idx, seg = _p99_bags(cuda)
+    got = ops.segment_matmul_gathered(table, idx, seg, 2048, ids_sorted=True)
+    assert torch.equal(got, ops.segment_matmul_gathered(table, idx, seg, 2048))
+
+
+@pytest.mark.parametrize("e,d,n", [(100, 16, 17), (1000, 64, 77), (257, 8, 1),
+                                   (3000, 10, 40), (16_384, 10, 2048)])
+def test_mean_entry_equals_the_two_call_mean(cuda, e, d, n):
+    """The fused mean is the sum over clamp(count, 1), one IEEE divide of
+    the same fp32 sum: bitwise equal to the sum entry, then the rows entry
+    on ones, then clamp and divide (the route it replaces)."""
+    rng = np.random.default_rng(e + n)
+    if e == 16_384:
+        table, idx, seg = _p99_bags(cuda)
+    else:
+        table, idx, seg = _sorted_inputs(rng, e, d, n, torch.float32, cuda)
+    got = ops.segment_matmul_gathered(table, idx, seg, n, ids_sorted=True,
+                                      mean=True)
+    count = ops.segment_matmul(torch.ones((e, 1), device=cuda), seg, n)
+    exp = ops.segment_matmul_gathered(table, idx, seg, n) / torch.clamp(
+        count, min=1.0)
+    assert _same(got, exp)
+    torch.testing.assert_close(got, ref.segment_mean_gathered_ref(
+        table, idx, seg, n), rtol=1e-5, atol=1e-5, equal_nan=True)
+
+
+@pytest.mark.parametrize("mean", [False, True])
+def test_false_declaration_gives_all_nan(cuda, mean):
+    """Unsorted ids declared sorted: every output is NaN, with no host
+    sync; the sorting entry on the same ids is finite."""
+    table = torch.randn((50, 10), device=cuda)
+    idx = torch.arange(40, dtype=torch.int32, device=cuda)
+    seg = torch.arange(40, dtype=torch.int32, device=cuda) // 4
+    seg[17], seg[18] = 6, 2                       # one descending pair
+    got = ops.segment_matmul_gathered(table, idx, seg, 12, ids_sorted=True,
+                                      mean=mean)
+    assert bool(got.isnan().all())
+    assert bool(ops.segment_matmul_gathered(table, idx, seg, 12,
+                                            mean=mean).isfinite().all())
+    seg[17], seg[18] = 4, 4                       # sorted again: finite
+    assert bool(ops.segment_matmul_gathered(table, idx, seg, 12,
+                                            ids_sorted=True).isfinite().all())
+
+
+@pytest.mark.parametrize("run", [9, 4096, 30_000])
+def test_long_runs_are_summed_right(cuda, run):
+    """A segment whose run is many times the kernel's chunk of 8 positions
+    (the sum carried in registers across chunks), declared sorted and
+    sorted by the wrapper, on the gathered and the rows entry: the same
+    bits, and within 1e-2 of a float64 sum (fp32 drift over 30,000 rows)."""
+    rng = np.random.default_rng(run)
+    seg = np.sort(np.concatenate([np.full(run, 2), rng.integers(0, 5, 1000)]))
+    seg = torch.from_numpy(seg.astype(np.int32)).to(cuda)
+    table = torch.from_numpy(rng.normal(size=(50_000, 10)).astype(
+        np.float32)).to(cuda)
+    idx = torch.from_numpy(rng.integers(0, 50_000, seg.shape[0]).astype(
+        np.int32)).to(cuda)
+    got = ops.segment_matmul_gathered(table, idx, seg, 5, ids_sorted=True)
+    assert torch.equal(got, ops.segment_matmul_gathered(table, idx, seg, 5))
+    rows = table[idx.long()].contiguous()
+    assert torch.equal(got, ops.segment_matmul(rows, seg, 5))
+    exp = torch.zeros((5, 10), dtype=torch.float64, device=cuda).index_add_(
+        0, seg.long(), rows.double())
+    assert float((got.double() - exp).abs().max()) <= 1e-2
+
+
 @pytest.mark.parametrize("b,h,m,o,d", [(8, 5, 7, 11, 6), (64, 40, 40, 200, 10),
                                        (130, 8, 8, 16, 16), (3, 2, 1, 70, 5),
                                        (512, 40, 40, 200, 10),
@@ -384,7 +496,8 @@ def test_cin_layer_rejects_what_it_does_not_take(cuda):
 
 def test_recsys_serve_on_card_equals_serve_on_cpu(cuda):
     """xDeepFM smoke: the card's scores (K4 and K5 on the path) against the
-    CPU's plain versions, 1e-5 (fp32 sums in another order)."""
+    CPU's plain versions, 1e-5 (fp32 sums in another order); K4 once a
+    call (the mean fused, the bag ids declared sorted)."""
     cfg = get_config("xdeepfm").smoke
     params = recsys.init_params(cfg, torch.Generator().manual_seed(0))
     card_params = recsys.params_from_numpy(recsys.params_to_numpy(params),
@@ -392,7 +505,7 @@ def test_recsys_serve_on_card_equals_serve_on_cpu(cuda):
     nb = ClickStream(cfg, 64, seed=1).next()
     n4, n5 = segment_matmul.LAUNCHES, cin.LAUNCHES
     got = recsys.serve(cfg, card_params, recsys.batch_to_torch(nb, cuda)).cpu()
-    assert segment_matmul.LAUNCHES == n4 + 2
+    assert segment_matmul.LAUNCHES == n4 + 1
     assert cin.LAUNCHES == n5 + len(cfg.cin_layers)
     exp = recsys.serve(cfg, params, recsys.batch_to_torch(nb, "cpu"))
     torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)

@@ -92,6 +92,54 @@ def test_embedding_bag_matches_reference(carried, mode):
     _close(got, exp)
 
 
+@pytest.mark.parametrize("mode", ["sum", "mean"])
+def test_embedding_bag_on_declared_sorted_ids_matches_reference(carried,
+                                                                 mode):
+    jp, tp = carried
+    rng = np.random.default_rng(5)
+    rows = rng.integers(-50, tp["table"].shape[0], 64).astype(np.int32)
+    bags = np.sort(rng.integers(-1, 13, 64)).astype(np.int32)  # some outside
+    exp = jr.embedding_bag(jp["table"], jnp.asarray(rows), jnp.asarray(bags),
+                           12, mode=mode)
+    got = tr.embedding_bag(tp["table"], torch.from_numpy(rows),
+                           torch.from_numpy(bags), 12, mode=mode,
+                           ids_sorted=True)
+    _close(got, exp, 1e-6)
+
+
+def test_multihot_bags_are_field_major_and_sorted():
+    """``multihot_bags`` orders bags field-major (bag f·B + b) with ids
+    ascending; each bag holds the rows of the reference's bag (b, f)."""
+    _, tb = _batches(5, seed=8)
+    rows, bags = tr.multihot_bags(CFG, tb["multihot_ids"])
+    b, f, bag = tb["multihot_ids"].shape
+    assert rows.dtype == bags.dtype == torch.int32 and rows.is_contiguous()
+    assert bool((bags[1:] >= bags[:-1]).all())
+    ref_rows = tr._field_rows(CFG, tb["multihot_ids"], CFG.n_sparse - f)
+    for k in range(f * b):
+        np.testing.assert_array_equal(rows[bags == k].numpy(),
+                                      ref_rows[k % b, k // b].numpy())
+
+
+def test_field_embeddings_make_one_declared_sorted_mean_call(carried,
+                                                             monkeypatch):
+    """The multi-hot fields are one K4 call: bag ids declared sorted (no
+    sort on the card) and the mean fused (no rows-entry count call)."""
+    _, tp = carried
+    _, tb = _batches(4, seed=2)
+    seen = []
+    gathered = tr.kernel_ops.segment_matmul_gathered
+
+    def spy(*args, **kw):
+        seen.append(kw)
+        return gathered(*args, **kw)
+
+    monkeypatch.setattr(tr.kernel_ops, "segment_matmul_gathered", spy)
+    monkeypatch.setattr(tr.kernel_ops, "segment_matmul", None)
+    tr._field_embeddings(CFG, tp, tb)
+    assert seen == [{"ids_sorted": True, "mean": True}]
+
+
 def test_field_embeddings_and_cin_match_reference(carried):
     jp, tp = carried
     jb, tb = _batches()

@@ -97,6 +97,102 @@ def test_gathered_entry_takes_rows_as_jnp_take():
     assert np.isnan(got.numpy()[2:4]).all()
 
 
+def _sorted_case(e, d, n, seed):
+    """The sweep's inputs with sorted ids: a few ids outside ``[0, n)``
+    (they sort first and last), empty segments where ids skip, and
+    indices that wrap from the end."""
+    rng = np.random.default_rng(seed)
+    table = rng.normal(size=(300, d)).astype(np.float32)
+    idx = rng.integers(-300, 300, e).astype(np.int32)
+    seg = np.sort(rng.integers(-2, n + 2, e)).astype(np.int32)
+    return table, idx, seg
+
+
+@pytest.mark.parametrize("e,d,n", SEG_SWEEP)
+def test_sorted_entry_matches_pallas_kernel(no_launch, e, d, n):
+    """The declared-sorted entry equals the sorting entry and ``repro``'s
+    Pallas body on the rows ``jnp.take`` gathers (interpret mode)."""
+    table, idx, seg = _sorted_case(e, d, n, e + d + n)
+    rows = jnp.take(jnp.asarray(table), jnp.asarray(idx), axis=0)
+    exp = segment_matmul_kernel(rows, jnp.asarray(seg), n, interpret=True)
+    args = tuple(map(torch.from_numpy, (table, idx, seg))) + (n,)
+    got = ops.segment_matmul_gathered(*args, ids_sorted=True)
+    torch.testing.assert_close(got, ops.segment_matmul_gathered(*args),
+                               rtol=0, atol=0)
+    _close(got, exp, TOL[np.float32])
+
+
+def test_sorted_entry_gives_nan_bags_as_jnp_take():
+    """Indices outside ``[-R, R)`` make their (sorted) bags NaN, as
+    ``jax.ops.segment_sum`` over ``jnp.take`` does; the others hold."""
+    rng = np.random.default_rng(3)
+    table = rng.normal(size=(6, 3)).astype(np.float32)
+    idx = np.asarray([0, -1, 5, 6, -7, 2, 3], np.int32)
+    seg = np.asarray([0, 0, 1, 2, 3, 4, 4], np.int32)
+    exp = jax.ops.segment_sum(jnp.take(jnp.asarray(table), jnp.asarray(idx),
+                                       axis=0), jnp.asarray(seg), 5)
+    got = ops.segment_matmul_gathered(
+        *map(torch.from_numpy, (table, idx, seg)), 5, ids_sorted=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(exp), rtol=1e-6,
+                               atol=1e-6)
+    assert np.isnan(got.numpy()[2:4]).all()
+    assert not np.isnan(got.numpy()[[0, 1, 4]]).any()
+
+
+@pytest.mark.parametrize("mean", [False, True])
+def test_sorted_entry_raises_on_unsorted_ids(no_launch, mean):
+    """A false declaration is loud: the plain version raises (the kernel
+    writes NaN everywhere instead)."""
+    table = torch.ones((4, 3))
+    idx = torch.arange(4, dtype=torch.int32)
+    seg = torch.tensor([0, 2, 1, 3], dtype=torch.int32)
+    with pytest.raises(ValueError, match="ascending"):
+        ops.segment_matmul_gathered(table, idx, seg, 4, ids_sorted=True,
+                                    mean=mean)
+    ops.segment_matmul_gathered(table, idx, seg, 4, mean=mean)  # no claim
+
+
+@pytest.mark.parametrize("e,d,n", SEG_SWEEP)
+def test_mean_entry_matches_embedding_bag_mean(no_launch, e, d, n):
+    """The fused mean equals ``repro``'s ``embedding_bag(mode="mean")`` at
+    1e-6 (empty bags give 0, ids outside ``[0, n)`` count nowhere), on
+    sorted and unsorted ids."""
+    from repro.models.recsys import embedding_bag
+    table, idx, seg = _sorted_case(e, d, n, e * n + d)
+    for ids, declared in ((seg, True), (np.random.default_rng(e).permutation(
+            seg), False)):
+        exp = embedding_bag(jnp.asarray(table), jnp.asarray(idx),
+                            jnp.asarray(ids), n, mode="mean")
+        got = ops.segment_matmul_gathered(
+            *map(torch.from_numpy, (table, idx, ids)), n,
+            ids_sorted=declared, mean=True)
+        assert got.shape == (n, d) and got.dtype == torch.float32
+        _close(got, exp, 1e-6)
+
+
+def test_mean_entry_casts_once_in_fp16():
+    """In fp16 the mean divides the fp32 sum and rounds once."""
+    rng = np.random.default_rng(11)
+    table = torch.from_numpy(rng.normal(size=(50, 4)).astype(np.float16))
+    idx = torch.from_numpy(rng.integers(0, 50, 40).astype(np.int32))
+    seg = torch.from_numpy(np.sort(rng.integers(0, 6, 40)).astype(np.int32))
+    got = ops.segment_matmul_gathered(table, idx, seg, 6, ids_sorted=True,
+                                      mean=True)
+    total = ref.segment_matmul_ref(table[idx.long()].float(), seg, 6)
+    count = torch.bincount(seg.long(), minlength=6).clamp(min=1)
+    assert got.dtype == torch.float16
+    torch.testing.assert_close(got, (total / count[:, None]).half(), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("d,itemsize,ptr,unit", [
+    (10, 4, 0, 8),        # xDeepFM's 40-byte rows: 8-byte loads
+    (4, 4, 0, 16), (64, 4, 256, 16), (3, 4, 0, 4), (10, 4, 4, 4),
+    (8, 2, 0, 16), (3, 2, 0, 2), (6, 2, 8, 4)])
+def test_load_unit_is_the_widest_aligned(d, itemsize, ptr, unit):
+    assert segment_matmul.load_unit(d, itemsize, ptr, 512) == unit
+
+
 @pytest.mark.parametrize("b,h,m,o,d", CIN_SWEEP + [(8, 200, 40, 200, 10)])
 def test_cin_layer_matches_pallas_kernel(no_launch, b, h, m, o, d):
     """The reference's sweep plus one xDeepFM layer-2 shape at B = 8."""
