@@ -12,10 +12,18 @@
    for more than 232,448 bytes).
 2. Holds each truss kernel (``peel_wave``, ``bitmap_support``) bitwise
    against its plain PyTorch version on the card: at the unit-test shapes
-   (row and word slabs, words with bit 31 set) and at the slice's width on
-   a 65,536-row chunk of the slashdot-like bitmap; then times one full wave
-   of each at that shape (CUDA events, median) beside its bound and the
-   plain version.
+   (row and word slabs, words with bit 31 set), where the digest body of
+   the gathered entries also runs with its capacity forced to 1, 2 and 8
+   against the plain version and the direct body; then at the slice's
+   width: the slashdot-like bitmap's
+   nonzero words a row (p50, p99, max, total; rows over the capacity and
+   edges with both rows over it), the digest body against the plain
+   version and the direct body on a 65,536-slot chunk and on the whole
+   wave, both bodies timed in turns (CUDA events, median) on a full wave
+   of each kernel and on K1 at seeded 10% and 1% alive subsets, beside
+   their bounds, the plain version and each body's host microseconds a
+   call (the id check's alone too); and one full wave of each under the
+   profiler (time by pass).
 3. Holds the attention kernel (``flash_attention``, two bodies: ``wgmma``
    for bf16 at head dims 64, 128 and 256, ``simt`` for the rest) against
    its plain version: the reference's sweep, a non-causal case whose length
@@ -29,7 +37,9 @@
    slashdot-like power-law graph (77,360 nodes, 980,614 edges), checked
    against the pure-Python oracle; three fused 2,000-update batches, a few
    progressive single updates, one batch with ``engine="recompute"``, one
-   more batch of each engine under ``torch.profiler``, then
+   more batch of each engine under ``torch.profiler`` (each must show the
+   digest body's ``digest_rows`` among its device ops, and every K1 and K2
+   call of the path must have run the digest body), then
    ``max_truss``/``k_truss``/``index.query`` checked against a host
    connected-components pass, and a final from-scratch oracle check.
 5. Times the attention kernel's bodies at ``[64, 4096, 128]`` bf16, at the
@@ -103,6 +113,13 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory
 CUDA_CORE_OPS_PER_S = 67e12   # the card's non-tensor-core peak (fp32 table row)
 BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 TEST_SHAPES = ((1, 1), (7, 3), (64, 32), (130, 37), (513, 129))
+PROBE_LANES_REASON = ("8 lanes a slot (kProbeLanes, csrc/bitmap_popcount"
+                      ".cu): the mean sparser row has 25 nonzero words, "
+                      "one sweep of 8 lanes with four entries each in "
+                      "flight; 4, 8 and 16 lanes came within 6% of each "
+                      "other on full waves of K1 and K2 by device time, "
+                      "32 up to 21% slower on K2 (PERF.md section 6, "
+                      "PR 20)")
 CHUNK_ROWS = 65_536
 SOURCES = ("bitmap_popcount", "flash_attention", "segment_sum", "cin")
 K3_SWEEP = ((1, 64, 16), (2, 300, 32), (4, 128, 64))
@@ -211,6 +228,44 @@ def check_test_shapes(ops, ref, dev) -> int:
     err = max(err, check_equal(
         ops.bitmap_support_gathered(bm, eu, ev, word_offset=5, word_count=20),
         ref.bitmap_support_ref(ra[:, 5:25], rb[:, 5:25]), "K2 gathered slab"))
+    return max(err, check_digest_shapes(ref, rng, dev))
+
+
+def check_digest_shapes(ref, rng, dev) -> int:
+    """The digest body at the unit-test widths, its capacity forced to 1,
+    2 and 8 (both branches) and left to ``digest_capacity``: bitwise
+    against the plain version and the direct body,
+    on a bitmap 60% zero words whose base is 4 bytes past an 8-byte
+    boundary, with u == v slots and a word slab."""
+    from repro_torch.kernels import bitmap_support as bs, peel_wave as pw
+    err = 0
+    for e, w in TEST_SHAPES:
+        n = max(e, 2)
+        bm = random_words(rng, (n * w + 1,), dev)[1:].view(n, w)
+        bm[torch.from_numpy(rng.random((n, w)) < 0.6).to(dev)] = 0
+        eu = torch.from_numpy(rng.integers(0, n, 3 * e).astype(np.int32)).to(dev)
+        ev = torch.from_numpy(rng.integers(0, n, 3 * e).astype(np.int32)).to(dev)
+        ev[:e] = eu[:e]
+        alive = torch.from_numpy(rng.random(3 * e) < 0.7).to(dev)
+        wo, wc = w // 3, max(1, w // 2)
+        exp2 = ref.bitmap_support_gathered_ref(bm, eu, ev)
+        exp_slab = ref.bitmap_support_gathered_ref(bm[:, wo:wo + wc], eu, ev)
+        exp1 = ref.peel_wave_gathered_ref(bm, eu, ev, alive, 3)
+        direct1 = pw.peel_wave_cuda(bm, bm, alive, 3, eu, ev, body="direct")
+        err = max(err, check_equal(bs.bitmap_support_cuda(
+            bm, bm, eu, ev, body="direct"), exp2, f"K2 direct {e}x{w}"))
+        for g, x in zip(direct1, exp1):
+            err = max(err, check_equal(g, x, f"K1 direct {e}x{w}"))
+        for cap in (1, 2, 8, None):
+            what = f"{e}x{w} C={cap}"
+            err = max(err, check_equal(bs.bitmap_support_cuda(
+                bm, bm, eu, ev, capacity=cap), exp2, f"K2 digest {what}"))
+            err = max(err, check_equal(bs.bitmap_support_cuda(
+                bm, bm, eu, ev, wo, wc, capacity=cap), exp_slab,
+                f"K2 digest slab {what}"))
+            for g, x in zip(pw.peel_wave_cuda(bm, bm, alive, 3, eu, ev,
+                                              capacity=cap), exp1):
+                err = max(err, check_equal(g, x, f"K1 digest {what}"))
     return err
 
 
@@ -257,9 +312,91 @@ def bound_ms(bitmap, rows_used: int, slot_bytes: int, n_slots: int,
             "bytes" if t_bytes >= t_ops else "operations", n_bytes)
 
 
+def host_us_in_turns(calls: dict, samples: int = 200) -> dict:
+    """Median host microseconds a call of each of ``calls`` that starts on
+    an idle device (what a wave loop that syncs every wave pays on the
+    host, the wrapper's own host sync included): one warm-up call each,
+    then ``samples`` rounds of one call each, the order reversed every
+    round."""
+    for fn in calls.values():
+        fn()
+    keys, got = list(calls), {k: [] for k in calls}
+    for i in range(samples):
+        for key in (keys if i % 2 == 0 else keys[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            calls[key]()
+            got[key].append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    return {k: 1e6 * float(np.median(v)) for k, v in got.items()}
+
+
+def launch_only(name: str, body: str, bm, eu, ev, alive, k):
+    """K1 (``name`` "peel_wave") or K2 bound by the wrapper's own launcher
+    (``peel_wave_launcher``, ``bitmap_support_launcher``): checked and
+    allocated once, then its C entry alone, which the wrapper launches
+    after its id check's host sync.  Returns a function that launches it
+    ``n`` times back to back, so CUDA events around it time the kernels
+    alone.  These launches are not counted."""
+    from repro_torch.kernels import bitmap_support as bs, peel_wave as pw
+    if name == "peel_wave":
+        _, launch, _ = pw.peel_wave_launcher(bm, bm, alive, k, eu, ev,
+                                             body=body)
+    else:
+        _, launch, _ = bs.bitmap_support_launcher(bm, bm, eu, ev, body=body)
+
+    def launches(times: int = 1):
+        for _ in range(times):
+            launch()
+    return launches
+
+
+def kernel_ms(launch, reps: int = 10) -> float:
+    """Median CUDA-event ms of one launch of ``launch_only``'s function,
+    timed over ten back-to-back launches."""
+    return time_ms(lambda: launch(10), reps) / 10
+
+
+def in_turns(calls: dict, reps: int = 10, timer=None) -> dict:
+    """``timer(fn, reps)`` of each call (default: the median CUDA-event
+    ms), timed in turns in one order and then the reverse; each time the
+    mean of the two."""
+    timer = timer or time_ms
+    turns = {k: [] for k in calls}
+    for order in (list(calls), list(calls)[::-1]):
+        for k in order:
+            turns[k].append(timer(calls[k], reps))
+    return {k: float(np.mean(v)) for k, v in turns.items()}
+
+
+def nonzero_stats(bm, eu, ev, alive, cap: int) -> dict:
+    """Nonzero words per bitmap row, and what the digest body's plan makes
+    of them at capacity ``cap`` for the slots in ``alive``."""
+    nnz = (bm != 0).sum(1)
+    q = torch.quantile(nnz.double(), torch.tensor([0.5, 0.99], device=nnz.device,
+                                                  dtype=torch.float64))
+    na, nb = nnz[eu.long()][alive], nnz[ev.long()][alive]
+    sparse = torch.minimum(na, nb)
+    return {"rows": bm.shape[0], "words": bm.numel(),
+            "nonzero_words": int(nnz.sum()),
+            "nonzero_share": float(nnz.sum()) / bm.numel(),
+            "p50": float(q[0]), "p99": float(q[1]), "max": int(nnz.max()),
+            "capacity": cap, "rows_over_capacity": int((nnz > cap).sum()),
+            "edges": int(alive.sum()),
+            "edges_both_over_capacity": int(((na > cap) & (nb > cap)).sum()),
+            "sparser_mean": float(sparse.double().mean()),
+            "sparser_p99": float(torch.quantile(sparse.double(), 0.99)),
+            "probes": int(torch.where(sparse > cap, 0, sparse).sum())}
+
+
 def full_width_checks(core, ops, ref, edges, dev):
-    """Parity on a 65,536-row chunk of the real bitmap and one full wave of
-    each kernel timed at the slice's shape (all edges alive)."""
+    """At the slice's width: the nonzero-word statistics of the bitmap; the
+    digest body bitwise against the plain version and the direct body on a
+    65,536-row chunk and on the whole wave; both bodies timed in turns on a
+    full wave of K1 and K2 and on K1 at 10% and 1% alive, around the
+    wrapper call and as their C entry alone, with their host cost a call
+    and the id check's; one wave of each under the profiler."""
+    from repro_torch.kernels import bitmap_support as bs, peel_wave as pw
     spec = core.GraphSpec(N_NODES, d_max=2 * int(np.bincount(
         edges.reshape(-1)).max()), e_cap=2 * len(edges))
     st = core.from_edge_list(spec, edges, dev)
@@ -268,20 +405,96 @@ def full_width_checks(core, ops, ref, edges, dev):
     ev = torch.clamp(st.edges[:, 1], max=N_NODES - 1).contiguous()
     alive = st.active.clone()
     k = torch.tensor(3, dtype=torch.int32, device=dev)
+    w = bm.shape[1]
+    cap = bs.digest_capacity(w)
     log(f"bitmap {tuple(bm.shape)} int32 = {bm.numel() * 4 / 1e6:.0f} MB, "
         f"e_cap {spec.e_cap}, alive {int(alive.sum())}")
+    stats = nonzero_stats(bm, eu, ev, alive, cap)
+    log(f"nonzero words: {json.dumps(stats)}")
+    log(f"probe mapping kept: {PROBE_LANES_REASON}")
 
+    # the digest body against the plain version and the direct body
     c = slice(0, CHUNK_ROWS)
-    err1 = 0
-    for g, x, name in zip(ops.peel_wave_gathered(bm, eu[c], ev[c], alive[c], k),
-                          ref.peel_wave_gathered_ref(bm, eu[c], ev[c], alive[c], k),
-                          ("sup", "kill")):
-        err1 = max(err1, check_equal(g, x, f"K1 full-width chunk {name}"))
-    err2 = check_equal(ops.bitmap_support_gathered(bm, eu[c], ev[c]),
-                       ref.bitmap_support_gathered_ref(bm, eu[c], ev[c]),
-                       "K2 full-width chunk")
-    log(f"full-width chunk ({CHUNK_ROWS} rows, W {bm.shape[1]}): kernels == "
-        f"plain versions (tolerance: bitwise; max abs err {max(err1, err2)})")
+    err1 = err2 = 0
+    for name, sl in (("chunk", c), ("whole wave", slice(None))):
+        a_, u_, v_ = alive[sl], eu[sl], ev[sl]
+        digest = pw.peel_wave_cuda(bm, bm, a_, k, u_, v_, body="digest")
+        direct = pw.peel_wave_cuda(bm, bm, a_, k, u_, v_, body="direct")
+        plain = ref.peel_wave_gathered_ref(bm, u_, v_, a_, k, chunk=CHUNK_ROWS)
+        for g, x, y, part in zip(digest, plain, direct, ("sup", "kill")):
+            err1 = max(err1, check_equal(g, x, f"K1 {name} {part}"),
+                       check_equal(g, y, f"K1 {name} {part} vs direct"))
+        digest = bs.bitmap_support_cuda(bm, bm, u_, v_, body="digest")
+        err2 = max(err2, check_equal(
+            digest, ref.bitmap_support_gathered_ref(bm, u_, v_, CHUNK_ROWS),
+            f"K2 {name}"), check_equal(
+            digest, bs.bitmap_support_cuda(bm, bm, u_, v_, body="direct"),
+            f"K2 {name} vs direct"))
+        log(f"full-width {name} ({len(u_)} slots, W {w}): the digest body == "
+            f"the plain version == the direct body (tolerance: bitwise; max "
+            f"abs err {max(err1, err2)})")
+
+    # subsets of the alive edges, seeded
+    rng = np.random.default_rng(2)
+    live = alive.nonzero().flatten()
+    subsets = {"full": alive}
+    for name, share in (("alive_10pct", 0.10), ("alive_1pct", 0.01)):
+        pick = torch.from_numpy(rng.random(len(live)) < share).to(dev)
+        sub = torch.zeros_like(alive)
+        sub[live[pick]] = True
+        subsets[name] = sub
+    n_bodies = {"peel_wave": {}, "bitmap_support": {}}
+    for name, al in subsets.items():
+        for g, x in zip(pw.peel_wave_cuda(bm, bm, al, k, eu, ev),
+                        pw.peel_wave_cuda(bm, bm, al, k, eu, ev,
+                                          body="direct")):
+            err1 = max(err1, check_equal(g, x, f"K1 {name} digest vs direct"))
+        calls = {body: (lambda b=body, a_=al: pw.peel_wave_cuda(
+            bm, bm, a_, k, eu, ev, body=b)) for body in ("direct", "digest")}
+        ms = in_turns(calls)
+        host = host_us_in_turns(calls)
+        dev_ms = in_turns({b: launch_only("peel_wave", b, bm, eu, ev, al, k)
+                           for b in calls}, timer=kernel_ms)
+        n_alive = int(al.sum())
+        rows = int(torch.unique(torch.cat([eu[al], ev[al]])).numel())
+        bound = bound_ms(bm, rows, 4 + 4 + 1 + 4 + 1, spec.e_cap, n_alive * w)
+        n_bodies["peel_wave"][name] = {"ms": ms, "kernels_ms": dev_ms,
+                                       "host_us": host, "alive": n_alive,
+                                       "bound": bound[:2]}
+        log(f"peel_wave {name} ({n_alive} alive): digest {ms['digest']:.4f} "
+            f"ms, direct {ms['direct']:.4f} ms (CUDA events around the call, "
+            f"in turns, each the mean of two medians); the kernels alone "
+            f"(the C entry, in turns): digest {dev_ms['digest']:.4f} ms, direct "
+            f"{dev_ms['direct']:.4f} ms; bound {bound[0]:.4f} ms by "
+            f"{bound[1]} ({rows} rows); host us a call from an idle device "
+            f"(median, in turns): digest {host['digest']:.1f}, direct "
+            f"{host['direct']:.1f}")
+    calls = {body: (lambda b=body: bs.bitmap_support_cuda(bm, bm, eu, ev,
+                                                          body=b))
+             for body in ("direct", "digest")}
+    ms = in_turns(calls)
+    dev_ms = in_turns({b: launch_only("bitmap_support", b, bm, eu, ev, None,
+                                      0) for b in calls}, timer=kernel_ms)
+    # the id check (one reduction, one host sync) in the same turns
+    host = host_us_in_turns(calls | {"id_check": lambda: bs.row_pair_args(
+        bm, bm, eu, ev, 0, None)})
+    id_check_us = host.pop("id_check")
+    log(f"bitmap_support full ({spec.e_cap} slots): digest "
+        f"{ms['digest']:.4f} ms, direct {ms['direct']:.4f} ms; the kernels "
+        f"alone: digest {dev_ms['digest']:.4f} ms, direct "
+        f"{dev_ms['direct']:.4f} ms; host us a call (median, in turns): "
+        f"digest {host['digest']:.1f}, direct {host['direct']:.1f}, the id "
+        f"check alone {id_check_us:.1f}")
+    n_bodies["bitmap_support"]["full"] = {"ms": ms, "kernels_ms": dev_ms,
+                                          "host_us": host}
+
+    # where a full wave's time goes, pass by pass
+    for name, fn in (("peel_wave", lambda: pw.peel_wave_cuda(
+            bm, bm, alive, k, eu, ev)),
+            ("bitmap_support", lambda: bs.bitmap_support_cuda(bm, bm, eu,
+                                                              ev))):
+        log(f"{name}, one full wave of the digest body under the profiler:")
+        profiled(fn, require="probe_pairs", detail=DIGEST_PASSES)
 
     timings = {}
     for name, call in (
@@ -291,16 +504,14 @@ def full_width_checks(core, ops, ref, edges, dev):
             ("bitmap_support",
              lambda: ops.bitmap_support_gathered(bm, eu, ev,
                                                  chunk=CHUNK_ROWS))):
-        ms = time_ms(call, 10)
         ops.use_kernels(False)       # the same call through the plain version
         try:
-            plain_ms = time_ms(call, 3)
+            timings[name] = time_ms(call, 3)
         finally:
             ops.use_kernels(True)
-        timings[name] = (ms, plain_ms)
     # data-dependent bounds: K1 loads rows of alive edges only; K2 (no
     # mask) loads every slot's pair, sentinel slots reading node n-1
-    n_alive, w = int(alive.sum()), bm.shape[1]
+    n_alive = int(alive.sum())
     rows1 = int(torch.unique(torch.cat([eu[alive], ev[alive]])).numel())
     rows2 = int(torch.unique(torch.cat([eu, ev])).numel())
     b1 = bound_ms(bm, rows1, 4 + 4 + 1 + 4 + 1, spec.e_cap, n_alive * w)
@@ -308,15 +519,27 @@ def full_width_checks(core, ops, ref, edges, dev):
     stream = 2 * n_alive * w * 4
     log(f"streaming both rows of every alive edge instead: {stream / 1e9:.2f} "
         f"GB = {1e3 * stream / HBM_BYTES_PER_S:.2f} ms at device bandwidth")
-    for name, (ms, pms), (bms, by, nb) in (
-            ("peel_wave", timings["peel_wave"], b1),
-            ("bitmap_support", timings["bitmap_support"], b2)):
-        log(f"{name}: one full wave {ms:.3f} ms (bound {bms:.3f} ms by {by}: "
-            f"{nb / 1e6:.1f} MB; plain {pms:.1f} ms)")
+    out = {}
+    for name, (bms, by, nb), err_k in (("peel_wave", b1, err1),
+                                       ("bitmap_support", b2, err2)):
+        ms = n_bodies[name]["full"]["ms"]
+        dev = n_bodies[name]["full"]["kernels_ms"]
+        log(f"{name}: one full wave, digest body {ms['digest']:.4f} ms "
+            f"({100 * bms / ms['digest']:.1f}% of the bound; its kernels "
+            f"alone {dev['digest']:.4f} ms, "
+            f"{100 * bms / dev['digest']:.1f}%), direct body "
+            f"{ms['direct']:.4f} ms ({100 * bms / ms['direct']:.1f}%; alone "
+            f"{dev['direct']:.4f} ms); bound {bms:.4f} ms by {by}: "
+            f"{nb / 1e6:.1f} MB; plain {timings[name]:.1f} ms")
+        out[name] = {"err": err_k, "ms": ms["digest"],
+                     "plain_ms": timings[name], "bound_ms": bms,
+                     "bound_by": by,
+                     "bodies": n_bodies[name]}
+    out["nonzero"] = stats
+    out["id_check_host_us"] = id_check_us
     del st, bm
     torch.cuda.empty_cache()
-    return {"peel_wave": (err1, *timings["peel_wave"], *b1[:2]),
-            "bitmap_support": (err2, *timings["bitmap_support"], *b2[:2])}
+    return out
 
 
 def host_components(edges: np.ndarray) -> set:
@@ -367,42 +590,108 @@ def update_batch(rng, present: set, n_del: int, n_ins: int):
     return [(0, a, b) for a, b in dels] + [(1, a, b) for a, b in sorted(ins)]
 
 
-def profiled(fn, forbid: str | None = None,
-             require: str | None = None) -> float:
+DIGEST_PASSES = ("mark_rows", "digest_rows", "probe_pairs", "stream_pairs")
+# A profiler session's trace can lack the device records of the first
+# launches made in it.  On an H100: in scripts/torch_profiler_window.py,
+# plain sessions lost records in 6 of 2,428 sessions, sessions behind a
+# scheduled warm-up step in 13, sessions that idled 5 ms first in none;
+# here, sessions that idled 50 ms first still lost up to 14 records, every
+# one among the launches of the work's first 4.4 ms.  So each session
+# launches small kernels for PROFILE_WARMUP_S first, then idles
+# PROFILE_GAP_S, and only the calls inside the work's annotation count.
+PROFILE_WARMUP_S = 0.02
+PROFILE_GAP_S = 0.002
+WORK_SPAN = "chip_smoke.work"
+
+
+def work_records(prof):
+    """The runtime calls made inside ``WORK_SPAN`` that launch a kernel, a
+    copy or a fill, and their device records (matched by correlation id).
+    Returns ``(records, issued, lost, lead_ms)``: each record as ``(name,
+    start_ns, end_ns)``; the count of calls; each call without a device
+    record as ``(name, ms after the work's first call)``; and the least
+    lead of a record's start over its call's (below 0 where the device's
+    clock reads behind the host's)."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    span = next(e for e in events if e.name() == WORK_SPAN
+                and e.device_type() == DeviceType.CPU)
+    on_card = {e.correlation_id(): e for e in events
+               if e.device_type() == DeviceType.CUDA
+               and e.name() != WORK_SPAN}    # not the span's device copy
+    calls = [e for e in events if e.device_type() == DeviceType.CPU
+             and span.start_ns() <= e.start_ns() <= span.end_ns()
+             and any(s in e.name() for s in ("LaunchKernel", "Memcpy",
+                                             "Memset"))]
+    first = min((e.start_ns() for e in calls), default=0)
+    records, lost, leads = [], [], []
+    for e in calls:
+        r = on_card.get(e.correlation_id())
+        if r is None:
+            lost.append((e.name(), (e.start_ns() - first) / 1e6))
+            continue
+        records.append((r.name(), r.start_ns(), r.end_ns()))
+        leads.append(r.start_ns() - e.start_ns())
+    return records, len(calls), lost, min(leads, default=0) / 1e6
+
+
+def profiled(fn, forbid: str | None = None, require: str | None = None,
+             detail: tuple = ()) -> float:
     """Run ``fn`` under ``torch.profiler``; log the device's busy share of
     the wall time and the device ops that took the most time.  Busy is the
-    union of the intervals in which a kernel, copy or fill ran on the card
-    (device events only: a CPU op's device time would count its kernels a
-    second time), over the host's wall time; a lower bound, since the
-    profiler slows the host.  Raises if a device op's name holds ``forbid``
-    or none holds ``require`` (case ignored).  Returns the busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    union of the intervals in which a kernel, copy or fill of ``fn`` ran
+    on the card, over the host's wall time; a lower bound, since the
+    profiler slows the host.  Raises if a launch, copy or fill of ``fn``
+    lacks its device record (see ``PROFILE_WARMUP_S``), if a device op's
+    name holds ``forbid`` or if none holds ``require`` (case ignored);
+    logs the device time of the ops whose names hold each string of
+    ``detail``.  Returns the busy share."""
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     sync("cuda")
+    warm = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        sync("cuda")
-        wall = time.perf_counter() - t0
-    spans, by_name = [], {}
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        spans.append((e.time_range.start, e.time_range.end))
-        us, n = by_name.get(e.name, (0.0, 0))
-        by_name[e.name] = (us + e.time_range.elapsed_us(), n + 1)
-    busy_us, end = 0.0, float("-inf")
-    for a, b in sorted(spans):
-        busy_us += max(b - max(a, end), 0.0)
-        end = max(end, b)
-    busy = busy_us / 1e6
+        end = time.perf_counter() + PROFILE_WARMUP_S
+        while time.perf_counter() < end:
+            warm.add_(1)
+            sync("cuda")
+        time.sleep(PROFILE_GAP_S)
+        with record_function(WORK_SPAN):
+            t0 = time.perf_counter()
+            fn()
+            sync("cuda")
+            wall = time.perf_counter() - t0
+        time.sleep(PROFILE_GAP_S)
+    records, issued, lost, lead = work_records(prof)
+    if lost:
+        raise AssertionError(
+            f"the trace lacks the device records of {len(lost)} of the "
+            f"{issued} launches and copies issued: "
+            f"{[(n, round(ms, 3)) for n, ms in lost[:20]]} (name, ms after "
+            f"the first call); least lead of a record {lead:.3f} ms")
+    by_name = {}
+    for name, a, b in records:
+        us, n = by_name.get(name, (0.0, 0))
+        by_name[name] = (us + (b - a) / 1e3, n + 1)
+    busy_ns, last = 0, None
+    for _, a, b in sorted(records, key=lambda r: r[1]):
+        busy_ns += max(b - (a if last is None else max(a, last)), 0)
+        last = b if last is None else max(last, b)
+    busy = busy_ns / 1e9
     log(f"profile: wall {wall:.3f} s, device busy {busy:.3f} s "
-        f"({100 * busy / wall:.1f}%) over {len(spans)} device ops; "
-        f"top device time:")
+        f"({100 * busy / wall:.1f}%) over {len(records)} device ops (every "
+        f"one of {issued} launches and copies recorded; least lead of a "
+        f"record over its call {lead:.3f} ms); top device time:")
     for key, (us, n) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
-        log(f"  {us / 1e3:9.1f} ms  x{n:<6d} {key[:90]}")
+        log(f"  {us / 1e3:9.3f} ms  x{n:<6d} {key[:90]}")
+    if detail:
+        parts = []
+        for part in detail:
+            hits = [v for k, v in by_name.items() if part in k]
+            parts.append(f"{part} {sum(us for us, _ in hits) / 1e3:.3f} ms "
+                         f"x{sum(n for _, n in hits)}")
+        log(f"profile: " + ", ".join(parts))
     if forbid is not None:
         hits = [k for k in by_name if forbid.lower() in k.lower()]
         if hits:
@@ -411,7 +700,8 @@ def profiled(fn, forbid: str | None = None,
             f"{len(by_name)} kinds")
     if require is not None and not any(require.lower() in k.lower()
                                        for k in by_name):
-        raise AssertionError(f"no device op named {require!r}")
+        raise AssertionError(f"no device op named {require!r} among "
+                             f"{sorted(k[:60] for k in by_name)}")
     return busy / wall
 
 
@@ -435,8 +725,9 @@ def drive_main_path(core, edges: np.ndarray, dev):
 
     def apply(name, ups, profile=False, **kw):
         t0 = time.perf_counter()
-        if profile:
-            profiled(lambda: g.apply_batch(ups, **kw))
+        if profile:     # K1/K2 ran their digest body
+            profiled(lambda: g.apply_batch(ups, **kw), require="digest_rows",
+                     detail=DIGEST_PASSES)
         else:
             g.apply_batch(ups, **kw)
         sync(dev)
@@ -1569,7 +1860,15 @@ def main() -> int:
     g, sec = drive_main_path(core, edges, dev)
     launches = {"peel_wave": peel_wave.LAUNCHES,
                 "bitmap_support": bitmap_support.LAUNCHES}
-    log(f"truss path: {time.perf_counter() - t:.1f} s, launches {launches}")
+    by_body = {"peel_wave": dict(peel_wave.LAUNCHES_BY_BODY),
+               "bitmap_support": dict(bitmap_support.LAUNCHES_BY_BODY)}
+    log(f"truss path: {time.perf_counter() - t:.1f} s, launches {launches}, "
+        f"by body {by_body}")
+    for name, n in launches.items():
+        if by_body[name] != {"digest": n, "direct": 0}:
+            raise AssertionError(f"{name}: {n} calls on the truss path ran "
+                                 f"{by_body[name]}, expected the digest body "
+                                 f"in every one")
     t = time.perf_counter()
     final = g.edge_list()
     if g.phi_dict() != core.oracle.scratch_phi(N_NODES, map(tuple, final.tolist())):
@@ -1636,14 +1935,21 @@ def main() -> int:
     sources = {"peel_wave": "src/repro/kernels/peel_wave.py:50",
                "bitmap_support": "src/repro/kernels/bitmap_support.py:41"}
     kernels = []
+    # K1/K2: the top-level time is the digest body's (the path's) on a full
+    # wave; "bodies" has both bodies in turns, K1 also at 10% and 1% alive,
+    # host us a call, and the probe mappings
     for name in ("peel_wave", "bitmap_support"):
-        err_k, ms, pms, bms, by = full[name]
+        f = full[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/bitmap_popcount.cu",
             "replaces": sources[name], "launches": launches[name],
-            "max_abs_err": max(err_k, err), "ms": ms, "plain_ms": pms,
-            "bound_ms": bms, "bound_by": by, "library_ms": None})
+            "max_abs_err": max(f["err"], err), "ms": f["ms"],
+            "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
+            "bound_by": f["bound_by"], "library_ms": None,
+            "launches_by_body": by_body[name], "bodies": f["bodies"]})
+    kernels[0]["nonzero"] = full["nonzero"]
+    kernels[0]["id_check_host_us"] = full["id_check_host_us"]
     # K3's bodies: the top-level times of the wgmma body are at qwen3's
     # [64, 4096, 128], those of the SIMT body at gemma-2b's MQA layout (in
     # turns with the wgmma body there); "layouts" has each body at each

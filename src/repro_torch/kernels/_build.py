@@ -30,6 +30,14 @@ _SIGNATURES = {
                              ctypes.c_int, _P, _P, _P, _P, _P),
         "bitmap_support_launch": (_P, _P, ctypes.c_longlong, _P, _P,
                                   ctypes.c_int, ctypes.c_int, _P, _P),
+        # bm, stride, n_nodes, ia, ib, n_slots, n_words, capacity,
+        # [alive, k,] sup, [kill,] workspace, stream
+        "peel_wave_digest_launch": (_P, ctypes.c_longlong) + (ctypes.c_int,)
+                                   + (_P, _P) + (ctypes.c_int,) * 3
+                                   + (_P,) * 6,
+        "bitmap_support_digest_launch": (_P, ctypes.c_longlong)
+                                        + (ctypes.c_int,) + (_P, _P)
+                                        + (ctypes.c_int,) * 3 + (_P,) * 3,
     },
     "flash_attention": {
         # q, k, v, o, strides[9], batch, n_heads, group, seq, head_dim,

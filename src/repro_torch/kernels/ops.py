@@ -77,7 +77,8 @@ def bitmap_support(rows_a, rows_b, row_offset=0, row_count=None,
 def bitmap_support_gathered(bitmap, eu, ev, chunk=None, word_offset=0,
                             word_count=None):
     """Support counts straight from an int32 ``[N, W]`` bitmap and endpoint
-    ids (K2's gathered entry): no ``[E, W]`` row gather exists on the card.
+    ids (K2's gathered entry, the digest body on the card): no ``[E, W]``
+    row gather exists there.
     ``chunk`` bounds the plain version's gather transient to ``[chunk, W]``;
     the kernel needs no chunking.  A word slab gives a partial sum."""
     wo = 0 if word_count is None else _word_start(word_offset, word_count,
@@ -102,7 +103,8 @@ def peel_wave(rows_a, rows_b, alive, k, row_offset=0, row_count=None):
 def peel_wave_gathered(bitmap, eu, ev, alive, k, chunk=None):
     """K1's gathered entry — the one the bitmap peel engine calls each wave:
     ``peel_wave(bitmap[eu], bitmap[ev], alive, k)`` without building the
-    row gathers on the card.  ``chunk`` bounds the plain version's gather."""
+    row gathers on the card (the digest body there).  ``chunk`` bounds the
+    plain version's gather."""
     if _on_card(bitmap, eu, ev, alive):
         return peel_wave_cuda(bitmap, bitmap, alive, k, eu, ev)
     return ref.peel_wave_gathered_ref(bitmap, eu, ev, alive, k, chunk)

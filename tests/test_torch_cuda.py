@@ -71,6 +71,136 @@ def test_kernel_rejects_out_of_range_rows(cuda):
         ops.bitmap_support_gathered(bm, eu, eu)
 
 
+# the digest body of K1/K2: bitwise against the plain version and the
+# direct body, with the capacity forced small so that every branch runs
+
+def _digest_cases(rng, device):
+    """A bitmap whose rows are empty, at C and C + 1 nonzero words for the
+    capacities below, dense and random (bit 31 set in a quarter of the
+    words, odd width so rows alternate 8-byte alignment, the base 4 bytes
+    past an 8-byte boundary), and slots with u == v and sentinel-like
+    repeats of the last row."""
+    n, w = 300, 37
+    flat = _words(rng, (n * w + 1,), device)
+    bm = flat[1:].view(n, w)                    # base 4 bytes off alignment
+    bm[torch.from_numpy(rng.random((n, w)) < 0.6).to(device)] = 0
+    bm[0] = 0
+    for row, cnt in enumerate((1, 2, 2, 3, 8, 9, 36, 37), start=1):
+        bm[row] = 0
+        cols = torch.from_numpy(rng.choice(w, cnt, replace=False)).to(device)
+        bm[row, cols] = _words(rng, (cnt,), device) | -(2**31)   # bit 31
+    eu = rng.integers(0, n, 2000)
+    ev = rng.integers(0, n, 2000)
+    eu[:64], ev[:64] = np.arange(64) % 10, np.arange(64) % 9  # crafted rows
+    eu[64:96] = ev[64:96] = np.arange(32) % 10                # u == v
+    eu[96:200] = ev[96:200] = n - 1                           # sentinels
+    ids = [torch.from_numpy(x.astype(np.int32)).to(device) for x in (eu, ev)]
+    return bm, ids[0], ids[1]
+
+
+def _powerlaw_bitmap(n, device):
+    edges = powerlaw_graph(n, 5, seed=0)
+    spec = core.GraphSpec(n, d_max=2 * int(np.bincount(edges.reshape(-1)).max()),
+                          e_cap=len(edges) + 64)
+    st = core.from_edge_list(spec, edges, device)
+    bm = core.build_bitmap(spec, st, st.active)
+    eu = torch.clamp(st.edges[:, 0], max=n - 1).contiguous()
+    ev = torch.clamp(st.edges[:, 1], max=n - 1).contiguous()
+    return bm, eu, ev
+
+
+@pytest.mark.parametrize("graph", ["crafted", "powerlaw4000"])
+@pytest.mark.parametrize("capacity", [1, 2, 8, None])
+def test_digest_body_equals_plain_and_direct(cuda, graph, capacity):
+    rng = np.random.default_rng(7)
+    bm, eu, ev = (_digest_cases(rng, cuda) if graph == "crafted"
+                  else _powerlaw_bitmap(4000, cuda))
+    e = eu.shape[0]
+    body = dict(capacity=capacity)
+    n1, n2 = dict(peel_wave.LAUNCHES_BY_BODY), dict(bitmap_support.LAUNCHES_BY_BODY)
+    got = bitmap_support.bitmap_support_cuda(bm, bm, eu, ev, **body)
+    assert torch.equal(got, ref.bitmap_support_gathered_ref(bm, eu, ev))
+    assert torch.equal(got, bitmap_support.bitmap_support_cuda(
+        bm, bm, eu, ev, body="direct"))
+    w = bm.shape[1]
+    for wo, wc in ((5, 20), (w - 1, 1), (w // 3, w // 2), (0, 0)):
+        got = bitmap_support.bitmap_support_cuda(bm, bm, eu, ev, wo, wc, **body)
+        assert torch.equal(got, ref.bitmap_support_gathered_ref(
+            bm[:, wo:wo + wc], eu, ev))
+    masks = (torch.from_numpy(rng.random(e) < 0.5).to(cuda),
+             torch.from_numpy(rng.random(e) < 0.01).to(cuda),
+             torch.ones(e, dtype=torch.bool, device=cuda),
+             torch.zeros(e, dtype=torch.bool, device=cuda))
+    for alive in masks:
+        for k in (2, 3, 7):
+            got = peel_wave.peel_wave_cuda(bm, bm, alive, k, eu, ev, **body)
+            for g, x, y in zip(got,
+                               ref.peel_wave_gathered_ref(bm, eu, ev, alive, k),
+                               peel_wave.peel_wave_cuda(bm, bm, alive, k, eu, ev,
+                                                        body="direct")):
+                assert torch.equal(g, x) and torch.equal(g, y)
+    torch.cuda.synchronize()
+    assert peel_wave.LAUNCHES_BY_BODY["digest"] - n1["digest"] == 12
+    assert peel_wave.LAUNCHES_BY_BODY["direct"] - n1["direct"] == 12
+    assert bitmap_support.LAUNCHES_BY_BODY["digest"] - n2["digest"] == 5
+    assert bitmap_support.LAUNCHES_BY_BODY["direct"] - n2["direct"] == 1
+
+
+def test_gathered_entries_run_the_digest_body(cuda):
+    """The truss path's entries launch the digest body, the rows entries
+    the direct body; ``LAUNCHES`` counts every wrapper call."""
+    rng = np.random.default_rng(3)
+    bm, eu, ev = _digest_cases(rng, cuda)
+    alive = torch.from_numpy(rng.random(eu.shape[0]) < 0.7).to(cuda)
+    counts = [(m.LAUNCHES, dict(m.LAUNCHES_BY_BODY))
+              for m in (peel_wave, bitmap_support)]
+    ops.peel_wave_gathered(bm, eu, ev, alive, 4)
+    ops.bitmap_support_gathered(bm, eu, ev, word_offset=3, word_count=30)
+    ra, rb = bm[eu.long()], bm[ev.long()]
+    ops.peel_wave(ra, rb, alive, 4)
+    ops.bitmap_support(ra, rb)
+    torch.cuda.synchronize()
+    for m, (n, by_body) in zip((peel_wave, bitmap_support), counts):
+        assert m.LAUNCHES - n == 2
+        assert m.LAUNCHES_BY_BODY["digest"] - by_body["digest"] == 1
+        assert m.LAUNCHES_BY_BODY["direct"] - by_body["direct"] == 1
+
+
+def test_digest_body_rejects_what_it_does_not_take(cuda):
+    bm = torch.zeros((10, 4), dtype=torch.int32, device=cuda)
+    ids = torch.zeros(3, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):          # two bitmaps
+        bitmap_support.bitmap_support_cuda(bm, bm.clone(), ids, ids,
+                                           body="digest")
+    with pytest.raises(ValueError):          # row pairs, not gathered
+        bitmap_support.bitmap_support_cuda(bm, bm, body="digest")
+    with pytest.raises(ValueError):
+        bitmap_support.bitmap_support_cuda(bm, bm, ids, ids, capacity=-1)
+    with pytest.raises(ValueError):
+        peel_wave.peel_wave_cuda(bm, bm, ids.bool(), 3, ids, ids, body="x")
+
+
+def test_two_bitmaps_run_the_direct_body(cuda):
+    """Gathered pairs from two bitmaps keep the direct body by default."""
+    rng = np.random.default_rng(5)
+    bm, eu, ev = _digest_cases(rng, cuda)
+    other = torch.roll(bm, 1, dims=0).contiguous()
+    alive = torch.from_numpy(rng.random(eu.shape[0]) < 0.7).to(cuda)
+    n1, n2 = dict(peel_wave.LAUNCHES_BY_BODY), dict(bitmap_support.LAUNCHES_BY_BODY)
+    got = bitmap_support.bitmap_support_cuda(bm, other, eu, ev)
+    assert torch.equal(got, ref.bitmap_support_ref(bm[eu.long()],
+                                                   other[ev.long()]))
+    for g, x in zip(peel_wave.peel_wave_cuda(bm, other, alive, 3, eu, ev),
+                    ref.peel_wave_ref(bm[eu.long()], other[ev.long()], alive,
+                                      3)):
+        assert torch.equal(g, x)
+    torch.cuda.synchronize()
+    assert peel_wave.LAUNCHES_BY_BODY["direct"] - n1["direct"] == 1
+    assert bitmap_support.LAUNCHES_BY_BODY["direct"] - n2["direct"] == 1
+    assert peel_wave.LAUNCHES_BY_BODY["digest"] == n1["digest"]
+    assert bitmap_support.LAUNCHES_BY_BODY["digest"] == n2["digest"]
+
+
 @pytest.mark.parametrize("method", ["bitmap", "sorted"])
 def test_engine_on_card_equals_engine_on_cpu(cuda, method):
     n = 400
