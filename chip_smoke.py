@@ -42,11 +42,33 @@
    call of the path must have run the digest body), then
    ``max_truss``/``k_truss``/``index.query`` checked against a host
    connected-components pass, and a final from-scratch oracle check.
-5. Times the attention kernel's bodies at ``[64, 4096, 128]`` bf16, at the
+5. Drives the WAL-backed truss service on the same graph:
+   ``TrussService(support_method="bitmap")`` tracking the slashdot
+   config's ``query_ks`` (34, 30, 25, 15) over a ``TrussStore`` in a
+   temporary directory (removed at the end).  The constructor (decompose,
+   K2, and the baseline snapshot: seconds and bytes); four serial
+   generations of 1,000 writes (500 deletes, 500 inserts; each flush one
+   fused batch, K1: seconds, median ack µs a write, peel stats); the four
+   query kinds at the committed generation (``max_k`` on 1,000 edges
+   against phi, the members of each level against phi and their
+   components against the index's and a host pass, communities and
+   representatives against those components; median ms per kind); one
+   generation under ``PeelChaos`` whose delta dispatch fails, so the
+   ladder reruns it on the recompute engine (K2 must launch, the fallback
+   counter rise); a snapshot, two more generations and
+   ``TrussService.restore`` (load and replay seconds; the restored state
+   bitwise equal to the live one, the WAL holding every acked write in
+   order with its generation, phi equal to the oracle); a pipelined
+   restore losing one generation's landing, which must self-heal from the
+   store and end bitwise equal to a serial replay of the same log and phi
+   equal to the oracle (heal seconds); and one serial flush under
+   ``torch.profiler`` (device-busy share).  Every K1 and K2 call of this
+   path must run the digest body.
+6. Times the attention kernel's bodies at ``[64, 4096, 128]`` bf16, at the
    prefill's GQA layout and at ``gemma-2b``'s layout (the wgmma body and
    the SIMT body asked for by name, in turns), each beside its bound, its
    plain version and ``scaled_dot_product_attention``.
-6. Drives the LM serving path at the full width and depth of
+7. Drives the LM serving path at the full width and depth of
    ``qwen3-0.6b`` with seeded random weights: prefill of 4 x 4,096 tokens
    (K3's wgmma body 28 times a call, its SIMT body never), one more under
    ``torch.profiler``, then
@@ -59,14 +81,14 @@
    config (head dim 32, bf16: the SIMT body once a layer) on 4 x 1,024
    tokens, the kernel at that shape and the logits held against the plain
    versions.
-7. Holds the recsys kernels against their plain versions on the
+8. Holds the recsys kernels against their plain versions on the
    reference's sweeps: the segment sum (``segment_matmul``, fp32 and fp16,
    ids outside the range, gathered entry; on the same ids sorted, the
    declared-sorted entry bitwise against the sorting entry and the mean
    entry against the plain mean; runs of up to 30,000 rows against a
    float64 sum; indices outside the table giving NaN bags; unsorted ids
    declared sorted giving an all-NaN output) and the CIN layer (``cin``).
-8. Drives the xDeepFM serving path at full width (39 fields of 1,000,000
+9. Drives the xDeepFM serving path at full width (39 fields of 1,000,000
    rows, embed 10, CIN 200-200-200, MLP 400-400; about 433M parameters
    from a seed, on the card) through the reference's three traffic shapes:
    serve_p99 (batch 512, 200 synchronised calls: p50/p99 ms, rows/s),
@@ -89,8 +111,9 @@
    (``torch.matmul``) of the outer product materialised before the timing,
    and on one whole bulk layer-2 call (TFLOP/s and share of the bound).
    K5's plan (grid and k slices) is printed for each layer of the path.
-9. Fails unless every kernel was launched by its path, prints the kernels
-   line, the card line, and last the device line.
+10. Fails unless every kernel was launched by its path (K1 and K2 on the
+    truss path and on the service path), prints the kernels line, the
+    card line, and last the device line.
 
 Every failed check raises, so the exit code is non-zero.  The script needs
 a CUDA device, ``nvcc`` and the rest of this checkout; it imports no JAX.
@@ -99,8 +122,10 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -758,6 +783,281 @@ def drive_main_path(core, edges: np.ndarray, dev):
         log(f"k={k}: {len(kt)} edges, {len(comps)} components == host")
     sec["queries"] = time.perf_counter() - t
     return g, sec
+
+
+SERVICE_WRITES = 1000         # a generation: 500 deletes, 500 inserts
+SERVICE_GENS = 4              # serial generations before the queries
+SERVICE_AFTER_SNAPSHOT = 2    # generations between the snapshot and restore
+SERVICE_HEAL_GENS = 2         # pipelined generations, one landing lost
+MAX_K_QUERIES = 1000          # present edges asked for their phi
+COMMUNITY_SEEDS = 5           # nodes asked for their community, a level
+
+
+def span_seconds(tracer, name: str, after: int) -> list:
+    """Seconds of each recorded ``name`` span created after sequence
+    number ``after`` (the service's own trace)."""
+    return [e.dur_ns / 1e9 for e in tracer.events()
+            if e.name == name and e.seq > after]
+
+
+def last_seq(tracer) -> int:
+    ev = tracer.events()
+    return ev[-1].seq if ev else -1
+
+
+def median_ms(xs) -> float:
+    return 1e3 * float(np.median(xs))
+
+
+def same_state(a, b, what: str) -> None:
+    """Fail unless two graph states are bitwise equal, field by field."""
+    for name, x, y in zip(a._fields, a, b):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{what}: GraphState.{name} differs")
+
+
+def service_gen(svc, rng, present: set, acked: list) -> dict:
+    """One generation of writes through ``svc.submit``: deletes of present
+    edges, inserts of absent pairs; the last write fills the generation
+    (serial: it flushes).  Returns seconds and the ack µs of the writes
+    that did not flush."""
+    ups = update_batch(rng, present, SERVICE_WRITES // 2, SERVICE_WRITES // 2)
+    ack_us = []
+    t0 = time.perf_counter()
+    for op, a, b in ups:
+        t = time.perf_counter()
+        ack = svc.submit(op, a, b)
+        ack_us.append(1e6 * (time.perf_counter() - t))
+        if not hasattr(ack, "wal_index"):
+            raise AssertionError(f"write ({op}, {a}, {b}) not acked: {ack}")
+        acked.append((ack.gen, op, a, b, ack.wal_index))
+        (present.add if op == 1 else present.discard)((a, b))
+    sync(svc.graph.device)
+    return {"s": time.perf_counter() - t0, "flush_s": ack_us[-1] / 1e6,
+            "ack_us": ack_us[:-1]}
+
+
+def check_queries(svc, service) -> dict:
+    """The four query kinds at the committed generation, each checked
+    against the state or a host connected-components pass.  The levels
+    are the tracked ones and, since the slashdot config's levels can lie
+    above this graph's max truss, 3, 5 and the max truss (the truss
+    path's levels); the index tracks each level it is asked.  Returns
+    ``max_k``'s median ms and, for each level, its edges, components and
+    ms of ``members`` and ``representatives`` and the median of
+    ``community`` (asked after ``representatives``, so from the index's
+    cached labels)."""
+    phi = svc.graph.phi_dict()
+    rng = np.random.default_rng(3)
+    keys = sorted(phi)
+    picks = [keys[i] for i in rng.choice(len(keys), MAX_K_QUERIES,
+                                         replace=False)]
+    max_k = []
+    for a, b in picks:
+        t = time.perf_counter()
+        v = svc.handle(service.QueryRequest(service.MAX_K, edge=(b, a))).value
+        max_k.append(time.perf_counter() - t)
+        if v != phi[(a, b)]:
+            raise AssertionError(f"max_k({a}, {b}) = {v}, phi {phi[(a, b)]}")
+    absent = next((0, b) for b in range(1, N_NODES) if (0, b) not in phi)
+    if svc.max_k(*absent) != 0:
+        raise AssertionError(f"max_k of absent edge {absent} is not 0")
+    levels = {}
+    for k in sorted(set(svc.graph.index.tracked)
+                    | {3, 5, svc.stats()["max_truss"]}, reverse=True):
+        t = time.perf_counter()
+        members = svc.handle(service.QueryRequest(service.MEMBERS, k=k)).edges
+        members_ms = 1e3 * (time.perf_counter() - t)
+        if {tuple(e) for e in members.tolist()} != {
+                e for e, p in phi.items() if p >= k}:
+            raise AssertionError(f"k={k}: members differ from phi >= k")
+        t = time.perf_counter()
+        reps = svc.handle(service.QueryRequest(
+            service.REPRESENTATIVES, k=k)).edges
+        reps_ms = 1e3 * (time.perf_counter() - t)
+        comps = sorted(host_components(members), key=min)
+        if label_components(svc.graph, k) != set(comps):
+            raise AssertionError(f"k={k}: the index's components differ "
+                                 f"from the host's")
+        owner = {x: i for i, comp in enumerate(comps) for x in comp}
+        if sorted(owner[a] for a, _ in reps.tolist()) != list(range(len(comps))):
+            raise AssertionError(f"k={k}: not one representative a component")
+        community = []
+        for comp in comps[:COMMUNITY_SEEDS]:
+            t = time.perf_counter()
+            got = svc.handle(service.QueryRequest(
+                service.COMMUNITY, k=k, node=min(comp))).edges
+            community.append(time.perf_counter() - t)
+            if set(got.reshape(-1).tolist()) != comp:
+                raise AssertionError(f"k={k}: community of {min(comp)} "
+                                     f"differs from its component")
+        levels[k] = {"edges": len(members), "components": len(comps),
+                     "members_ms": members_ms, "representatives_ms": reps_ms,
+                     "community_ms": median_ms(community) if community
+                     else None}
+    if not any(lv["components"] for lv in levels.values()):
+        raise AssertionError(f"no level has a k-truss to query: {levels}")
+    log(f"service queries at gen {svc.gen}: max_k on {MAX_K_QUERIES} edges "
+        f"== phi; members, communities and representatives == host at "
+        f"levels {sorted(levels, reverse=True)}")
+    return {"max_k_ms": median_ms(max_k), "levels": levels}
+
+
+def drive_service_path(edges: np.ndarray, dev) -> dict:
+    """The WAL-backed ``TrussService`` at full width, in a temporary store
+    removed at the end; returns its readings."""
+    from repro_torch import core, service
+    from repro_torch.configs.truss_paper import SLASHDOT
+    from repro_torch.faults import PeelChaos
+    from repro_torch.kernels import bitmap_support, peel_wave
+    from repro_torch.obs import trace as obs_trace
+
+    tracer = obs_trace.TRACER
+    out = {"writes_per_gen": SERVICE_WRITES}
+    root = tempfile.mkdtemp(prefix="chip_smoke_service_")
+    log(f"service store {root}: "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB free")
+    kw = dict(flush_every=SERVICE_WRITES, support_method="bitmap", device=dev)
+    try:
+        # 1. construct: decompose (K2) plus the baseline snapshot
+        seq = last_seq(tracer)
+        t = time.perf_counter()
+        svc = service.TrussService(N_NODES, edges, store=service.TrussStore(root),
+                                   tracked_ks=SLASHDOT.query_ks, **kw)
+        sync(dev)
+        total = time.perf_counter() - t
+        snap_s = span_seconds(tracer, "store.snapshot", seq)[0]
+        out["construct"] = {"decompose_s": total - snap_s,
+                            "snapshot_s": snap_s,
+                            "snapshot_bytes": os.path.getsize(svc.store.snap_path)}
+        log(f"service construct: {json.dumps(out['construct'])}, "
+            f"stats peel {svc.stats()['peel']}")
+
+        # 2. serial ingest: each flush one fused batch (K1)
+        rng = np.random.default_rng(5)
+        present = set(map(tuple, edges.tolist()))
+        acked: list = []
+        gens, ack_us = [], []
+        k1 = peel_wave.LAUNCHES
+        for _ in range(SERVICE_GENS):
+            r = service_gen(svc, rng, present, acked)
+            ack_us += r["ack_us"]
+            st = svc.stats()
+            if st["gen"] != len(gens) + 1 or st["pending"]:
+                raise AssertionError(f"generation did not commit: {st}")
+            gens.append({"s": r["s"], "flush_s": r["flush_s"],
+                         "peel": st["peel"]})
+            log(f"service gen {st['gen']}: {r['s']:.3f} s ({r['flush_s']:.3f} s "
+                f"the flush), peel {st['peel']}")
+        if peel_wave.LAUNCHES == k1:
+            raise AssertionError("the service's fused flushes launched no K1")
+        out["serial"] = {"gens": gens, "ack_us_median": float(np.median(ack_us)),
+                         "k1_launches": peel_wave.LAUNCHES - k1}
+
+        # 3. queries at the committed generation
+        out["queries"] = check_queries(svc, service)
+
+        # 4. the ladder's recompute fallback (K2)
+        k2, fb = bitmap_support.LAUNCHES, svc.stats()["counters"]["engine_fallbacks"]
+        svc.chaos = PeelChaos(dispatch_gens={svc.gen + 1})
+        r = service_gen(svc, rng, present, acked)
+        svc.chaos = None
+        st = svc.stats()
+        if (st["counters"]["engine_fallbacks"] != fb + 1 or st["degraded"]
+                or st["gen"] != SERVICE_GENS + 1):
+            raise AssertionError(f"no clean recompute fallback: {st}")
+        if bitmap_support.LAUNCHES == k2:
+            raise AssertionError("the recompute fallback launched no K2")
+        out["fallback"] = {"s": r["s"], "peel": st["peel"],
+                           "k2_launches": bitmap_support.LAUNCHES - k2}
+        log(f"service recompute fallback: {json.dumps(out['fallback'])}")
+
+        # 5. snapshot, two more generations, restore
+        seq = last_seq(tracer)
+        t = time.perf_counter()
+        svc.snapshot()
+        out["snapshot"] = {"s": time.perf_counter() - t,
+                           "store_s": span_seconds(tracer, "store.snapshot", seq)[0],
+                           "bytes": os.path.getsize(svc.store.snap_path)}
+        for _ in range(SERVICE_AFTER_SNAPSHOT):
+            service_gen(svc, rng, present, acked)
+        svc.store.close()
+        seq = last_seq(tracer)
+        t = time.perf_counter()
+        back = service.TrussService.restore(service.TrussStore(root), **kw)
+        sync(dev)
+        total = time.perf_counter() - t
+        replay = sum(span_seconds(tracer, "gen.replay", seq))
+        out["restore"] = {"load_s": total - replay, "replay_s": replay,
+                          "replayed_records": back.replayed_records}
+        log(f"service snapshot {json.dumps(out['snapshot'])}; restore "
+            f"{json.dumps(out['restore'])}")
+        same_state(svc.graph.state, back.graph.state, "restore vs live")
+        if back.gen != svc.gen or back.replayed_records != (
+                SERVICE_AFTER_SNAPSHOT * SERVICE_WRITES):
+            raise AssertionError(f"restore at gen {back.gen}, replayed "
+                                 f"{back.replayed_records}")
+        wal = back.store.read_wal()
+        if wal != [x[:4] for x in acked] or [x[4] for x in acked] != list(
+                range(len(acked))):
+            raise AssertionError("the WAL does not hold every acked write "
+                                 "in order with its generation")
+        t = time.perf_counter()
+        if back.graph.phi_dict() != core.oracle.scratch_phi(N_NODES, present):
+            raise AssertionError("restored phi differs from the oracle")
+        log(f"service restore == live bitwise; WAL == the {len(acked)} acked "
+            f"writes; phi == oracle ({time.perf_counter() - t:.1f} s)")
+        back.store.close()
+        del svc, back
+        torch.cuda.empty_cache()
+
+        # 6. pipelined, one landing lost: self-heal from the store
+        g = SERVICE_GENS + 1 + SERVICE_AFTER_SNAPSHOT + 1
+        heal = service.TrussService.restore(
+            service.TrussStore(root), pipeline=True,
+            chaos=PeelChaos(land_gens={g}), **kw)
+        heals = heal.stats()["counters"]["self_heals"]
+        seq = last_seq(tracer)
+        for _ in range(SERVICE_HEAL_GENS):
+            service_gen(heal, rng, present, acked)
+        heal.flush()
+        st = heal.stats()
+        heal_s = span_seconds(tracer, "service.self_heal", seq)
+        if st["counters"]["self_heals"] <= heals or not heal_s or st["degraded"]:
+            raise AssertionError(f"no self-heal: {st}")
+        if st["gen"] != g + SERVICE_HEAL_GENS - 1 or st["pending"]:
+            raise AssertionError(f"healed service not drained: {st}")
+        heal.store.close()
+        replay = service.TrussService.restore(service.TrussStore(root), **kw)
+        same_state(heal.graph.state, replay.graph.state, "healed vs replay")
+        if replay.store.read_wal() != [x[:4] for x in acked]:
+            raise AssertionError("the WAL does not hold every acked write")
+        t = time.perf_counter()
+        if heal.graph.phi_dict() != core.oracle.scratch_phi(N_NODES, present):
+            raise AssertionError("healed phi differs from the oracle")
+        out["heal"] = {"heal_s": heal_s, "gen": st["gen"]}
+        log(f"service heal: {json.dumps(out['heal'])}; healed == replay "
+            f"bitwise; phi == oracle ({time.perf_counter() - t:.1f} s)")
+        del heal
+        torch.cuda.empty_cache()
+
+        # 7. one profiled serial flush
+        ups = update_batch(rng, present, SERVICE_WRITES // 2,
+                           SERVICE_WRITES // 2)
+        for op, a, b in ups[:-1]:
+            replay.submit(op, a, b)
+        busy = profiled(replay.flush, require="digest_rows",
+                        detail=DIGEST_PASSES)
+        if replay.stats()["pending"]:
+            raise AssertionError("the profiled flush left writes pending")
+        out["profiled_flush"] = {"busy": busy,
+                                 "peel": replay.stats()["peel"]}
+        replay.store.close()
+        del replay
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return out
 
 
 def build_all(_build) -> None:
@@ -1878,6 +2178,21 @@ def main() -> int:
     del g
     torch.cuda.empty_cache()
 
+    reset_counts(peel_wave, bitmap_support, flash_attention)
+    t = time.perf_counter()
+    svc_out = drive_service_path(edges, dev)
+    svc_launches = {"peel_wave": peel_wave.LAUNCHES,
+                    "bitmap_support": bitmap_support.LAUNCHES}
+    svc_by_body = {"peel_wave": dict(peel_wave.LAUNCHES_BY_BODY),
+                   "bitmap_support": dict(bitmap_support.LAUNCHES_BY_BODY)}
+    log(f"service path: {time.perf_counter() - t:.1f} s, launches "
+        f"{svc_launches}, by body {svc_by_body}; {json.dumps(svc_out)}")
+    for name, n in svc_launches.items():
+        if n <= 0 or svc_by_body[name] != {"digest": n, "direct": 0}:
+            raise AssertionError(f"{name}: {n} calls on the service path "
+                                 f"ran {svc_by_body[name]}, expected the "
+                                 f"digest body in every one (and at least one)")
+
     k3_time = time_flash_attention(ops, ref, flash_attention, dev)
 
     reset_counts(peel_wave, bitmap_support, flash_attention)
@@ -1937,17 +2252,24 @@ def main() -> int:
     kernels = []
     # K1/K2: the top-level time is the digest body's (the path's) on a full
     # wave; "bodies" has both bodies in turns, K1 also at 10% and 1% alive,
-    # host us a call, and the probe mappings
+    # host us a call, and the probe mappings; launches are the truss
+    # path's and the service path's ("path" has each)
     for name in ("peel_wave", "bitmap_support"):
         f = full[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/bitmap_popcount.cu",
-            "replaces": sources[name], "launches": launches[name],
+            "replaces": sources[name],
+            "launches": launches[name] + svc_launches[name],
             "max_abs_err": max(f["err"], err), "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": None,
-            "launches_by_body": by_body[name], "bodies": f["bodies"]})
+            "path": {"truss": launches[name],
+                     "service": svc_launches[name]},
+            "launches_by_body": {
+                body: by_body[name][body] + svc_by_body[name][body]
+                for body in by_body[name]},
+            "bodies": f["bodies"]})
     kernels[0]["nonzero"] = full["nonzero"]
     kernels[0]["id_check_host_us"] = full["id_check_host_us"]
     # K3's bodies: the top-level times of the wgmma body are at qwen3's

@@ -223,7 +223,8 @@ class DynamicGraph:
         return (kmin, phi_e)
 
     def apply_batch(self, updates, strategy: str = "auto",
-                    fused_threshold: int = 8, engine: str = "auto"):
+                    fused_threshold: int = 8, defer_sync: bool = False,
+                    engine: str = "auto"):
         """Apply a batch of (op, a, b) updates with truss maintenance.
 
         The batch is first *netted* on the host (an edge inserted then
@@ -232,6 +233,15 @@ class DynamicGraph:
         ``batch.batch_maintain`` call); ``auto`` picks fused once the netted
         batch reaches ``fused_threshold`` updates.  ``engine`` selects the
         fused path's peel engine (``auto`` / ``delta`` / ``recompute``).
+
+        ``defer_sync=True`` (the service's pipelined flush): the fused path
+        returns the invalidation bound ``hi`` as a 0-d int32 tensor on the
+        graph's device *instead of* invalidating the index here; the caller
+        runs ``index.invalidate(2, max(int(hi), 1))`` before any label
+        query reads this state.  The progressive path and a netted no-op
+        return ``None`` (their invalidation is done).  The peel loop reads
+        its frontier on the host every wave, so when this returns only the
+        launches after the last wave's read can still be running.
         """
         ups = [(int(op), int(a), int(b)) for op, a, b in updates]
         if not ups:
@@ -254,7 +264,7 @@ class DynamicGraph:
         inss = sorted(cur - present0)
         n_net = len(dels) + len(inss)
         if n_net == 0:
-            return
+            return None
         if strategy == "auto":
             strategy = "fused" if n_net >= fused_threshold else "progressive"
         if strategy == "progressive":
@@ -262,7 +272,7 @@ class DynamicGraph:
                 self.delete(a, b)
             for a, b in inss:
                 self.insert(a, b)
-            return
+            return None
         if strategy != "fused":
             raise ValueError(f"unknown strategy {strategy!r}")
         final = np.fromiter((x for e in cur for x in e), np.int64,
@@ -292,7 +302,7 @@ class DynamicGraph:
             self._bitmap_apply(dels, inss)
         try:
             with obs_trace.span("graph.apply_batch", dels=len(dels),
-                                ins=len(inss)):
+                                ins=len(inss), defer=defer_sync):
                 self.state, _lo, hi, stats = batch.batch_maintain(
                     self.spec, self.state, da, db, dm, ia, ib, im,
                     method=self.support_method, engine=engine,
@@ -305,10 +315,13 @@ class DynamicGraph:
             raise
         self.last_peel_stats = stats
         self._present = cur
+        if defer_sync:
+            return hi
         # updated edges join/leave every level below the range too, so
         # invalidate [2, hi + 1]; the mixed-batch fallback's hi = +inf
         # invalidates everything
         self.index.invalidate(2, max(int(hi), 1))
+        return None
 
     def batch_update_then_decompose(self, updates):
         """batchUpdate baseline: apply structural updates, re-decompose."""

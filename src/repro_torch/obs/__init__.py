@@ -1,7 +1,9 @@
-"""Observability for the port: the metrics registry and the span trace,
-copied from ``repro.obs`` (``state``, ``metrics``, ``trace``), plus the
-process-wide enable switch.  The exposition server, SLOs, flight recorder
-and the profiler hook arrive with the service layer."""
+"""Observability for the port: the metrics registry, the span trace and
+the flight recorder, copied from ``repro.obs`` (``state``, ``metrics``,
+``trace``, ``flightrec``), the profiler hook's API (``profiling``: a no-op
+until armed, and armed it raises until its ``torch.profiler`` twin lands,
+ROADMAP item 12), plus the process-wide enable switch.  The exposition
+server and SLOs are ROADMAP item 12 too."""
 from __future__ import annotations
 
 from contextlib import contextmanager

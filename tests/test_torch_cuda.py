@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card: each held against its plain PyTorch
 version (K1/K2 bitwise, K3, K4 and K5 within stated tolerances), and the
 truss engine, the LM prefill and the xDeepFM scores on the card equal to
-the same on the CPU.
+the same on the CPU; the WAL-backed truss service on the card launching
+K1 through a fused flush and K2 through its recompute fallback, and its
+snapshots restoring bitwise.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -17,7 +19,9 @@ from repro_torch.data.synthetic import powerlaw_graph
 from repro_torch.data.synthetic import ClickStream
 from repro_torch.kernels import (bitmap_support, cin, flash_attention, ops,
                                  peel_wave, ref, segment_matmul)
+from repro_torch.faults import PeelChaos
 from repro_torch.models import recsys, transformer
+from repro_torch.service import TrussService, TrussStore
 
 pytestmark = pytest.mark.cuda
 
@@ -226,6 +230,91 @@ def test_engine_on_card_equals_engine_on_cpu(cuda, method):
         assert (core.stats_dict(g_gpu.last_peel_stats)
                 == core.stats_dict(g_cpu.last_peel_stats))
     assert g_gpu.phi_dict() == core.oracle.scratch_phi(n, present)
+
+
+# ---------------------------------------------------------------------------
+# the WAL-backed TrussService on the card: K1 through its fused flushes, K2
+# through the recompute fallback, snapshots round-tripping bitwise
+# ---------------------------------------------------------------------------
+
+def _service_updates(rng, present, n, n_up):
+    """(op, a, b) writes: n_up // 2 deletes of present edges, as many
+    inserts of absent pairs."""
+    pres = sorted(present)
+    dels = [pres[i] for i in rng.choice(len(pres), n_up // 2, replace=False)]
+    ins = set()
+    while len(ins) < n_up // 2:
+        a, b = sorted(int(x) for x in rng.integers(0, n, 2))
+        if a != b and (a, b) not in present:
+            ins.add((a, b))
+    return [(0, a, b) for a, b in dels] + [(1, a, b) for a, b in sorted(ins)]
+
+
+def _apply(present, ups):
+    for op, a, b in ups:
+        (present.add if op == 1 else present.discard)((a, b))
+
+
+def _service(cuda, root, edges, n, **kw):
+    return TrussService(n, edges, support_method="bitmap", device=cuda,
+                        tracked_ks=(3, 4), store=TrussStore(str(root)), **kw)
+
+
+def test_service_fused_flush_launches_k1(cuda, tmp_path):
+    n = 400
+    edges = powerlaw_graph(n, 5, seed=4)
+    svc = _service(cuda, tmp_path, edges, n, flush_every=40)
+    present = {tuple(map(int, e)) for e in edges}
+    rng = np.random.default_rng(1)
+    k1 = peel_wave.LAUNCHES_BY_BODY["digest"]
+    ups = _service_updates(rng, present, n, 40)
+    for op, a, b in ups:
+        svc.submit(op, a, b)        # the 40th write flushes one fused batch
+    _apply(present, ups)
+    assert svc.gen == 1 and svc.stats()["peel"]["waves"] > 0
+    assert peel_wave.LAUNCHES_BY_BODY["digest"] > k1
+    assert svc.graph.phi_dict() == core.oracle.scratch_phi(n, present)
+
+
+def test_service_recompute_fallback_launches_k2(cuda, tmp_path):
+    n = 400
+    edges = powerlaw_graph(n, 5, seed=5)
+    svc = _service(cuda, tmp_path, edges, n, flush_every=40,
+                   chaos=PeelChaos(dispatch_gens={1}))
+    present = {tuple(map(int, e)) for e in edges}
+    k2 = bitmap_support.LAUNCHES_BY_BODY["digest"]
+    fallbacks = svc.stats()["counters"]["engine_fallbacks"]
+    ups = _service_updates(np.random.default_rng(2), present, n, 40)
+    svc.submit_many(ups)
+    _apply(present, ups)
+    assert svc.stats()["counters"]["engine_fallbacks"] == fallbacks + 1
+    assert svc.stats()["degraded"] is None
+    assert bitmap_support.LAUNCHES_BY_BODY["digest"] > k2
+    assert svc.graph.phi_dict() == core.oracle.scratch_phi(n, present)
+
+
+def test_service_snapshot_restore_on_card_is_bitwise(cuda, tmp_path):
+    n = 400
+    edges = powerlaw_graph(n, 5, seed=6)
+    svc = _service(cuda, tmp_path, edges, n, flush_every=40)
+    present = {tuple(map(int, e)) for e in edges}
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        ups = _service_updates(rng, present, n, 40)
+        svc.submit_many(ups)
+        _apply(present, ups)
+    svc.snapshot()
+    ups = _service_updates(rng, present, n, 30)   # pending at the restore
+    svc.submit_many(ups)
+    _apply(present, ups)
+    svc.flush()
+    back = TrussService.restore(TrussStore(str(tmp_path)), flush_every=40,
+                                support_method="bitmap", device=cuda)
+    assert back.graph.device.type == "cuda" and back.gen == svc.gen
+    for x, y in zip(svc.graph.state, back.graph.state):
+        assert x.is_cuda and y.is_cuda and torch.equal(x, y)
+    assert back.graph.phi_dict() == core.oracle.scratch_phi(n, present)
+    assert [r[1:] for r in back.store.read_wal()][-len(ups):] == ups
 
 
 # ---------------------------------------------------------------------------
