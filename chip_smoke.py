@@ -64,11 +64,42 @@
    equal to the oracle (heal seconds); and one serial flush under
    ``torch.profiler`` (device-busy share).  Every K1 and K2 call of this
    path must run the digest body.
-6. Times the attention kernel's bodies at ``[64, 4096, 128]`` bf16, at the
+6. Drives the replica cluster on the same graph: a ``bitmap`` primary and
+   two ``Replica(support_method="bitmap")`` on the card tailing its store
+   (a temporary directory, removed at the end) behind a ``QueryRouter``,
+   with ``MixedWorkloadStream`` traffic (read fraction 0.9, zipf 1.1,
+   levels 3, 5 and the max truss) for four generations of 1,000 writes
+   through a ``Session``.  One read record in 60 goes out ``bounded``
+   (bound 2) mid-generation and must be served within 2 generations; at
+   each boundary replica-0 applies the generation (K1) and must equal the
+   primary bitwise, 40 reads go out ``strong`` (the primary) and
+   ``read_your_writes`` (replica-0) with the same answers, and the
+   session reads its own last insert and delete.  Replica-1 stays parked
+   (so bounded reads must pass it over once it lags 3), then steps up one
+   group at a time, bitwise equal to the primary's state at each
+   generation.  Then the primary drops with 500 writes acked and
+   unflushed; ``router.promote()`` must pick replica-0, whose state must
+   equal a fresh replay of the whole WAL bitwise, whose WAL must hold
+   every acked write in order and whose phi must equal the oracle; and
+   replica-1 tails it bitwise.  Logs replica install (snapshot load) and
+   apply seconds, the lag of every read, read ms p50/p99 by level, the ack
+   µs, the promotion seconds and K1's launches by path; every K1 and K2
+   call must run the digest body.
+7. Runs ``python -m repro_torch.launch.serve_truss`` as a subprocess whose
+   path holds ``repro_torch`` alone, at 20,000 nodes (``LAUNCHER_REDUCED``
+   says why): a primary with ``--store``, ``--metrics-port 0`` (scraped
+   and parsed with ``expo.parse`` while it lingers), ``--trace-out``,
+   ``--trace-jsonl`` and ``--profile-dir``; then ``--restore``, which must
+   continue from the generation it stopped at; then ``--router
+   --replicas 2 --pipeline``.  Every exit code must be 0, every profiled
+   region's trace must hold each launch's and copy's device record, and
+   the merged trace (``python -m repro_torch.obs.merge``) must join the
+   replicas' applies to the router's writes.
+8. Times the attention kernel's bodies at ``[64, 4096, 128]`` bf16, at the
    prefill's GQA layout and at ``gemma-2b``'s layout (the wgmma body and
    the SIMT body asked for by name, in turns), each beside its bound, its
    plain version and ``scaled_dot_product_attention``.
-7. Drives the LM serving path at the full width and depth of
+9. Drives the LM serving path at the full width and depth of
    ``qwen3-0.6b`` with seeded random weights: prefill of 4 x 4,096 tokens
    (K3's wgmma body 28 times a call, its SIMT body never), one more under
    ``torch.profiler``, then
@@ -81,14 +112,14 @@
    config (head dim 32, bf16: the SIMT body once a layer) on 4 x 1,024
    tokens, the kernel at that shape and the logits held against the plain
    versions.
-8. Holds the recsys kernels against their plain versions on the
+10. Holds the recsys kernels against their plain versions on the
    reference's sweeps: the segment sum (``segment_matmul``, fp32 and fp16,
    ids outside the range, gathered entry; on the same ids sorted, the
    declared-sorted entry bitwise against the sorting entry and the mean
    entry against the plain mean; runs of up to 30,000 rows against a
    float64 sum; indices outside the table giving NaN bags; unsorted ids
    declared sorted giving an all-NaN output) and the CIN layer (``cin``).
-9. Drives the xDeepFM serving path at full width (39 fields of 1,000,000
+11. Drives the xDeepFM serving path at full width (39 fields of 1,000,000
    rows, embed 10, CIN 200-200-200, MLP 400-400; about 433M parameters
    from a seed, on the card) through the reference's three traffic shapes:
    serve_p99 (batch 512, 200 synchronised calls: p50/p99 ms, rows/s),
@@ -111,9 +142,9 @@
    (``torch.matmul``) of the outer product materialised before the timing,
    and on one whole bulk layer-2 call (TFLOP/s and share of the bound).
    K5's plan (grid and k slices) is printed for each layer of the path.
-10. Fails unless every kernel was launched by its path (K1 and K2 on the
-    truss path and on the service path), prints the kernels line, the
-    card line, and last the device line.
+12. Fails unless every kernel was launched by its path (K1 and K2 on the
+    truss path and on the service path, K1 on the cluster path), prints
+    the kernels line, the card line, and last the device line.
 
 Every failed check raises, so the exit code is non-zero.  The script needs
 a CUDA device, ``nvcc`` and the rest of this checkout; it imports no JAX.
@@ -1057,6 +1088,493 @@ def drive_service_path(edges: np.ndarray, dev) -> dict:
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    return out
+
+
+CLUSTER_WRITES = 1000         # a generation of the mixed workload's writes
+CLUSTER_GENS = 4              # generations the router drives
+CLUSTER_BOUND = 2             # staleness bound of the bounded reads
+CLUSTER_READ_STRIDE = 60      # one read record in this many goes out bounded
+CLUSTER_BOUNDARY_READS = 40   # read records asked at each boundary, strong
+                              # and read-your-writes each
+CLUSTER_PARKED_UNTIL = 3      # replica-1 steps up to this generation only
+CLUSTER_TAIL_WRITES = 500     # acked and unflushed when the primary drops
+
+
+def _counted(launches: dict, path: str, fn):
+    """Run ``fn`` and add the K1/K2 launches it made, by body, to
+    ``launches[path]``."""
+    from repro_torch.kernels import bitmap_support, peel_wave
+    mods = {"peel_wave": peel_wave, "bitmap_support": bitmap_support}
+    before = {k: (m.LAUNCHES, dict(m.LAUNCHES_BY_BODY)) for k, m in mods.items()}
+    out = fn()
+    acc = launches.setdefault(path, {})
+    for k, m in mods.items():
+        n0, by0 = before[k]
+        a = acc.setdefault(k, {"launches": 0, "digest": 0, "direct": 0})
+        a["launches"] += m.LAUNCHES - n0
+        for body in ("digest", "direct"):
+            a[body] += m.LAUNCHES_BY_BODY[body] - by0[body]
+    return out
+
+
+def _answer(resp):
+    """What a read returned, comparable across nodes."""
+    edges = None if resp.edges is None else resp.edges.tolist()
+    return resp.gen, resp.value, edges
+
+
+def _percentiles(ms: list) -> dict:
+    return {"n": len(ms), "p50": float(np.percentile(ms, 50)),
+            "p99": float(np.percentile(ms, 99))} if ms else {"n": 0}
+
+
+def drive_cluster_path(edges: np.ndarray, dev) -> dict:
+    """A ``bitmap`` primary and two replicas on the card behind a
+    ``QueryRouter``, driven by the mixed workload at full width, then the
+    primary's loss and a promotion; returns the readings and the K1/K2
+    launches by path (``primary``, ``replica``, ``promotion``,
+    ``replay_check``)."""
+    from repro_torch import cluster, core, service
+    from repro_torch.data.streams import READ, MixedWorkloadStream
+
+    out: dict = {"writes_per_gen": CLUSTER_WRITES, "bound": CLUSTER_BOUND}
+    launches: dict = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_cluster_")
+    log(f"cluster store {root}: "
+        f"{shutil.disk_usage(root).free / 1e9:.1f} GB free")
+    kw = dict(flush_every=CLUSTER_WRITES, support_method="bitmap", device=dev)
+    try:
+        t = time.perf_counter()
+        primary = _counted(launches, "primary", lambda: service.TrussService(
+            N_NODES, edges, store=service.TrussStore(root), tracked_ks=(3, 5),
+            **kw))
+        sync(dev)
+        out["primary_construct_s"] = time.perf_counter() - t
+        kmax = primary.stats()["max_truss"]
+        ks = tuple(sorted({3, 5, kmax}))
+        installs, reps = [], []
+        for i in range(2):
+            t = time.perf_counter()
+            reps.append(_counted(launches, "replica", lambda: cluster.Replica(
+                root, f"replica-{i}", support_method="bitmap", device=dev)))
+            sync(dev)
+            installs.append(time.perf_counter() - t)
+            same_state(primary.graph.state, reps[-1].svc.graph.state,
+                       f"replica-{i} install vs primary")
+        out["install_s"] = installs
+        log(f"cluster: primary {out['primary_construct_s']:.2f} s; replica "
+            f"installs (snapshot load) {[round(s, 2) for s in installs]} s; "
+            f"workload levels {ks}")
+        r0, r1 = reps
+        router = cluster.QueryRouter(primary, reps, poll_on_miss=False)
+        sess = router.session()
+        wl = MixedWorkloadStream(edges, N_NODES, chunk=CLUSTER_WRITES,
+                                 read_frac=0.9, zipf_s=1.1, ks=ks, seed=7)
+
+        def records():
+            while True:
+                yield from wl.next()
+        recs = records()
+        present = set(map(tuple, edges.tolist()))
+        acked: list = []
+        snap = lambda: type(primary.graph.state)(  # noqa: E731
+            *(x.clone() for x in primary.graph.state))
+        states = {}
+        reads = {"strong": [], "bounded": [], "read_your_writes": []}
+        lags: dict = {}
+        ack_us, gens = [], []
+        n_read = 0
+
+        def submit(op, a, b):
+            t = time.perf_counter()
+            ack = sess.submit(op, a, b)
+            dt = time.perf_counter() - t
+            if not hasattr(ack, "wal_index"):
+                raise AssertionError(f"write ({op}, {a}, {b}) not acked: {ack}")
+            acked.append((ack.gen, op, a, b))
+            (present.add if op == 1 else present.discard)((a, b))
+            return dt
+
+        def route(rec, consistency):
+            req = cluster.query_from_record(rec, consistency=consistency,
+                                            bound=CLUSTER_BOUND)
+            t = time.perf_counter()
+            resp = sess.query(req)
+            reads[consistency].append(1e3 * (time.perf_counter() - t))
+            lag = primary.gen - resp.gen
+            key = f"{consistency} {resp.served_by}"
+            lags.setdefault(key, {}).setdefault(lag, 0)
+            lags[key][lag] += 1
+            return resp
+
+        for g in range(1, CLUSTER_GENS + 1):
+            writes, held, last = 0, [], {}
+            t0 = time.perf_counter()
+            while writes < CLUSTER_WRITES:
+                rec = next(recs)
+                if rec[0] == READ:
+                    n_read += 1
+                    if n_read % CLUSTER_READ_STRIDE:
+                        held = (held + [rec])[-CLUSTER_BOUNDARY_READS:]
+                        continue
+                    resp = route(rec, "bounded")
+                    if primary.gen - resp.gen > CLUSTER_BOUND:
+                        raise AssertionError(
+                            f"bounded read served at gen {resp.gen} by "
+                            f"{resp.served_by}, primary at {primary.gen}")
+                    continue
+                _, op, a, b = rec
+                dt = _counted(launches, "primary", lambda: submit(op, a, b))
+                writes += 1
+                last[op] = (a, b)
+                if writes < CLUSTER_WRITES:
+                    ack_us.append(1e6 * dt)
+                else:
+                    flush_s = dt
+            sync(dev)
+            gen_s = time.perf_counter() - t0
+            st = primary.stats()
+            if st["gen"] != g or st["pending"]:
+                raise AssertionError(f"generation {g} did not commit: {st}")
+            if g <= CLUSTER_PARKED_UNTIL:
+                states[g] = snap()
+            # the heartbeat polls replica-0 only: replica-1 stays parked
+            t = time.perf_counter()
+            _counted(launches, "replica", r0.poll)
+            sync(dev)
+            apply_s = time.perf_counter() - t
+            if r0.gen != g:
+                raise AssertionError(f"replica-0 at gen {r0.gen}, not {g}")
+            same_state(primary.graph.state, r0.svc.graph.state,
+                       f"replica-0 vs primary at gen {g}")
+            # at the boundary: strong reads (the primary) against
+            # read-your-writes reads (replica-0, caught up), the same
+            # answers; then the session's own last insert and delete
+            for rec in held:
+                s = route(rec, "strong")
+                r = route(rec, "read_your_writes")
+                if s.served_by != "primary" or r.served_by != "replica-0":
+                    raise AssertionError(f"served by {s.served_by} / "
+                                         f"{r.served_by}")
+                if _answer(s) != _answer(r):
+                    raise AssertionError(f"{rec}: replica-0 answered "
+                                         f"{_answer(r)[:2]}, the primary "
+                                         f"{_answer(s)[:2]}")
+            for op, (a, b) in sorted(last.items()):
+                r = sess.query(service.QueryRequest(
+                    service.MAX_K, edge=(a, b),
+                    consistency=service.READ_YOUR_WRITES))
+                if r.gen < sess.token or (r.value >= 2) != (op == 1):
+                    raise AssertionError(
+                        f"session read of its own {'insert' if op else 'delete'}"
+                        f" ({a}, {b}): max_k {r.value} at gen {r.gen}, token "
+                        f"{sess.token}")
+            gens.append({"gen_s": gen_s, "flush_s": flush_s,
+                         "replica_apply_s": apply_s, "peel": st["peel"],
+                         "reads_held": len(held)})
+            log(f"cluster gen {g}: {gen_s:.2f} s ({flush_s:.2f} s the "
+                f"flush), replica-0 apply {apply_s:.2f} s == primary "
+                f"bitwise; {len(held)} strong == read-your-writes reads; "
+                f"session reads its own writes; replica-1 at gen {r1.gen}")
+        out["gens"] = gens
+        out["ack_us_median"] = float(np.median(ack_us))
+
+        # replica-1 steps up one generation group at a time, each boundary
+        # bitwise equal to the primary's at that generation
+        steps = []
+        for g in range(1, CLUSTER_PARKED_UNTIL + 1):
+            t = time.perf_counter()
+            _counted(launches, "replica", lambda: r1.poll(max_gens=1))
+            sync(dev)
+            steps.append(time.perf_counter() - t)
+            if r1.gen != g:
+                raise AssertionError(f"replica-1 at gen {r1.gen}, not {g}")
+            same_state(states.pop(g), r1.svc.graph.state,
+                       f"replica-1 vs primary at gen {g}")
+        out["replica1_step_s"] = steps
+        states.clear()
+        out["reads_ms"] = {k: _percentiles(v) for k, v in reads.items()}
+        out["lag_gens"] = {k: {str(lag): n for lag, n in sorted(v.items())}
+                           for k, v in sorted(lags.items())}
+        out["served"] = router.stats()["served"]
+        log(f"cluster: replica-1 steps {[round(s, 2) for s in steps]} s, "
+            f"bitwise at gens 1-{CLUSTER_PARKED_UNTIL}; primary ack "
+            f"{out['ack_us_median']:.1f} us (median); reads ms "
+            f"{json.dumps(out['reads_ms'])}; lag in generations by level "
+            f"and node {json.dumps(out['lag_gens'])}")
+
+        # the primary drops with a tail acked but unflushed
+        tail = 0
+        while tail < CLUSTER_TAIL_WRITES:
+            rec = next(recs)
+            if rec[0] != READ:
+                _counted(launches, "primary", lambda: submit(*rec[1:]))
+                tail += 1
+        if primary.stats()["pending"] != CLUSTER_TAIL_WRITES:
+            raise AssertionError("the tail was flushed before the drop")
+        primary.store.close()
+        router.primary = None
+        del primary
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        new = _counted(launches, "promotion", router.promote)
+        sync(dev)
+        out["promotion_s"] = time.perf_counter() - t
+        if (router.primary is not new or router.replicas != [r1]
+                or new.gen != CLUSTER_GENS + 1):
+            raise AssertionError(f"promotion picked the wrong replica or "
+                                 f"gen: {router.stats()}")
+        wal = new.store.read_wal()
+        if wal != acked:
+            raise AssertionError("the promoted WAL does not hold every "
+                                 "acked write in order")
+        t = time.perf_counter()
+        chk = _counted(launches, "replay_check", lambda: cluster.Replica(
+            root, "check", support_method="bitmap", device=dev))
+        _counted(launches, "replay_check", chk.poll)
+        sync(dev)
+        out["replay_check_s"] = time.perf_counter() - t
+        same_state(new.graph.state, chk.svc.graph.state,
+                   "promoted vs a replay of the whole WAL")
+        del chk
+        t = time.perf_counter()
+        if new.graph.phi_dict() != core.oracle.scratch_phi(N_NODES, present):
+            raise AssertionError("promoted phi differs from the oracle")
+        oracle_s = time.perf_counter() - t
+        # replica-1 tails the promoted primary
+        _counted(launches, "replica", r1.poll)
+        same_state(new.graph.state, r1.svc.graph.state,
+                   "replica-1 vs the promoted primary")
+        log(f"cluster promotion: {out['promotion_s']:.2f} s, replica-0 "
+            f"(most caught up) at gen {new.gen}; == a replay of the whole "
+            f"WAL bitwise ({out['replay_check_s']:.1f} s); WAL == the "
+            f"{len(acked)} acked writes; phi == oracle ({oracle_s:.1f} s); "
+            f"replica-1 tails it bitwise")
+        new.store.close()
+        del new, r0, r1, reps, router, sess
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for path, by in launches.items():
+        for name, a in by.items():
+            if a["direct"]:
+                raise AssertionError(f"{name} on the cluster's {path} path "
+                                     f"ran the direct body: {a}")
+    if not launches.get("replica", {}).get("peel_wave", {}).get("launches"):
+        raise AssertionError("the replicas' applies launched no K1")
+    if not launches.get("promotion", {}).get("peel_wave", {}).get("launches"):
+        raise AssertionError("the promotion's replay launched no K1")
+    out["launches"] = launches
+    log(f"cluster launches by path: {json.dumps(launches)}")
+    return out
+
+
+LAUNCHER_TICKS = 3
+# The launcher runs its own (and the reference's) default support method,
+# ``sorted``, whose waves hold [E_cap, d_max] int64 intermediates: 57 GB each
+# at full width (``sorted_sizing`` logs it), several at once, so this phase
+# runs at 20,000 nodes (PERF.md, section 6).
+LAUNCHER_NODES = 20_000
+LAUNCHER_REDUCED = ("--nodes 20000 of 77,360: the sorted support's "
+                    "[E_cap, d_max] int64 intermediates are 57 GB each at "
+                    "full width; phase 6 holds the full-width path")
+LAUNCHER_TIMEOUT_S = 300
+
+
+def _launcher_env(pkg_dir: str) -> dict:
+    """The environment of a launcher subprocess: ``PYTHONPATH`` holds a
+    directory with ``repro_torch`` alone (a link to ``src/repro_torch``),
+    so the reference package cannot be imported."""
+    os.symlink(os.path.join(ROOT, "src", "repro_torch"),
+               os.path.join(pkg_dir, "repro_torch"))
+    env = dict(os.environ, PYTHONPATH=pkg_dir)
+    probe = subprocess.run(
+        [sys.executable, "-c", "import importlib.util, sys; sys.exit("
+         "importlib.util.find_spec('repro') is not None or "
+         "importlib.util.find_spec('repro_torch') is None)"], env=env)
+    if probe.returncode:
+        raise AssertionError("the launcher's path is not repro_torch alone")
+    return env
+
+
+def _stats_after(text: str, tag: str) -> dict:
+    """The stats dict the launcher printed after ``tag`` (last one)."""
+    import ast
+    line = [x for x in text.splitlines() if x.startswith(tag)][-1]
+    body = line[len(tag):]
+    return ast.literal_eval(body[:body.rindex("}") + 1])
+
+
+def run_launcher(args: list, env: dict, timeout: float,
+                 on_linger=None) -> tuple:
+    """Run ``python -m repro_torch.launch.serve_truss`` with ``args``;
+    ``on_linger(url)`` is called with the ``/metrics`` URL once the
+    launcher lingers.  Returns ``(exit code, stdout, seconds)``."""
+    t = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.serve_truss"] + args,
+        env=env, cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines, url = [], None
+    try:
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("metrics: "):
+                url = line.split()[1]
+            if line.startswith("linger:") and on_linger is not None:
+                on_linger(url)
+            if time.perf_counter() - t > timeout:
+                raise AssertionError(f"launcher {args} ran past {timeout} s")
+        rc = proc.wait(timeout=max(1.0, timeout - (time.perf_counter() - t)))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = "".join(lines)
+    if rc != 0:
+        raise AssertionError(f"launcher {args} exited {rc}:\n{text[-4000:]}")
+    return rc, text, time.perf_counter() - t
+
+
+def sorted_sizing(edges: np.ndarray, dev) -> dict:
+    """The ``sorted`` support's [E_cap, d_max] int64 intermediate at full
+    width (from the spec ``DynamicGraph`` would build), and a sorted
+    decompose at ``LAUNCHER_NODES``: seconds and peak device bytes."""
+    from repro_torch import core
+    from repro_torch.data.synthetic import powerlaw_graph
+
+    deg = np.bincount(edges.ravel(), minlength=N_NODES)
+    e_cap, d_max = 2 * len(edges), max(8, 2 * int(deg.max()))
+    out = {"full_width_intermediate_bytes": e_cap * d_max * 8}
+    small = powerlaw_graph(LAUNCHER_NODES, M_PER_NODE, seed=0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    g = core.DynamicGraph(LAUNCHER_NODES, small, device=dev)
+    sync(dev)
+    out.update(decompose_s=time.perf_counter() - t,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               edges=len(small))
+    del g
+    torch.cuda.empty_cache()
+    log(f"sorted support: one [E_cap {e_cap}, d_max {d_max}] int64 "
+        f"intermediate is {out['full_width_intermediate_bytes'] / 1e9:.1f} GB "
+        f"at full width; at {LAUNCHER_NODES} nodes ({len(small)} edges) a "
+        f"sorted decompose takes {out['decompose_s']:.2f} s, peak "
+        f"{out['peak_bytes'] / 1e9:.1f} GB")
+    return out
+
+
+def drive_launcher(dev) -> dict:
+    """``python -m repro_torch.launch.serve_truss`` as a subprocess on the
+    card: a primary with ``--store``, ``--metrics-port 0`` (scraped while it
+    lingers), ``--trace-out``, ``--trace-jsonl`` and ``--profile-dir``;
+    then ``--restore``; then ``--router --replicas 2 --pipeline``.  Checks
+    the exit codes, the restored generation, every profiled region's
+    device records and the merged trace's joins."""
+    import urllib.error
+    import urllib.request
+    from repro_torch.obs import expo, profiling
+
+    out = {"nodes": LAUNCHER_NODES, "reduced": LAUNCHER_REDUCED}
+    work = tempfile.mkdtemp(prefix="chip_smoke_launcher_")
+    try:
+        pkg = os.path.join(work, "path")
+        os.makedirs(pkg)
+        env = _launcher_env(pkg)
+        common = ["--nodes", str(LAUNCHER_NODES), "--degree",
+                  str(M_PER_NODE), "--device", str(dev)]
+        store, prof = os.path.join(work, "store"), os.path.join(work, "prof")
+        jsonl = [os.path.join(work, f"{n}.jsonl") for n in ("primary", "router")]
+        scraped = {}
+
+        def scrape(url):
+            with urllib.request.urlopen(url, timeout=10) as r:
+                scraped["metrics"] = expo.parse(r.read().decode())
+            try:    # 200 while every objective is ok, 503 otherwise
+                with urllib.request.urlopen(
+                        url.replace("/metrics", "/healthz"), timeout=10) as r:
+                    scraped["health"] = (r.status, json.loads(r.read()))
+            except urllib.error.HTTPError as exc:
+                scraped["health"] = (exc.code, json.loads(exc.read()))
+
+        _, text, out["primary_s"] = run_launcher(
+            common + ["--store", store, "--ticks", str(LAUNCHER_TICKS),
+                      "--metrics-port", "0", "--linger", "2",
+                      "--trace-out", os.path.join(work, "trace.json"),
+                      "--trace-jsonl", jsonl[0], "--profile-dir", prof],
+            env, LAUNCHER_TIMEOUT_S, on_linger=scrape)
+        gen = _stats_after(text, "final: ")["gen"]
+        fams = scraped.get("metrics", {})
+        for fam in ("truss_flush_total", "truss_committed_gen",
+                    "truss_peel_seconds", "truss_query_seconds"):
+            if fam not in fams:
+                raise AssertionError(f"/metrics lacks {fam}")
+        code, health = scraped["health"]
+        if health.get("status") not in ("ok", "burning", "violated") or (
+                code == 200) != (health["status"] == "ok"):
+            raise AssertionError(f"/healthz answered {code} {health}")
+        log(f"launcher primary: {out['primary_s']:.1f} s, gen {gen}; "
+            f"/metrics scraped while lingering ({len(fams)} families, "
+            f"committed gen {fams['truss_committed_gen']['values']}), "
+            f"/healthz {code} {json.dumps(health)}")
+
+        _, text, out["restore_s"] = run_launcher(
+            common + ["--store", store, "--restore", "--ticks", "2"],
+            env, LAUNCHER_TIMEOUT_S)
+        restored = _stats_after(text, "restored: ")["gen"]
+        final = _stats_after(text, "final: ")["gen"]
+        if restored != gen or final <= gen:
+            raise AssertionError(f"--restore at gen {restored} -> {final}, "
+                                 f"the first run ended at {gen}")
+        log(f"launcher --restore: {out['restore_s']:.1f} s, continued from "
+            f"gen {restored} to {final}")
+
+        _, text, out["router_s"] = run_launcher(
+            common + ["--store", os.path.join(work, "store2"), "--router",
+                      "--replicas", "2", "--pipeline", "--ticks",
+                      str(LAUNCHER_TICKS), "--chunk", "64", "--flush-every",
+                      "8", "--trace-jsonl", jsonl[1]],
+            env, LAUNCHER_TIMEOUT_S)
+        log(f"launcher --router --replicas 2 --pipeline: "
+            f"{out['router_s']:.1f} s; "
+            f"{[x for x in text.splitlines() if 'reads: p50' in x]}")
+
+        merged = os.path.join(work, "merged.json")
+        m = subprocess.run([sys.executable, "-m", "repro_torch.obs.merge",
+                            merged] + jsonl, env=env, cwd=ROOT,
+                           capture_output=True, text=True, timeout=120)
+        if m.returncode:
+            raise AssertionError(f"merge exited {m.returncode}: {m.stderr}")
+        names: dict = {}
+        with open(merged) as f:
+            for ev in json.load(f)["traceEvents"]:
+                tid = (ev.get("args") or {}).get("trace_id")
+                if ev.get("ph") == "X" and tid is not None:
+                    names.setdefault(tid, set()).add(ev["name"])
+        joined = sum(1 for n in names.values() if "gen.replay" in n
+                     and any(x.startswith("router.write") for x in n))
+        if not joined:
+            raise AssertionError("no replica apply joined a write's trace")
+        log(f"launcher traces merged: {m.stdout.strip()}; {joined} trace "
+            f"ids join replica applies to the router's writes")
+
+        traces = {}
+        for name in sorted(os.listdir(prof)):
+            issued, lost = profiling.lost_records(os.path.join(prof, name))
+            if lost or not issued:
+                raise AssertionError(f"{name}: {issued} launches and copies, "
+                                     f"lost {lost[:10]}")
+            traces[name] = issued
+        if not any(n.startswith("decompose-") for n in traces) or not any(
+                n.startswith("flush-") for n in traces):
+            raise AssertionError(f"profiled regions: {sorted(traces)}")
+        out["profiled"] = traces
+        log(f"launcher profiled regions (launches and copies, each with its "
+            f"device record): {json.dumps(traces)}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -2193,6 +2711,27 @@ def main() -> int:
                                  f"ran {svc_by_body[name]}, expected the "
                                  f"digest body in every one (and at least one)")
 
+    # the replica cluster at full width (K1 on the primary, the replicas'
+    # applies and the promotion's replay), then the launcher
+    reset_counts(peel_wave, bitmap_support, flash_attention)
+    t = time.perf_counter()
+    cl_out = drive_cluster_path(edges, dev)
+    cl_launches = {"peel_wave": peel_wave.LAUNCHES,
+                   "bitmap_support": bitmap_support.LAUNCHES}
+    cl_by_body = {"peel_wave": dict(peel_wave.LAUNCHES_BY_BODY),
+                  "bitmap_support": dict(bitmap_support.LAUNCHES_BY_BODY)}
+    log(f"cluster path ({card}): {time.perf_counter() - t:.1f} s, launches "
+        f"{cl_launches}, by body {cl_by_body}; {json.dumps(cl_out)}")
+    if cl_launches["peel_wave"] <= 0 or cl_by_body["peel_wave"]["direct"] \
+            or cl_by_body["bitmap_support"]["direct"]:
+        raise AssertionError(f"the cluster path ran {cl_by_body}, expected "
+                             f"K1 and the digest body in every call")
+    t = time.perf_counter()
+    la_out = {"sorted_sizing": sorted_sizing(edges, dev)}
+    la_out.update(drive_launcher(dev))
+    log(f"launcher path ({card}): {time.perf_counter() - t:.1f} s; "
+        f"{json.dumps(la_out)}")
+
     k3_time = time_flash_attention(ops, ref, flash_attention, dev)
 
     reset_counts(peel_wave, bitmap_support, flash_attention)
@@ -2253,22 +2792,28 @@ def main() -> int:
     # K1/K2: the top-level time is the digest body's (the path's) on a full
     # wave; "bodies" has both bodies in turns, K1 also at 10% and 1% alive,
     # host us a call, and the probe mappings; launches are the truss
-    # path's and the service path's ("path" has each)
+    # path's, the service path's and the cluster path's ("path" has each,
+    # "cluster_paths" the cluster's by primary, replica, promotion and
+    # replay check)
     for name in ("peel_wave", "bitmap_support"):
         f = full[name]
         kernels.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/bitmap_popcount.cu",
             "replaces": sources[name],
-            "launches": launches[name] + svc_launches[name],
+            "launches": launches[name] + svc_launches[name]
+            + cl_launches[name],
             "max_abs_err": max(f["err"], err), "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": None,
             "path": {"truss": launches[name],
-                     "service": svc_launches[name]},
+                     "service": svc_launches[name],
+                     "cluster": cl_launches[name]},
+            "cluster_paths": {path: by[name]["launches"]
+                              for path, by in cl_out["launches"].items()},
             "launches_by_body": {
                 body: by_body[name][body] + svc_by_body[name][body]
-                for body in by_body[name]},
+                + cl_by_body[name][body] for body in by_body[name]},
             "bodies": f["bodies"]})
     kernels[0]["nonzero"] = full["nonzero"]
     kernels[0]["id_check_host_us"] = full["id_check_host_us"]

@@ -160,6 +160,6 @@ def batch_maintain(spec: GraphSpec, st: GraphState,
     # ---- frozen-boundary re-peel (shared engine, peel.py) ----------------
     phi_final, stats = run_peel(spec, st1, affected, bitmap=bitmap,
                                 method=method, engine=engine,
-                                device=st1.phi.device)
+                                device=st1.phi.device, profile=False)
     st1.phi.copy_(phi_final)
     return st1, lo, hi, stats

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import torch
 
-from ..obs import trace
+from ..obs import profiling, trace
 from .graph import GraphSpec, GraphState
 from .peel import PeelStats, peel as run_peel
 
@@ -28,11 +28,16 @@ def decompose_with_stats(spec: GraphSpec, st: GraphState,
     engine: 'auto' | 'delta' | 'recompute' (see ``peel.peel``).
     bitmap: optional cached adjacency bitmap of ``st.active``.
     device: where the peel runs (inputs are moved there).
+
+    Host-level entry, so it carries the ``decompose`` trace span and the
+    ``--profile-dir`` ``torch.profiler`` region.
     """
     with trace.span("decompose", method=method, engine=engine,
                     e_cap=spec.e_cap):
-        return run_peel(spec, st, st.active, bitmap=bitmap, method=method,
-                        engine=engine, chunk=chunk, mesh=mesh, device=device)
+        with profiling.profile_region("decompose"):
+            return run_peel(spec, st, st.active, bitmap=bitmap, method=method,
+                            engine=engine, chunk=chunk, mesh=mesh,
+                            device=device)
 
 
 def decompose(spec: GraphSpec, st: GraphState, method: str = "sorted",

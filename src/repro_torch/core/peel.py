@@ -24,14 +24,19 @@ condition once per wave (one device sync); every other wave quantity, ``k``
 included, stays on the device.  The ``waves < 8 * e_cap`` cap is kept.
 Results (phi and every ``PeelStats`` field) are bitwise those of the
 reference.
+
+``set_wave_profile(True)`` (``serve_truss --wave-profile``) routes host-level
+peels through ``_profiled_peel``, the recompute discipline timed wave by
+wave, as the reference does.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
 
-from ..obs import metrics as obs_metrics
+from ..obs import metrics as obs_metrics, trace as obs_trace
 from .graph import (GraphSpec, GraphState, _endpoints, add_drop, build_bitmap,
                     nonzero_padded, set_drop, support_all, support_all_bitmap,
                     triangle_partners, update_bitmap)
@@ -39,8 +44,7 @@ from .graph import (GraphSpec, GraphState, _endpoints, add_drop, build_bitmap,
 _INF = 2**30
 _I32 = torch.int32
 
-# wave-level profile families; the host-stepped profiled loop that observes
-# them (the reference's ``set_wave_profile``) arrives with the CLI slice
+# -- wave-level profiling (measurement mode; see set_wave_profile) ----------
 _WAVE_S = obs_metrics.histogram(
     "truss_peel_wave_seconds",
     "wall time of one host-stepped peel wave (wave-profile mode only)",
@@ -51,6 +55,24 @@ _WAVE_COLL = obs_metrics.histogram(
     "estimated fraction of one wave spent in the per-wave decision "
     "all-reduce (wave-profile mode under a mesh)",
     buckets=(0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9))
+
+_WAVE_PROFILE = False
+
+
+def set_wave_profile(on: bool = True):
+    """Toggle wave-level profiling process-wide (``serve_truss
+    --wave-profile``).  While on, ``peel`` routes through a host-stepped
+    recompute loop that times **each wave individually** — one device sync
+    per wave, so this is a measurement mode, not a serving mode.  phi is
+    unchanged (every engine computes the same decomposition); ``PeelStats``
+    reflects the recompute discipline."""
+    global _WAVE_PROFILE
+    _WAVE_PROFILE = bool(on)
+
+
+def wave_profile_enabled() -> bool:
+    """Whether ``peel`` currently runs the host-stepped profiled loop."""
+    return _WAVE_PROFILE
 
 
 # ---------------------------------------------------------------------------
@@ -145,7 +167,8 @@ def _on(device, *tensors):
 
 def peel(spec: GraphSpec, st: GraphState, peel_mask: torch.Tensor,
          bitmap: torch.Tensor | None = None, method: str = "sorted",
-         engine: str = "auto", chunk: int = 64, mesh=None, device="cuda"):
+         engine: str = "auto", chunk: int = 64, mesh=None, device="cuda",
+         profile: bool = True):
     """The one peel entry point every consumer routes through.
 
     ``engine='auto'`` picks ``delta`` for ``bitmap`` (incremental bit
@@ -153,7 +176,10 @@ def peel(spec: GraphSpec, st: GraphState, peel_mask: torch.Tensor,
     ``sorted``, as the reference does.  Inputs are moved to ``device``
     (a no-op when they already live there).  ``mesh`` must be ``None``:
     the mesh-partitioned engine is a later slice (ROADMAP item 13).
-    Returns ``(phi, PeelStats)``.
+    Under ``set_wave_profile`` the peel runs ``_profiled_peel`` unless
+    ``profile`` is False: the fused batch engine passes False, since its
+    re-peel runs inside a jit trace in the reference, where the profiled
+    loop never runs.  Returns ``(phi, PeelStats)``.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -162,6 +188,8 @@ def peel(spec: GraphSpec, st: GraphState, peel_mask: torch.Tensor,
     peel_mask, bitmap = _on(device, peel_mask, bitmap)
     if engine == "auto":
         engine = "delta" if method == "bitmap" else "recompute"
+    if _WAVE_PROFILE and profile:
+        return _profiled_peel(spec, st, peel_mask, method=method)
     if engine == "delta":
         return delta_peel(spec, st, peel_mask, bitmap=bitmap, method=method,
                           chunk=chunk)
@@ -216,35 +244,89 @@ def recompute_peel(spec: GraphSpec, st: GraphState, peel: torch.Tensor,
     e_cap = spec.e_cap
     peel = peel & st.active
     frozen = st.active & ~peel
-    fphi = st.phi
-    if method == "bitmap":
-        sup_fn = lambda qual: support_all_bitmap(spec, st, qual)  # noqa: E731
-    elif method == "sorted":
-        sup_fn = lambda qual: support_all(spec, st, qual)  # noqa: E731
-    else:
-        raise ValueError(f"unknown method {method!r}")
-
+    _check_method(method)
     alive, phi, k = peel, st.phi, _scalar(3, st.phi)
     kills = _scalar(0, st.phi)
     waves = 0
     while waves < 8 * e_cap and bool(alive.any()):
-        # an edge counts toward level-k support iff it is an unpeeled member
-        # of the peel set or a frozen edge whose phi keeps it in the k-truss
-        qual = alive | (frozen & (fphi >= k))
-        sup = sup_fn(qual)
-        kill = alive & (sup < k - 2)
-        any_kill = kill.any()
-        phi = torch.where(kill, k - 1, phi)
-        alive = alive & ~kill
-        min_sup = torch.where(alive, sup, _INF).min()
-        j2 = torch.where(frozen & (fphi >= k), fphi, _INF).min() + 1
-        k_jump = torch.maximum(torch.minimum(min_sup + 3, j2), k + 1)
-        k = torch.where(any_kill, k, k_jump)
+        alive, phi, k, kill = _recompute_wave(spec, st, frozen, alive, phi, k,
+                                              method)
         waves += 1
         kills = kills + _count(kill)
     return (torch.where(st.active, phi, 0),
             PeelStats(_scalar(waves, phi), kills, _scalar(0, phi),
                       _count(peel)))
+
+
+def _check_method(method: str):
+    if method not in ("bitmap", "sorted"):
+        raise ValueError(f"unknown method {method!r}")
+
+
+def _recompute_wave(spec, st, frozen, alive, phi, k, method):
+    """One wave of the recompute discipline: the support of the whole
+    qualifying subgraph, the level-k kills, and the level jump.  Returns
+    ``(alive, phi, k, kill)``."""
+    fphi = st.phi
+    # an edge counts toward level-k support iff it is an unpeeled member of
+    # the peel set or a frozen edge whose phi keeps it in the k-truss
+    qual = alive | (frozen & (fphi >= k))
+    if method == "bitmap":
+        sup = support_all_bitmap(spec, st, qual)
+    else:
+        sup = support_all(spec, st, qual)
+    kill = alive & (sup < k - 2)
+    any_kill = kill.any()
+    phi = torch.where(kill, k - 1, phi)
+    alive = alive & ~kill
+    min_sup = torch.where(alive, sup, _INF).min()
+    j2 = torch.where(frozen & (fphi >= k), fphi, _INF).min() + 1
+    k_jump = torch.maximum(torch.minimum(min_sup + 3, j2), k + 1)
+    k = torch.where(any_kill, k, k_jump)
+    return alive, phi, k, kill
+
+
+def _sync(device):
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _profiled_peel(spec: GraphSpec, st: GraphState, peel_mask: torch.Tensor,
+                   method: str = "sorted"):
+    """Host-stepped wave-profiled peel (``set_wave_profile``): the recompute
+    discipline one wave at a time, each wave timed between two
+    ``torch.cuda.synchronize()`` calls on the card.  phi is identical to
+    every other engine (the wave discipline never changes the
+    decomposition) and ``PeelStats`` reflects the recompute discipline
+    (``deltas`` is 0).
+
+    Per wave: ``truss_peel_wave_seconds`` observes the synced wall time and
+    a ``peel.wave`` trace instant carries (wave, k, kills, dur_us).  The
+    reference's collective-share estimate under a mesh waits for the mesh
+    (ROADMAP item 13); ``peel`` raises on a mesh before reaching here."""
+    e_cap = spec.e_cap
+    _check_method(method)
+    dev = st.phi.device
+    peel_m = peel_mask & st.active
+    frozen = st.active & ~peel_m
+    alive, phi, k = peel_m, st.phi, _scalar(3, st.phi)
+    waves = kills = 0
+    _sync(dev)
+    while bool(alive.any()) and waves < 8 * e_cap:
+        t0 = time.perf_counter()
+        alive, phi, k, kill = _recompute_wave(spec, st, frozen, alive, phi, k,
+                                              method)
+        nk = int(_count(kill))      # a host read: the wave has run
+        _sync(dev)
+        dt = time.perf_counter() - t0
+        waves += 1
+        kills += nk
+        _WAVE_S.observe(dt)
+        obs_trace.instant("peel.wave", wave=waves, k=int(k), kills=nk,
+                          dur_us=round(dt * 1e6, 1))
+    return (torch.where(st.active, phi, 0),
+            PeelStats(_scalar(waves, phi), _scalar(kills, phi),
+                      _scalar(0, phi), _count(peel_m)))
 
 
 def _peel_bitmap(spec, st, peel, frozen, fphi, alive0, bitmap):

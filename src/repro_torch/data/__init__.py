@@ -1,5 +1,5 @@
-"""Synthetic data of the port (copies of ``repro.data``): graphs and
-recsys click batches."""
-from . import synthetic
+"""Data of the port (copies of ``repro.data``): synthetic graphs and
+recsys click batches, and the update and mixed read/write streams."""
+from . import streams, synthetic
 
-__all__ = ["synthetic"]
+__all__ = ["streams", "synthetic"]

@@ -1,14 +1,15 @@
-"""Observability for the port: the metrics registry, the span trace and
-the flight recorder, copied from ``repro.obs`` (``state``, ``metrics``,
-``trace``, ``flightrec``), the profiler hook's API (``profiling``: a no-op
-until armed, and armed it raises until its ``torch.profiler`` twin lands,
-ROADMAP item 12), plus the process-wide enable switch.  The exposition
-server and SLOs are ROADMAP item 12 too."""
+"""Observability for the port: copies of ``repro.obs``'s host-side plane
+(``state``, ``metrics``, ``trace``, ``flightrec``, ``expo``: Prometheus
+text and the ``/metrics`` + ``/healthz`` server, ``slo``: burn-rate
+objectives, ``merge``: the cross-process trace merge), the
+``torch.profiler`` twin of its profiler hooks (``profiling``), plus the
+process-wide enable switch."""
 from __future__ import annotations
 
 from contextlib import contextmanager
 
-from . import metrics, trace  # noqa: F401 — re-exports
+from . import (expo, flightrec, merge, metrics,  # noqa: F401 — re-exports
+               profiling, slo, trace)
 from .state import STATE
 
 

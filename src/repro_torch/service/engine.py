@@ -73,7 +73,7 @@ bitwise-equal.  fsyncs run under a capped-jitter ``RetryPolicy``;
 exhaustion degrades the same way.  ``scrub()`` audits the whole plane.
 
 The same machinery feeds the replicated serving tier (the reference's
-``repro.cluster``; its port is ROADMAP item 11):
+``repro.cluster``, ported as ``repro_torch.cluster``):
 every flush publishes the committed frontier to the store (``commit.json``)
 so read replicas can tail complete generation groups, every ``WriteAck``
 doubles as a read-your-writes generation token, and ``stats()`` reports
@@ -533,7 +533,7 @@ class TrussService:
 
     def attach_slo(self, engine) -> "TrussService":
         """Wire an SLO engine (``repro.obs.slo.SLOEngine``'s interface;
-        its port is ROADMAP item 12): it is evaluated (internally
+        ported as ``repro_torch.obs.slo``): it is evaluated (internally
         rate-limited) at every commit and inside ``stats()``, which then
         reports ``stats()["slo"]``.  Returns self for chaining."""
         self.slo = engine

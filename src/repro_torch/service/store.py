@@ -52,7 +52,7 @@ it — record checksums, manifest digests, commit-frontier sanity — on a
 live store without stopping ingest.
 
 The same machinery doubles as a **physical replication stream** (the
-replica cluster, ROADMAP item 11): a store opened with ``readonly=True``
+replica cluster, ``repro_torch.cluster``): a store opened with ``readonly=True``
 never mutates the directory (no torn-tail truncation, no append handle,
 no quarantine) and can tail the primary's log with ``read_wal``; two
 sidecar metadata files coordinate the cluster without touching the log format:

@@ -27,6 +27,17 @@ TOL = {np.float32: 2e-5, jnp.bfloat16: 3e-2}
 TORCH_DTYPE = {np.float32: torch.float32, jnp.bfloat16: torch.bfloat16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the driver runs the
+    suite in several worker processes, and torch's thread pool in each of
+    them oversubscribes the host's cores on these tiny shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _qkv(rng, shape, dtype):
     """Inputs rounded to ``dtype`` once, handed to both frameworks."""
     arrs = [np.array(jnp.asarray(rng.normal(size=shape)).astype(dtype)

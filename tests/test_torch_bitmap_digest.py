@@ -18,6 +18,17 @@ from repro_torch.data.synthetic import powerlaw_graph
 from repro_torch.kernels import bitmap_support, ref
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the driver runs the
+    suite in several worker processes, and torch's thread pool in each of
+    them oversubscribes the host's cores on these tiny shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def digest_plan(bitmap, eu, ev, alive, capacity, word_offset=0,
                 word_count=None):
     """The digest body's three passes on the CPU.  ``alive`` None is K2

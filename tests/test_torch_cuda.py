@@ -3,12 +3,16 @@ version (K1/K2 bitwise, K3, K4 and K5 within stated tolerances), and the
 truss engine, the LM prefill and the xDeepFM scores on the card equal to
 the same on the CPU; the WAL-backed truss service on the card launching
 K1 through a fused flush and K2 through its recompute fallback, and its
-snapshots restoring bitwise.
+snapshots restoring bitwise; a replica on the card tailing such a
+primary (K1 in its applies, bitwise equal at every generation), its
+promotion, and a profiled flush with every device record.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 They import neither JAX nor ``repro``.
 """
+import json
+
 import numpy as np
 import pytest
 import torch
@@ -20,7 +24,9 @@ from repro_torch.data.synthetic import ClickStream
 from repro_torch.kernels import (bitmap_support, cin, flash_attention, ops,
                                  peel_wave, ref, segment_matmul)
 from repro_torch.faults import PeelChaos
+from repro_torch.cluster import Replica
 from repro_torch.models import recsys, transformer
+from repro_torch.obs import profiling
 from repro_torch.service import TrussService, TrussStore
 
 pytestmark = pytest.mark.cuda
@@ -315,6 +321,76 @@ def test_service_snapshot_restore_on_card_is_bitwise(cuda, tmp_path):
         assert x.is_cuda and y.is_cuda and torch.equal(x, y)
     assert back.graph.phi_dict() == core.oracle.scratch_phi(n, present)
     assert [r[1:] for r in back.store.read_wal()][-len(ups):] == ups
+
+
+def test_replica_tails_bitmap_primary_on_card_bitwise(cuda, tmp_path):
+    """A replica on the card tailing a ``bitmap`` primary on the card: K1's
+    digest body launches in the replica's applies, and the replica is
+    bitwise equal to the primary at every generation it reaches."""
+    n = 400
+    edges = powerlaw_graph(n, 5, seed=7)
+    svc = _service(cuda, tmp_path, edges, n, flush_every=40)
+    rep = Replica(str(tmp_path), "r0", support_method="bitmap", device=cuda)
+    present = {tuple(map(int, e)) for e in edges}
+    rng = np.random.default_rng(4)
+    for _ in range(3):
+        ups = _service_updates(rng, present, n, 40)
+        svc.submit_many(ups)
+        _apply(present, ups)
+        k1 = peel_wave.LAUNCHES_BY_BODY["digest"]
+        assert rep.poll() == svc.gen
+        assert peel_wave.LAUNCHES_BY_BODY["digest"] > k1
+        for x, y in zip(svc.graph.state, rep.svc.graph.state):
+            assert x.is_cuda and y.is_cuda and torch.equal(x, y)
+    assert rep.svc.graph.phi_dict() == core.oracle.scratch_phi(n, present)
+
+
+def test_promotion_on_card_replays_acked_tail(cuda, tmp_path):
+    """The primary drops with writes acked but unflushed; the promoted
+    replica replays them on the card and equals the oracle."""
+    n = 400
+    edges = powerlaw_graph(n, 5, seed=8)
+    svc = _service(cuda, tmp_path, edges, n, flush_every=40)
+    rep = Replica(str(tmp_path), "r0", support_method="bitmap", device=cuda)
+    present = {tuple(map(int, e)) for e in edges}
+    rng = np.random.default_rng(5)
+    ups = _service_updates(rng, present, n, 40)
+    svc.submit_many(ups)
+    _apply(present, ups)
+    rep.poll()
+    ups = _service_updates(rng, present, n, 30)   # acked, never flushed
+    svc.submit_many(ups)
+    _apply(present, ups)
+    svc.store.close()
+    del svc
+    k1 = peel_wave.LAUNCHES_BY_BODY["digest"]
+    promoted = rep.promote()
+    assert peel_wave.LAUNCHES_BY_BODY["digest"] > k1
+    assert promoted.graph.device.type == "cuda" and promoted.gen == 2
+    assert promoted.graph.phi_dict() == core.oracle.scratch_phi(n, present)
+    assert [r[1:] for r in promoted.store.read_wal()][-len(ups):] == ups
+
+
+def test_profiled_region_on_card_records_every_launch(cuda, tmp_path):
+    """An armed flush on the card writes one Chrome trace in which every
+    launch, copy and fill of the flush has its device record."""
+    n = 400
+    edges = powerlaw_graph(n, 5, seed=9)
+    svc = _service(cuda, tmp_path / "store", edges, n, flush_every=400)
+    present = {tuple(map(int, e)) for e in edges}
+    svc.submit_many(_service_updates(np.random.default_rng(6), present, n,
+                                     40))
+    profiling.configure(str(tmp_path / "prof"), max_traces=1)
+    try:
+        svc.flush()
+    finally:
+        profiling.configure(None)
+    path = tmp_path / "prof" / "flush-0.json"
+    issued, lost = profiling.lost_records(str(path))
+    assert issued > 0 and lost == []
+    names = {e.get("name", "") for e in json.load(open(path))["traceEvents"]
+             if e.get("cat") == "kernel"}
+    assert any("digest_rows" in name for name in names), sorted(names)[:20]
 
 
 # ---------------------------------------------------------------------------

@@ -4,6 +4,7 @@ stream that exercises every update path (progressive, fused, recompute,
 capacity growth, batchUpdate re-decomposition) and the query views."""
 import numpy as np
 import pytest
+import torch
 
 import repro.core as J
 import repro_torch.core as T
@@ -11,6 +12,17 @@ from repro.core import oracle
 from repro.data.synthetic import er_graph
 
 N = 24
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the driver runs the
+    suite in several worker processes, and torch's thread pool in each of
+    them oversubscribes the host's cores on these tiny shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _components(edges) -> set:

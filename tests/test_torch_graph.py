@@ -13,6 +13,17 @@ N, D_MAX, E_CAP = 13, 16, 160
 SPECS = (J.GraphSpec(N, D_MAX, E_CAP), T.GraphSpec(N, D_MAX, E_CAP))
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the driver runs the
+    suite in several worker processes, and torch's thread pool in each of
+    them oversubscribes the host's cores on these tiny shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_graph(rng, p, n=N):
     return [(i, j) for i in range(n) for j in range(i + 1, n)
             if rng.random() < p]

@@ -14,6 +14,17 @@ from repro_torch.kernels import bitmap_support, ops, peel_wave, ref
 SHAPES = [(1, 1), (7, 3), (64, 32), (130, 37), (513, 129)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the driver runs the
+    suite in several worker processes, and torch's thread pool in each of
+    them oversubscribes the host's cores on these tiny shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _words(rng, shape):
     """uint32 words with bit 31 forced on in a quarter of them."""
     w = rng.integers(0, 2**32, size=shape, dtype=np.uint32)

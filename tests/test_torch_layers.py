@@ -20,6 +20,17 @@ from repro_torch.models import layers as tl
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 2e-2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the driver runs the
+    suite in several worker processes, and torch's thread pool in each of
+    them oversubscribes the host's cores on these tiny shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _t(a, dtype=torch.float32):
     return torch.from_numpy(np.array(a, np.float32)).to(dtype)
 

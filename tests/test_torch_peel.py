@@ -17,6 +17,17 @@ CASES = [(0, 0.2), (1, 0.35), (2, 0.6), (3, 0.05)]
 METHODS = [(m, e) for m in ("sorted", "bitmap") for e in ("delta", "recompute")]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the driver runs the
+    suite in several worker processes, and torch's thread pool in each of
+    them oversubscribes the host's cores on these tiny shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _random_graph(rng, p, n=N):
     return [(i, j) for i in range(n) for j in range(i + 1, n)
             if rng.random() < p]

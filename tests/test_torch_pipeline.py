@@ -10,8 +10,10 @@ On the CPU a dispatched generation has landed when ``apply_batch``
 returns, so the tests that need one in flight hold the opportunistic
 landing back, as the reference's overload test does.
 
-The router and replica cases wait for the cluster's port (ROADMAP item
-11).
+The router and replica cases run over the port's cluster: a shed write
+leaves a session's read-your-writes token where it was, and a replica
+tailing a pipelined primary (whose WAL runs ahead of ``commit.json``)
+applies committed groups only and ends bitwise equal to it.
 """
 import numpy as np
 import pytest
@@ -19,6 +21,7 @@ import torch
 
 from repro.core import oracle
 from repro.data.streams import make_update_stream
+from repro_torch.cluster import QueryRouter, Replica
 from repro_torch.service import (MEMBERS, Overloaded, QueryRequest,
                                  TrussService, TrussStore, WriteAck)
 
@@ -261,3 +264,73 @@ def test_restore_opens_the_generation_after_the_replayed_tail(tmp_path):
     orc = oracle.Oracle(N, edges)
     orc.apply(stream)
     assert restored.graph.phi_dict() == orc.phi
+
+
+def _assert_bitwise_equal(a: TrussService, b):
+    st_b = b.svc.graph.state if isinstance(b, Replica) else b.graph.state
+    for name, x, y in zip(a.graph.state._fields, a.graph.state, st_b):
+        assert x.dtype == y.dtype and torch.equal(x, y), name
+
+
+def test_router_session_token_unmoved_by_overload(tmp_path):
+    """A shed write must not advance the session's read-your-writes token
+    (the write did not happen)."""
+    rng = np.random.default_rng(13)
+    edges = _random_graph(rng, 0.25)
+    svc = _svc(edges, tmp_path, flush_every=8, strategy="fused",
+               max_pending=4)
+    # on the CPU a dispatch lands at once: hold it, so the queue can fill
+    _hold_landings(svc)
+    router = QueryRouter(svc)
+    sess = router.session()
+    present = set(svc._view)
+    saw_shed = False
+    for _ in range(60):
+        while True:
+            a, b = (int(x) for x in rng.integers(0, N, size=2))
+            a, b = min(a, b), max(a, b)
+            if a != b and (a, b) not in present:
+                break
+        token_before = sess.token
+        ack = sess.submit(1, a, b)
+        if isinstance(ack, Overloaded):
+            saw_shed = True
+            assert sess.token == token_before
+        else:
+            present.add((a, b))
+            assert sess.token >= ack.gen or sess.token == token_before
+    assert saw_shed
+
+
+# -- replication over a pipelined primary ------------------------------------
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_replica_tolerates_wal_tail_ahead_of_frontier(seed, tmp_path):
+    """A replica tailing a pipelined primary sees a WAL that runs ahead of
+    commit.json by the in-flight + queued generations.  It applies only
+    committed groups, equals the oracle on the committed prefix while the
+    tail is ahead, and is bitwise equal to the primary once it drains."""
+    rng = np.random.default_rng(seed)
+    edges = _random_graph(rng, 0.3)
+    stream = make_update_stream(np.asarray(edges), N, 30, seed=seed + 90)
+    svc = _svc(edges, tmp_path, flush_every=4, strategy="fused",
+               max_pending=128)
+    _hold_landings(svc)
+    rep = Replica(str(tmp_path), "r0", strategy="fused", device="cpu")
+    _submit_all(svc, stream)
+    # mid-pipeline: the acked tail runs ahead of the committed frontier
+    tail_ahead = svc.store.wal_len - svc._applied_wal
+    assert tail_ahead > 0
+    rep.poll()
+    assert rep.gen <= svc.gen
+    assert rep.wal_applied <= svc._applied_wal
+    # the WAL holds exactly the stream records (the baseline lives in the
+    # bootstrap snapshot), so the applied frontier is a stream prefix
+    orc = oracle.Oracle(N, edges)
+    orc.apply(stream[:rep.wal_applied])
+    assert rep.svc.graph.phi_dict() == orc.phi
+    # drain the primary: the tail lands, the replica catches up bitwise
+    svc.flush()
+    assert rep.poll() == svc.gen
+    _assert_bitwise_equal(svc, rep)
+    assert rep.wal_applied == svc._applied_wal == len(stream)

@@ -29,6 +29,17 @@ TOL = 1e-5
 CFG = jget("xdeepfm").smoke
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the driver runs the
+    suite in several worker processes, and torch's thread pool in each of
+    them oversubscribes the host's cores on these tiny shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def carried():
     jp = jr.init_params(CFG, jax.random.PRNGKey(0))

@@ -26,6 +26,17 @@ TOL = {np.float32: 1e-5, np.float16: 2e-2}
 TORCH_DTYPE = {np.float32: torch.float32, np.float16: torch.float16}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the driver runs the
+    suite in several worker processes, and torch's thread pool in each of
+    them oversubscribes the host's cores on these tiny shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def no_launch():
     """Every K4/K5 wrapper call in the test stays off the kernels."""

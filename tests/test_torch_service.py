@@ -395,17 +395,20 @@ def test_mesh_and_profiling_not_ported_yet(tmp_path):
                      device="cpu")
     with profiling.profile_region("flush"):
         pass  # not armed: a no-op
+    assert not os.path.exists(tmp_path / "prof")
+    svc = _svc([(0, 1), (1, 2), (0, 2)], flush_every=100)
+    svc.submit(1, 0, 3)
     try:
         profiling.configure(str(tmp_path / "prof"), max_traces=1)
         assert profiling.is_configured()
-        svc = _svc([(0, 1), (1, 2), (0, 2)], flush_every=100)
-        svc.submit(1, 0, 3)
-        with pytest.raises(NotImplementedError, match="item 12"):
-            svc.flush()
+        assert svc.flush() == 1  # armed: the flush runs under the profiler
+        assert not profiling.is_configured()   # its one trace is written
     finally:
         profiling.configure(None)
-    assert not profiling.is_configured()
-    assert svc.flush() == 1  # disarmed: the pending write commits
+    assert os.listdir(tmp_path / "prof") == ["flush-0.json"]
+    svc.submit(1, 1, 3)
+    assert svc.flush() == 2  # disarmed: no trace
+    assert os.listdir(tmp_path / "prof") == ["flush-0.json"]
 
 
 # -- satellites --------------------------------------------------------------

@@ -29,6 +29,17 @@ DENSE = ["qwen3-0.6b", "gemma-2b", "starcoder2-7b"]
 LOGIT_RTOL = 3e-2
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread while this module runs: the driver runs the
+    suite in several worker processes, and torch's thread pool in each of
+    them oversubscribes the host's cores on these tiny shapes."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _carried(cfg, seed=0):
     jp = jt.init_params(cfg, jax.random.PRNGKey(seed))
     return jp, tt.params_from_numpy(cfg, jax.tree.map(np.asarray, jp),
