@@ -95,11 +95,28 @@
    region's trace must hold each launch's and copy's device record, and
    the merged trace (``python -m repro_torch.obs.merge``) must join the
    replicas' applies to the router's writes.
-8. Times the attention kernel's bodies at ``[64, 4096, 128]`` bf16, at the
+8. Drives the sharded substrate at full width on ``make_shard_mesh(S)``
+   (every shard on the one card) for S = 2 and 4: ``DynamicGraph(...,
+   mesh=..., partition=...)`` with ``partition="replicated"`` (K1 on each
+   shard's row block) and ``"nodes"`` (K2 on each shard's word slab, one
+   partial support a slab summed each wave), each decompose bitwise equal
+   (phi and ``PeelStats``) to phase 4's and one fused batch of 2,000
+   updates bitwise equal (every state array, the stats, the bitmap) to a
+   mesh=None graph given the same batch; at S = 4 a recompute-engine
+   decompose (K2) against mesh=None's, the per-wave decision read and bit
+   exchange timed (beside the reference's summed partial bitmaps);
+   ``distributed_decompose`` against phase 4's phi (the oracle's); one
+   ``TrussService(mesh=..., partition="nodes")`` generation of 1,000
+   writes bitwise equal to a mesh=None service fed the same writes; a
+   wave-profiled re-peel under the mesh observing the decision's share of
+   each wave.  Logs seconds, waves, launches by body, bitmap bytes a
+   device and peak device memory of each run; every K1 and K2 call must
+   run the digest body.
+9. Times the attention kernel's bodies at ``[64, 4096, 128]`` bf16, at the
    prefill's GQA layout and at ``gemma-2b``'s layout (the wgmma body and
    the SIMT body asked for by name, in turns), each beside its bound, its
    plain version and ``scaled_dot_product_attention``.
-9. Drives the LM serving path at the full width and depth of
+10. Drives the LM serving path at the full width and depth of
    ``qwen3-0.6b`` with seeded random weights: prefill of 4 x 4,096 tokens
    (K3's wgmma body 28 times a call, its SIMT body never), one more under
    ``torch.profiler``, then
@@ -112,14 +129,14 @@
    config (head dim 32, bf16: the SIMT body once a layer) on 4 x 1,024
    tokens, the kernel at that shape and the logits held against the plain
    versions.
-10. Holds the recsys kernels against their plain versions on the
+11. Holds the recsys kernels against their plain versions on the
    reference's sweeps: the segment sum (``segment_matmul``, fp32 and fp16,
    ids outside the range, gathered entry; on the same ids sorted, the
    declared-sorted entry bitwise against the sorting entry and the mean
    entry against the plain mean; runs of up to 30,000 rows against a
    float64 sum; indices outside the table giving NaN bags; unsorted ids
    declared sorted giving an all-NaN output) and the CIN layer (``cin``).
-11. Drives the xDeepFM serving path at full width (39 fields of 1,000,000
+12. Drives the xDeepFM serving path at full width (39 fields of 1,000,000
    rows, embed 10, CIN 200-200-200, MLP 400-400; about 433M parameters
    from a seed, on the card) through the reference's three traffic shapes:
    serve_p99 (batch 512, 200 synchronised calls: p50/p99 ms, rows/s),
@@ -142,8 +159,9 @@
    (``torch.matmul``) of the outer product materialised before the timing,
    and on one whole bulk layer-2 call (TFLOP/s and share of the bound).
    K5's plan (grid and k slices) is printed for each layer of the path.
-12. Fails unless every kernel was launched by its path (K1 and K2 on the
-    truss path and on the service path, K1 on the cluster path), prints
+13. Fails unless every kernel was launched by its path (K1 and K2 on the
+    truss path, on the service path and on the sharded path, K1 on the
+    cluster path), prints
     the kernels line, the card line, and last the device line.
 
 Every failed check raises, so the exit code is non-zero.  The script needs
@@ -762,8 +780,9 @@ def profiled(fn, forbid: str | None = None, require: str | None = None,
 
 
 def drive_main_path(core, edges: np.ndarray, dev):
-    """The port's main path at full width; returns the graph and the
-    seconds of each phase."""
+    """The port's main path at full width; returns the graph, the seconds
+    of each phase and the initial decomposition (spec, phi, stats), which
+    phase 8 holds its sharded decompositions against."""
     sec = {}
     rng = np.random.default_rng(1)
     t = time.perf_counter()
@@ -771,6 +790,7 @@ def drive_main_path(core, edges: np.ndarray, dev):
     sync(dev)
     sec["decompose"] = time.perf_counter() - t
     stats = core.stats_dict(g.last_peel_stats)
+    initial = (g.spec, g.state.phi.clone(), stats)
     log(f"initial decomposition: {sec['decompose']:.2f} s, {stats}, "
         f"max truss {g.max_truss()}")
     present = set(map(tuple, edges.tolist()))
@@ -813,7 +833,7 @@ def drive_main_path(core, edges: np.ndarray, dev):
             raise AssertionError(f"k={k}: index components differ from host")
         log(f"k={k}: {len(kt)} edges, {len(comps)} components == host")
     sec["queries"] = time.perf_counter() - t
-    return g, sec
+    return g, sec, initial
 
 
 SERVICE_WRITES = 1000         # a generation: 500 deletes, 500 inserts
@@ -1575,6 +1595,284 @@ def drive_launcher(dev) -> dict:
             f"device record): {json.dumps(traces)}")
     finally:
         shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# Phase 8: the sharded substrate at full width.  A ShardMesh's shards cycle
+# over the visible cards (ROADMAP R6), so on one H100 every shard is cuda:0:
+# the phase holds the sharded engines bitwise against mesh=None and counts
+# their launches; it measures no multi-card speed-up.  The sorted method
+# under a mesh holds [E/S, d_max] int64 intermediates (14 GB a shard at
+# S = 4 and full width), so it runs in the CPU tests only.
+SHARD_COUNTS = (2, 4)
+SHARD_BATCH = 1000            # deletes and inserts: one fused batch of 2,000
+SHARD_WRITES = 500            # deletes and inserts: a generation of 1,000
+PROFILED_REPEEL = 2000        # edges of the profiled re-peel under the mesh
+
+
+def _record(core, g):
+    """Clones of a graph's state arrays and its last PeelStats."""
+    return [x.clone() for x in g.state], core.stats_dict(g.last_peel_stats)
+
+
+def _same_record(core, g, rec, what: str) -> None:
+    arrays, stats = rec
+    for name, x, y in zip(g.state._fields, g.state, arrays):
+        if x.dtype != y.dtype or not torch.equal(x, y):
+            raise AssertionError(f"{what}: GraphState.{name} differs from "
+                                 f"mesh=None")
+    got = core.stats_dict(g.last_peel_stats)
+    if got != stats:
+        raise AssertionError(f"{what}: PeelStats {got} != mesh=None {stats}")
+
+
+def _launches_by_body(mods) -> dict:
+    return {m.__name__.rsplit(".", 1)[-1]: dict(m.LAUNCHES_BY_BODY)
+            for m in mods}
+
+
+def _diff(after: dict, before: dict) -> dict:
+    return {k: {b: after[k][b] - before[k][b] for b in after[k]}
+            for k in after}
+
+
+def time_wave_parts(core, mesh, g, n_dead: int, dev) -> dict:
+    """Per-wave costs of the edge-sharded delta engine on this graph: the
+    decision (a 4-lane int32 tensor a shard, one ``pmin``, one host read;
+    host µs, median of 200) and the bit exchange for a seeded dead set of a
+    mean wave's size (the shards' dead masks gathered, one
+    ``update_bitmap`` clear of the bitmap copy; ms, median of 20, each
+    clear undone outside the timing), beside the reference's literal form
+    (each shard's zero-filled ``[N, W]`` partial bitmap of its dead edges,
+    summed, then subtracted)."""
+    from repro_torch.core import distributed as dist
+    from repro_torch.core.peel import _decision
+
+    devs = mesh.shard_devices("shard")
+    lanes = [torch.tensor([5, 7, 1, 0], dtype=torch.int32, device=d)
+             for d in devs]
+    for _ in range(20):
+        _decision(lanes)
+    ts = []
+    for _ in range(200):
+        t0 = time.perf_counter()
+        _decision(lanes)
+        ts.append(time.perf_counter() - t0)
+    spec, st, bm = g.spec, g.state, g._bitmap
+    act = st.active.nonzero().reshape(-1).cpu().numpy()
+    rng = np.random.default_rng(5)
+    dead = torch.zeros_like(st.active)
+    dead[torch.from_numpy(rng.choice(act, n_dead, replace=False)).to(dev)] = True
+    blk = spec.e_cap // len(devs)
+    parts = [dead[s * blk:(s + 1) * blk] for s in range(len(devs))]
+    u, v = st.edges[:, 0], st.edges[:, 1]
+    before = bm.clone()
+
+    def exchange():
+        gone = dist.all_gather(parts)[0]
+        core.update_bitmap(spec, bm, u, v, gone, set_bits=False)
+
+    def literal():
+        return bm - dist.psum([core.partial_bitmap(
+            spec, st.edges[s * blk:(s + 1) * blk], p)
+            for s, p in enumerate(parts)])[0]
+
+    times = {"exchange": [], "literal": []}
+    for _ in range(22):
+        for name, fn in (("exchange", exchange), ("literal", literal)):
+            sync(dev)
+            t0 = time.perf_counter()
+            res = fn()
+            sync(dev)
+            times[name].append(time.perf_counter() - t0)
+            if name == "exchange":
+                core.update_bitmap(spec, bm, u, v, dead, set_bits=True)
+            else:
+                cleared = res
+    exchange()
+    if not torch.equal(bm, cleared):
+        raise AssertionError("the gathered-mask exchange and the summed "
+                             "partial bitmaps clear different bits")
+    core.update_bitmap(spec, bm, u, v, dead, set_bits=True)
+    if not torch.equal(bm, before):
+        raise AssertionError("the bitmap did not come back after the timing")
+    return {"decision_host_us": 1e6 * float(np.median(ts)),
+            "exchange_ms": 1e3 * float(np.median(times["exchange"][2:])),
+            "literal_psum_ms": 1e3 * float(np.median(times["literal"][2:])),
+            "dead_edges": n_dead}
+
+
+def drive_sharded_path(core, edges: np.ndarray, dev, initial, mods) -> dict:
+    """Phase 8 (see the module docstring): the mesh=None references first,
+    then, with the launch counts set to 0, every sharded run."""
+    from repro_torch.core.distributed import distributed_decompose
+    from repro_torch.core.peel import set_wave_profile
+    from repro_torch.launch.mesh import make_shard_mesh
+    from repro_torch.obs import metrics as obs_metrics
+    from repro_torch.service import TrussService
+
+    spec0, phi0, stats0 = initial
+    out = {"card": card_line(), "runs": {}}
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(8)
+    present = set(map(tuple, edges.tolist()))
+    batch = update_batch(rng, present, SHARD_BATCH, SHARD_BATCH)
+    writes = update_batch(rng, present, SHARD_WRITES, SHARD_WRITES)
+
+    # mesh=None references (not the sharded path: counted nowhere), timed
+    # as the sharded runs are
+    ref = {}
+
+    def timed(name, fn):
+        t = time.perf_counter()
+        res = fn()
+        sync(dev)
+        ref[name] = time.perf_counter() - t
+        return res
+
+    base = core.from_edge_list(spec0, edges, dev)._replace(phi=phi0.clone())
+    g0 = core.DynamicGraph.from_state(spec0, [x.clone() for x in base],
+                                      support_method="bitmap", device=dev)
+    g0._bitmap_cache()   # as a constructed graph holds it
+    timed("batch_s", lambda: g0.apply_batch(batch, strategy="fused"))
+    want_batch, want_bitmap = _record(core, g0), g0._bitmap.clone()
+    del g0
+    re0 = timed("recompute_decompose_s", lambda: core.decompose_with_stats(
+        spec0, base, "bitmap", engine="recompute", device=dev))
+    re0 = (re0[0].clone(), core.stats_dict(re0[1]))
+    svc0 = timed("service_construct_s", lambda: TrussService(
+        N_NODES, edges, support_method="bitmap",
+        flush_every=2 * SHARD_WRITES, device=dev))
+    timed("service_generation_s",
+          lambda: [svc0.submit(*w) for w in writes])
+    if svc0.gen != 1:
+        raise AssertionError(f"the mesh=None service is at gen {svc0.gen}")
+    want_svc = _record(core, svc0.graph)
+    del svc0, base
+    out["mesh_none"] = ref
+    torch.cuda.empty_cache()
+
+    reset_counts(*mods)
+    mesh4 = None
+    for n_shards in SHARD_COUNTS:
+        mesh = make_shard_mesh(n_shards, device="cuda")
+        if n_shards == 4:
+            mesh4 = mesh
+        for partition in ("replicated", "nodes"):
+            tag = f"S={n_shards} {partition}"
+            torch.cuda.reset_peak_memory_stats()
+            counts = _launches_by_body(mods)
+            # the mesh=None references stay resident: the run's own peak is
+            # max_memory_allocated - memory_allocated_before
+            run = {"memory_allocated_before": torch.cuda.memory_allocated()}
+            t = time.perf_counter()
+            g = core.DynamicGraph(N_NODES, edges, support_method="bitmap",
+                                  mesh=mesh, partition=partition, device=dev)
+            sync(dev)
+            run["decompose_s"] = time.perf_counter() - t
+            if g.spec.e_cap != spec0.e_cap or not torch.equal(g.state.phi,
+                                                              phi0):
+                raise AssertionError(f"{tag}: decompose phi differs from "
+                                     f"phase 4's")
+            stats = core.stats_dict(g.last_peel_stats)
+            if stats != stats0:
+                raise AssertionError(f"{tag}: PeelStats {stats} != phase 4's "
+                                     f"{stats0}")
+            run["waves"] = stats["waves"]
+            run["bitmap_bytes_per_device"] = g.spec.bitmap_bytes_per_device
+            if partition == "nodes" and [tuple(s.shape) for s in g._bitmap] \
+                    != [(N_NODES, g.spec.word_block)] * n_shards:
+                raise AssertionError(f"{tag}: slabs {g._bitmap}")
+            if n_shards == 4 and partition == "replicated":
+                t = time.perf_counter()
+                phi, ps = core.decompose_with_stats(
+                    g.spec, g.state, "bitmap", engine="recompute", mesh=mesh,
+                    device=dev)
+                sync(dev)
+                run["recompute_decompose_s"] = time.perf_counter() - t
+                if not torch.equal(phi, re0[0]) or \
+                        core.stats_dict(ps) != re0[1]:
+                    raise AssertionError(f"{tag}: the recompute decompose "
+                                         f"differs from mesh=None's")
+                run["recompute_waves"] = re0[1]["waves"]
+                out["wave_parts"] = time_wave_parts(
+                    core, mesh, g, max(1, stats0["kills"] // stats0["waves"]),
+                    dev)
+            t = time.perf_counter()
+            g.apply_batch(batch, strategy="fused")
+            sync(dev)
+            run["batch_s"] = time.perf_counter() - t
+            _same_record(core, g, want_batch, f"{tag} batch")
+            bm = core.join_slabs(g._bitmap) if partition == "nodes" \
+                else g._bitmap
+            w = want_bitmap.shape[1]
+            if not torch.equal(bm[:, :w], want_bitmap) or bm[:, w:].any():
+                raise AssertionError(f"{tag}: the bitmap after the batch "
+                                     f"differs from mesh=None's")
+            run["batch_waves"] = want_batch[1]["waves"]
+            run["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+            run["launches_by_body"] = _diff(_launches_by_body(mods), counts)
+            out["runs"][tag] = run
+            log(f"phase 8 {tag} ({out['card']}): {json.dumps(run)}")
+            del g, bm
+            torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    dmesh = make_shard_mesh(4, axis="data", device="cuda")
+    phi = distributed_decompose(core.GraphSpec(N_NODES, spec0.d_max,
+                                               len(edges)),
+                                dmesh, edges, delta=True)
+    out["distributed_decompose_s"] = time.perf_counter() - t
+    if not np.array_equal(phi, phi0[:len(edges)].cpu().numpy()):
+        raise AssertionError("distributed_decompose phi differs from the "
+                             "oracle's (phase 4)")
+
+    t = time.perf_counter()
+    svc = TrussService(N_NODES, edges, support_method="bitmap",
+                       flush_every=2 * SHARD_WRITES, mesh=mesh4,
+                       partition="nodes", device=dev)
+    out["service_construct_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    for w in writes:
+        svc.submit(*w)
+    sync(dev)
+    out["service_generation_s"] = time.perf_counter() - t
+    if svc.gen != 1:
+        raise AssertionError(f"the sharded service is at gen {svc.gen}")
+    _same_record(core, svc.graph, want_svc, "service generation")
+    out["service_memory"] = svc.stats()["memory"]
+
+    # the wave profiler under the mesh: the decision's share of each wave
+    def share_hist():
+        h = obs_metrics.REGISTRY.snapshot()[
+            "truss_peel_wave_collective_share"]["values"][()]
+        return h["count"], h["sum"]
+
+    n0, s0 = share_hist()
+    st = svc.graph.state
+    act = st.active.nonzero().reshape(-1).cpu().numpy()
+    mask = torch.zeros_like(st.active)
+    mask[torch.from_numpy(np.random.default_rng(9).choice(
+        act, PROFILED_REPEEL, replace=False)).to(dev)] = True
+    plain = core.peel(svc.graph.spec, st, mask, method="bitmap", mesh=mesh4,
+                      device=dev)
+    set_wave_profile(True)
+    try:
+        prof = core.peel(svc.graph.spec, st, mask, method="bitmap",
+                         mesh=mesh4, device=dev)
+    finally:
+        set_wave_profile(False)
+    if not torch.equal(plain[0], prof[0]):
+        raise AssertionError("the profiled re-peel's phi differs")
+    n1, s1 = share_hist()
+    if n1 - n0 != int(prof[1].waves) or n1 == n0:
+        raise AssertionError(f"{n1 - n0} collective-share observations for "
+                             f"{int(prof[1].waves)} profiled waves")
+    out["collective_share"] = {"waves": n1 - n0,
+                               "mean": (s1 - s0) / (n1 - n0)}
+    del svc, st, mask
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2675,7 +2973,7 @@ def main() -> int:
 
     reset_counts(peel_wave, bitmap_support, flash_attention)
     t = time.perf_counter()
-    g, sec = drive_main_path(core, edges, dev)
+    g, sec, initial = drive_main_path(core, edges, dev)
     launches = {"peel_wave": peel_wave.LAUNCHES,
                 "bitmap_support": bitmap_support.LAUNCHES}
     by_body = {"peel_wave": dict(peel_wave.LAUNCHES_BY_BODY),
@@ -2731,6 +3029,23 @@ def main() -> int:
     la_out.update(drive_launcher(dev))
     log(f"launcher path ({card}): {time.perf_counter() - t:.1f} s; "
         f"{json.dumps(la_out)}")
+
+    # the sharded substrate at full width (K1 on each shard's row block, K2
+    # on each shard's word slab); the counts are set to 0 inside, after the
+    # mesh=None references it is held against
+    sh_out = drive_sharded_path(core, edges, dev, initial,
+                                (peel_wave, bitmap_support))
+    sh_launches = {"peel_wave": peel_wave.LAUNCHES,
+                   "bitmap_support": bitmap_support.LAUNCHES}
+    sh_by_body = {"peel_wave": dict(peel_wave.LAUNCHES_BY_BODY),
+                  "bitmap_support": dict(bitmap_support.LAUNCHES_BY_BODY)}
+    log(f"sharded path ({card}): {sh_out['phase_s']:.1f} s, launches "
+        f"{sh_launches}, by body {sh_by_body}; {json.dumps(sh_out)}")
+    for name, n in sh_launches.items():
+        if n <= 0 or sh_by_body[name] != {"digest": n, "direct": 0}:
+            raise AssertionError(f"{name}: {n} calls on the sharded path "
+                                 f"ran {sh_by_body[name]}, expected the "
+                                 f"digest body in every one (and at least one)")
 
     k3_time = time_flash_attention(ops, ref, flash_attention, dev)
 
@@ -2792,9 +3107,9 @@ def main() -> int:
     # K1/K2: the top-level time is the digest body's (the path's) on a full
     # wave; "bodies" has both bodies in turns, K1 also at 10% and 1% alive,
     # host us a call, and the probe mappings; launches are the truss
-    # path's, the service path's and the cluster path's ("path" has each,
-    # "cluster_paths" the cluster's by primary, replica, promotion and
-    # replay check)
+    # path's, the service path's, the cluster path's and the sharded
+    # path's ("path" has each, "cluster_paths" the cluster's by primary,
+    # replica, promotion and replay check)
     for name in ("peel_wave", "bitmap_support"):
         f = full[name]
         kernels.append({
@@ -2802,18 +3117,20 @@ def main() -> int:
             "source": "src/repro_torch/csrc/bitmap_popcount.cu",
             "replaces": sources[name],
             "launches": launches[name] + svc_launches[name]
-            + cl_launches[name],
+            + cl_launches[name] + sh_launches[name],
             "max_abs_err": max(f["err"], err), "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": None,
             "path": {"truss": launches[name],
                      "service": svc_launches[name],
-                     "cluster": cl_launches[name]},
+                     "cluster": cl_launches[name],
+                     "sharded": sh_launches[name]},
             "cluster_paths": {path: by[name]["launches"]
                               for path, by in cl_out["launches"].items()},
             "launches_by_body": {
                 body: by_body[name][body] + svc_by_body[name][body]
-                + cl_by_body[name][body] for body in by_body[name]},
+                + cl_by_body[name][body] + sh_by_body[name][body]
+                for body in by_body[name]},
             "bodies": f["bodies"]})
     kernels[0]["nonzero"] = full["nonzero"]
     kernels[0]["id_check_host_us"] = full["id_check_host_us"]

@@ -78,10 +78,12 @@ class Replica:
         self.replica_id = replica_id
         # strategy/support_method must match the primary's for bitwise
         # equality (they select the maintenance path apply_batch runs);
-        # mesh must be None and partition "replicated" (the sharded
-        # substrate is ROADMAP item 13; the service raises otherwise);
-        # device need not match the primary's: the engine's arithmetic is
-        # integer, so its state is the same on the CPU and on the card
+        # mesh — and the bitmap partition over it — need NOT match: the
+        # sharded peel is bitwise equal at any shard count and either
+        # partition, so a replica may tail a node-partitioned sharded
+        # primary from one replicated device and vice versa; nor need
+        # device: the engine's arithmetic is integer, so its state is the
+        # same on the CPU and on the card
         self._kw = dict(flush_every=flush_every, strategy=strategy,
                         indexed=indexed, support_method=support_method,
                         mesh=mesh, partition=partition, device=device)

@@ -19,6 +19,7 @@ from __future__ import annotations
 
 import torch
 
+from .distributed import require_mesh
 from .graph import (GraphSpec, GraphState, apply_edge_batch_struct,
                     lookup_edge, nonzero_padded, triangle_partners)
 from .maintenance import _NEG, _POS
@@ -39,8 +40,11 @@ def batch_maintain(spec: GraphSpec, st: GraphState,
     device.  Deletions and insertions must be disjoint, structurally valid
     edge sets (``DynamicGraph.apply_batch`` nets them on the host).
     ``bitmap``, when given (bitmap method), must be the adjacency bitmap of
-    the POST-update active set; it is not modified.  ``mesh`` must be
-    ``None`` (ROADMAP item 13).
+    the POST-update active set (a list of word slabs under
+    ``partition="nodes"``); it is not modified.  ``mesh`` (a ``ShardMesh``)
+    runs the frozen-boundary re-peel over its shards; the structural pass
+    and the affected-set closure are O(B·D) one-shot work and stay on the
+    state's device.
 
     Returns ``(state, lo, hi, stats)`` — the post-update state, the widened
     union affected range (0-d int32; ``lo > hi`` means nothing beyond the
@@ -48,8 +52,7 @@ def batch_maintain(spec: GraphSpec, st: GraphState,
     ``PeelStats``.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-partitioned maintenance is not ported yet (ROADMAP item 13)")
+        require_mesh(mesh)   # before the structural pass edits st in place
     e_cap, n = spec.e_cap, spec.n_nodes
     bsz = del_a.shape[0]
 
@@ -159,7 +162,7 @@ def batch_maintain(spec: GraphSpec, st: GraphState,
 
     # ---- frozen-boundary re-peel (shared engine, peel.py) ----------------
     phi_final, stats = run_peel(spec, st1, affected, bitmap=bitmap,
-                                method=method, engine=engine,
+                                method=method, engine=engine, mesh=mesh,
                                 device=st1.phi.device, profile=False)
     st1.phi.copy_(phi_final)
     return st1, lo, hi, stats

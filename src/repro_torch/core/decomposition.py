@@ -26,8 +26,13 @@ def decompose_with_stats(spec: GraphSpec, st: GraphState,
     method: 'sorted' (searchsorted row intersection) or 'bitmap'
             (adjacency-bitmap AND + popcount, the CUDA-kernel path).
     engine: 'auto' | 'delta' | 'recompute' (see ``peel.peel``).
-    bitmap: optional cached adjacency bitmap of ``st.active``.
-    device: where the peel runs (inputs are moved there).
+    bitmap: optional cached adjacency bitmap of ``st.active`` (its word
+            slabs under ``partition="nodes"``).
+    mesh:   optional ``ShardMesh`` — run the peel over its shards along
+            ``spec.shard_axis`` (bitwise equal; ``distributed.py`` is a
+            host-side façade over the same argument).
+    device: where the peel runs (inputs are moved there; under a mesh,
+            its first shard's device, of the same kind).
 
     Host-level entry, so it carries the ``decompose`` trace span and the
     ``--profile-dir`` ``torch.profiler`` region.
@@ -55,4 +60,4 @@ def decompose_and_set(spec: GraphSpec, st: GraphState, method: str = "sorted",
                       device="cuda") -> GraphState:
     """Convenience: run ``decompose`` and return the state with phi installed."""
     phi = decompose(spec, st, method, bitmap=bitmap, mesh=mesh, device=device)
-    return GraphState(*(x.to(device) for x in st))._replace(phi=phi)
+    return GraphState(*(x.to(phi.device) for x in st))._replace(phi=phi)

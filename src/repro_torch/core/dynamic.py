@@ -9,8 +9,16 @@ method — a structural adjacency-bitmap cache updated in place by every
 update path instead of being rebuilt on each decompose / re-peel.
 
 ``device`` (default ``"cuda"``) is where the state, the bitmap and every
-peel live; tests pass ``device="cpu"``.  ``mesh`` must be ``None`` and
-``partition`` ``"replicated"``: the sharded substrate is ROADMAP item 13.
+peel live; tests pass ``device="cpu"``.
+
+``mesh=ShardMesh`` makes every peel this wrapper launches (the initial
+decomposition, the fused batch re-peel, ``batch_update_then_decompose``)
+run over ``mesh[shard_axis]`` — bitwise equal to ``mesh=None``; ``e_cap``
+is rounded up so the row blocks stay uniform across regrowth, and the
+state lives on the first shard's device (of ``device``'s kind).
+``partition="nodes"`` keeps the bitmap cache as one word slab per shard.
+The progressive single-update paths (Algorithms 1/2) run no peel and stay
+on that device.
 """
 from __future__ import annotations
 
@@ -19,8 +27,11 @@ import torch
 
 from ..obs import metrics as obs_metrics, trace as obs_trace
 from . import batch, decomposition, maintenance
+from .distributed import lead_device
 from .graph import (GraphSpec, GraphState, build_bitmap,
-                    from_edge_list, lookup_edge, update_bitmap)
+                    build_bitmap_partitioned, from_edge_list, lookup_edge,
+                    pad_state, shard_state, update_bitmap,
+                    update_bitmap_partitioned, with_mesh)
 from .index import TrussIndex
 from .peel import EMPTY_STATS
 
@@ -37,14 +48,17 @@ _STATE_BYTES = obs_metrics.gauge(
     "replicated node tables + the per-device bitmap slab")
 
 
-def _single_device(mesh, partition: str):
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-partitioned graphs are not ported yet (ROADMAP item 13)")
-    if partition != "replicated":
-        raise ValueError(
-            f"partition={partition!r} needs a mesh (the bitmap slabs "
-            "live one per device; pass mesh=... or keep 'replicated')")
+def _state_device(mesh, shard_axis: str, partition: str, device):
+    """The state's device: ``device``, or under a mesh its first shard's.
+    Raises ``TypeError`` for a mesh that is not a ``ShardMesh`` and
+    ``ValueError`` for a partitioned bitmap without a mesh."""
+    if mesh is None:
+        if partition != "replicated":
+            raise ValueError(
+                f"partition={partition!r} needs a mesh (the bitmap slabs "
+                "live one per device; pass mesh=... or keep 'replicated')")
+        return torch.device(device)
+    return lead_device(mesh, shard_axis, device)
 
 
 class DynamicGraph:
@@ -56,23 +70,27 @@ class DynamicGraph:
                  tracked_ks: tuple[int, ...] = (), mesh=None,
                  shard_axis: str = "shard", partition: str = "replicated",
                  device="cuda"):
-        _single_device(mesh, partition)
+        self.device = _state_device(mesh, shard_axis, partition, device)
         edges = np.asarray(edges if isinstance(edges, np.ndarray)
                            else list(edges), dtype=np.int64).reshape(-1, 2)
         deg = (np.bincount(edges.reshape(-1), minlength=n_nodes)
                if edges.size else np.zeros(n_nodes))
         d_max = int(d_max or max(8, int(deg.max(initial=0)) * 2))
         e_cap = int(e_cap or max(16, len(edges) * 2))
-        self.mesh = None
-        self.device = torch.device(device)
+        self.mesh = mesh
         self.spec = GraphSpec(n_nodes=n_nodes, d_max=d_max, e_cap=e_cap)
-        self.state = from_edge_list(self.spec, edges, self.device)
+        if mesh is not None:
+            # round e_cap up so edge arrays split into uniform row blocks
+            self.spec = with_mesh(self.spec, mesh, shard_axis,
+                                  partition=partition)
+        self.state = self._placed(from_edge_list(self.spec, edges,
+                                                 self.device))
         self.support_method = support_method
         self._bitmap = None
         self._set_memory_gauges()
         phi, stats = decomposition.decompose_with_stats(
             self.spec, self.state, support_method, bitmap=self._bitmap_cache(),
-            device=self.device)
+            mesh=self.mesh, device=self.device)
         self.state = self.state._replace(phi=phi)
         # every maintenance path records a PeelStats — never None
         self.last_peel_stats = stats
@@ -91,15 +109,20 @@ class DynamicGraph:
                    device="cuda") -> "DynamicGraph":
         """Rebuild a wrapper around already-maintained arrays (tensors or
         host arrays, e.g. a restored checkpoint): phi is trusted as-is, no
-        re-decomposition."""
-        _single_device(mesh, partition)
+        re-decomposition.  ``mesh`` re-shards the state onto the mesh,
+        padding the edge axis where the stored capacity does not split
+        into uniform row blocks; ``partition`` picks the bitmap layout as
+        in ``__init__`` (snapshots never store the bitmap)."""
         g = cls.__new__(cls)
-        g.mesh = None
-        g.device = torch.device(device)
+        g.device = _state_device(mesh, shard_axis, partition, device)
+        g.mesh = mesh
         g.spec = spec
         g.state = GraphState(*(
             (x if isinstance(x, torch.Tensor) else torch.from_numpy(
                 np.array(x))).to(g.device) for x in state))
+        if mesh is not None:
+            g.spec = with_mesh(spec, mesh, shard_axis, partition=partition)
+            g.state = g._placed(pad_state(spec, g.state, g.spec))
         g.support_method = support_method
         g._bitmap = None
         g._set_memory_gauges()
@@ -109,7 +132,17 @@ class DynamicGraph:
         g._present = set(zip(el[:, 0].tolist(), el[:, 1].tolist()))
         return g
 
+    def _placed(self, st: GraphState) -> GraphState:
+        """``st`` placed for the mesh (a no-op without one)."""
+        return st if self.mesh is None else shard_state(self.spec, st,
+                                                        self.mesh)
+
     # -- bitmap cache --------------------------------------------------------
+    def _partitioned(self) -> bool:
+        """Whether the cached bitmap is one word slab per shard rather than
+        one full copy."""
+        return self.spec.partition == "nodes" and self.mesh is not None
+
     def _set_memory_gauges(self):
         """Publish the spec's per-device memory accounting."""
         _BITMAP_BYTES.set(self.spec.bitmap_bytes_per_device)
@@ -117,17 +150,24 @@ class DynamicGraph:
 
     def _bitmap_cache(self):
         """Adjacency bitmap of the active edge set (bitmap method only),
-        built once and maintained in place by every update path."""
+        built once and maintained in place by every update path.  Under
+        ``partition="nodes"`` it is the list of word slabs, each built
+        owner-local on its shard's device — O(N·W/S) a device."""
         if self.support_method != "bitmap":
             return None
         if self._bitmap is None:
-            self._bitmap = build_bitmap(self.spec, self.state,
-                                        self.state.active)
+            if self._partitioned():
+                self._bitmap = build_bitmap_partitioned(
+                    self.spec, self.state, self.state.active, self.mesh)
+            else:
+                self._bitmap = build_bitmap(self.spec, self.state,
+                                            self.state.active)
         return self._bitmap
 
     def _bitmap_apply(self, dels, inss):
         """Fold structural edge changes into the cached bitmap (O(batch)
-        scatter; no-op when the cache is cold or the method is sorted)."""
+        scatter; no-op when the cache is cold or the method is sorted).
+        Word slabs update owner-local: each takes only its own bits."""
         if self._bitmap is None:
             return
         for pairs, set_bits in ((dels, False), (inss, True)):
@@ -137,8 +177,13 @@ class DynamicGraph:
                                   device=self.device)
             valid = torch.ones((len(arr),), dtype=torch.bool,
                                device=self.device)
-            update_bitmap(self.spec, self._bitmap, arr[:, 0], arr[:, 1],
-                          valid, set_bits=set_bits)
+            if self._partitioned():
+                update_bitmap_partitioned(self.spec, self._bitmap, arr[:, 0],
+                                          arr[:, 1], valid, set_bits=set_bits,
+                                          mesh=self.mesh)
+            else:
+                update_bitmap(self.spec, self._bitmap, arr[:, 0], arr[:, 1],
+                              valid, set_bits=set_bits)
 
     # -- capacity ------------------------------------------------------------
     def _ensure_capacity(self, a: int, b: int, inserting: bool):
@@ -159,11 +204,15 @@ class DynamicGraph:
         if extra_edge is not None:
             deg[extra_edge[0]] += 1
             deg[extra_edge[1]] += 1
+        s = self.spec.n_shards
+        new_e = max(self.spec.e_cap * 2, len(el) + 16, min_e + 16)
         new_spec = GraphSpec(
             n_nodes=self.spec.n_nodes,
             d_max=max(self.spec.d_max * 2, int(deg.max(initial=0)) + 4,
                       min_d + 4),
-            e_cap=max(self.spec.e_cap * 2, len(el) + 16, min_e + 16),
+            e_cap=-(-new_e // s) * s,  # keep the shard row blocks uniform
+            n_shards=s, shard_axis=self.spec.shard_axis,
+            partition=self.spec.partition,
         )
         # carry phi over: from_edge_list keeps el's order as slot order
         act = self.state.active.cpu().numpy()
@@ -172,8 +221,8 @@ class DynamicGraph:
         self.state = from_edge_list(new_spec, el, self.device)
         phi = np.zeros(new_spec.e_cap, np.int32)
         phi[:len(el)] = phi_old
-        self.state = self.state._replace(
-            phi=torch.from_numpy(phi).to(self.device))
+        self.state = self._placed(self.state._replace(
+            phi=torch.from_numpy(phi).to(self.device)))
         self._bitmap = None
         self._set_memory_gauges()
         self.index = TrussIndex(new_spec, self.index.tracked)
@@ -306,7 +355,7 @@ class DynamicGraph:
                 self.state, _lo, hi, stats = batch.batch_maintain(
                     self.spec, self.state, da, db, dm, ia, ib, im,
                     method=self.support_method, engine=engine,
-                    bitmap=self._bitmap)
+                    bitmap=self._bitmap, mesh=self.mesh)
         except BaseException:
             # the cache already describes the post-update edge set but
             # _present still the pre-update one — drop it rather than let
@@ -337,16 +386,19 @@ class DynamicGraph:
         deg = (np.bincount(el.reshape(-1), minlength=self.spec.n_nodes)
                if len(el) else np.zeros(self.spec.n_nodes))
         if len(el) > self.spec.e_cap or deg.max(initial=0) > self.spec.d_max:
+            s = self.spec.n_shards
             self.spec = GraphSpec(
                 self.spec.n_nodes,
                 max(self.spec.d_max, int(deg.max(initial=0)) + 4),
-                max(self.spec.e_cap, len(el) + 16))
+                -(-max(self.spec.e_cap, len(el) + 16) // s) * s,
+                n_shards=s, shard_axis=self.spec.shard_axis,
+                partition=self.spec.partition)
             self._set_memory_gauges()
-        self.state = from_edge_list(self.spec, el, self.device)
+        self.state = self._placed(from_edge_list(self.spec, el, self.device))
         self._bitmap = None  # wholesale structural rebuild: cache is stale
         phi, stats = decomposition.decompose_with_stats(
             self.spec, self.state, self.support_method,
-            bitmap=self._bitmap_cache(), device=self.device)
+            bitmap=self._bitmap_cache(), mesh=self.mesh, device=self.device)
         self.state = self.state._replace(phi=phi)
         self.last_peel_stats = stats
         self.index = TrussIndex(self.spec, self.index.tracked)

@@ -37,10 +37,14 @@ class GraphSpec:
     """Static (hashable) graph capacities — the same fields and properties
     as ``repro.core.graph.GraphSpec``.
 
-    ``n_shards``/``shard_axis``/``partition`` describe the reference's mesh
-    geometry; the port runs one device, so only the defaults are driven
-    here (the sharded substrate is a later slice), but the fields stay so
-    specs compare and hash alike in both packages.
+    ``n_shards``/``shard_axis`` declare the mesh partition of the edge
+    axis: edge-indexed arrays split into ``n_shards`` contiguous row
+    blocks, block *s* worked by shard *s* of ``ShardMesh[shard_axis]``
+    (``with_mesh`` sets them).  ``partition`` says where the adjacency
+    bitmap lives: ``"replicated"`` (one full ``[N, W]`` copy per device)
+    or ``"nodes"`` (the word axis in ``n_shards`` contiguous slabs, one per
+    shard: O(N·W/S) per device; support is the sum of per-slab partial
+    popcounts).
     """
 
     n_nodes: int
@@ -156,8 +160,11 @@ def bitmap_from_numpy(bm: np.ndarray, device="cuda") -> torch.Tensor:
     return torch.from_numpy(bm.view(np.int32)).to(device)
 
 
-def bitmap_to_numpy(bm: torch.Tensor) -> np.ndarray:
-    """The uint32 host view of an int32 bitmap tensor (bits unchanged)."""
+def bitmap_to_numpy(bm) -> np.ndarray:
+    """The uint32 host view of an int32 bitmap tensor (bits unchanged); a
+    node-partitioned bitmap (a list of word slabs) is joined first."""
+    if isinstance(bm, (list, tuple)):
+        bm = join_slabs(bm)
     return bm.detach().cpu().numpy().view(np.uint32)
 
 
@@ -206,6 +213,58 @@ def from_edge_list(spec: GraphSpec, edge_list: np.ndarray,
     phi = np.zeros((spec.e_cap,), dtype=np.int32)
     return state_from_numpy(spec, (edges, active, phi, nbr, eid,
                                    counts.astype(np.int32)), device)
+
+
+# ---------------------------------------------------------------------------
+# Sharded-state constructors — the mesh-partitioned layout of the peel
+# substrate.  The port keeps each state field one tensor on the lead device
+# of the shard axis; the sharded engines work row-block views of the edge
+# axis, so values and shapes stay those of the reference.
+# ---------------------------------------------------------------------------
+
+def with_mesh(spec: GraphSpec, mesh, axis: str = "shard",
+              partition: str | None = None) -> GraphSpec:
+    """Spec with the partition geometry of ``mesh.shape[axis]``: ``e_cap``
+    rounded up to a multiple of the axis size so the edge row blocks are
+    uniform.  ``partition`` optionally switches the bitmap layout;
+    ``None`` keeps the spec's."""
+    s = int(mesh.shape[axis])
+    e_cap = -(-spec.e_cap // s) * s
+    return dataclasses.replace(
+        spec, e_cap=e_cap, n_shards=s, shard_axis=axis,
+        partition=spec.partition if partition is None else partition)
+
+
+def pad_state(old_spec: GraphSpec, st: GraphState,
+              spec: GraphSpec) -> GraphState:
+    """Grow the edge axis of ``st`` from ``old_spec.e_cap`` to
+    ``spec.e_cap`` with sentinel slots.  The ``eid`` sentinel is the value
+    ``e_cap``, so every old-sentinel entry is remapped to the new one."""
+    extra = spec.e_cap - old_spec.e_cap
+    if extra < 0:
+        raise ValueError(f"cannot shrink e_cap {old_spec.e_cap} -> {spec.e_cap}")
+    eid = torch.where(st.eid == old_spec.e_cap, spec.e_cap, st.eid)
+    if extra == 0:
+        return st._replace(eid=eid)
+    dev = st.edges.device
+    return GraphState(
+        edges=torch.cat([st.edges, torch.full((extra, 2), spec.n_nodes,
+                                              dtype=_I32, device=dev)]),
+        active=torch.cat([st.active, st.active.new_zeros(extra)]),
+        phi=torch.cat([st.phi, st.phi.new_zeros(extra)]),
+        nbr=st.nbr, eid=eid, deg=st.deg)
+
+
+def shard_state(spec: GraphSpec, st: GraphState, mesh) -> GraphState:
+    """Place ``st`` for the mesh: every field on the lead device of
+    ``mesh[spec.shard_axis]``, where the sharded engines take the edge
+    axis's row blocks as views.  Values are unchanged."""
+    devs = mesh.shard_devices(spec.shard_axis)
+    if len(devs) != spec.n_shards or st.edges.shape[0] != spec.e_cap:
+        raise ValueError(
+            f"{len(devs)} shards and e_cap {st.edges.shape[0]} do not match "
+            f"{spec} (build the spec with with_mesh, pad with pad_state)")
+    return GraphState(*(x.to(devs[0]) for x in st))
 
 
 # ---------------------------------------------------------------------------
@@ -495,12 +554,21 @@ _SET = torch.from_numpy(_BITS.view(np.int32).copy())
 _CLEAR = torch.from_numpy((np.uint32(0) - _BITS).view(np.int32).copy())
 
 
-def _scatter_bits(bm: torch.Tensor, src, dst, keep, table):
+def _scatter_bits(bm: torch.Tensor, src, dst, keep, table, word_offset=0,
+                  word_count=None):
     """Add ``table[dst % 32]`` at ``bm[src, dst // 32]`` for every kept pair
     whose row is in range, in place (int32 wrap == uint32 add).  The word
-    index is clipped as in the reference; sentinel rows (node ``N``) drop."""
+    index is clipped as in the reference; sentinel rows (node ``N``) drop.
+    With ``word_count``, ``bm`` is the slab of words ``[word_offset,
+    word_offset + word_count)`` and bits outside it drop."""
     n_rows, w = bm.shape
-    word = torch.clamp(dst // 32, max=w - 1)
+    if word_count is None:
+        word = torch.clamp(dst // 32, max=w - 1)
+    else:
+        if w != word_count:
+            raise ValueError(f"slab of {w} words, word_count {word_count}")
+        word = dst // 32 - word_offset
+        keep = keep & (word >= 0) & (word < word_count)
     keep = keep & (src < n_rows)
     val = table.to(bm.device)[(dst % 32).long()]
     bm.index_put_((src[keep].long(), word[keep].long()), val[keep],
@@ -509,18 +577,22 @@ def _scatter_bits(bm: torch.Tensor, src, dst, keep, table):
 
 
 def partial_bitmap(spec: GraphSpec, edges: torch.Tensor,
-                   valid: torch.Tensor) -> torch.Tensor:
+                   valid: torch.Tensor, word_offset: int = 0,
+                   word_count: int | None = None) -> torch.Tensor:
     """int32[N, W] bitmap contribution of an edge subset ([B, 2], masked).
 
     Each valid edge contributes one distinct bit per direction, so
-    scatter-add equals scatter-or.  (The reference's word-slab arguments
-    serve the node-partitioned bitmap, ROADMAP item 13.)
+    scatter-add equals scatter-or, and the partials of disjoint edge sets
+    sum (int32, wrapping as uint32) to the bitmap of their union.
+    ``(word_offset, word_count)`` build one word slab ``int32[N,
+    word_count]`` of the ``partition="nodes"`` layout: exactly the full
+    bitmap's columns there, bits of other slabs dropped.
     """
-    bm = torch.zeros((spec.n_nodes, spec.n_words), dtype=_I32,
-                     device=edges.device)
+    w = spec.n_words if word_count is None else word_count
+    bm = torch.zeros((spec.n_nodes, w), dtype=_I32, device=edges.device)
     u, v = edges[:, 0], edges[:, 1]
     for src, dst in ((u, v), (v, u)):
-        _scatter_bits(bm, src, dst, valid, _SET)
+        _scatter_bits(bm, src, dst, valid, _SET, word_offset, word_count)
     return bm
 
 
@@ -531,19 +603,82 @@ def build_bitmap(spec: GraphSpec, st: GraphState, alive: torch.Tensor) -> torch.
 
 def update_bitmap(spec: GraphSpec, bm: torch.Tensor, u: torch.Tensor,
                   v: torch.Tensor, valid: torch.Tensor, *,
-                  set_bits: bool) -> torch.Tensor:
+                  set_bits: bool, word_offset: int = 0,
+                  word_count: int | None = None) -> torch.Tensor:
     """Set (insert) or clear (delete/peel) per-edge bits **in place** and
     return ``bm``.
 
     Clearing relies on the simple-graph invariant: every (edge, direction)
     owns one distinct bit, set iff the edge is present, so subtracting the
     bit value clears it with no borrow.  Caller guarantees set bits are
-    absent and cleared bits are present.
+    absent and cleared bits are present.  ``(word_offset, word_count)``
+    make the update owner-local to one word slab ``bm``: bits of other
+    slabs drop, so the per-slab updates compose to the full one.
     """
     table = _SET if set_bits else _CLEAR
     for src, dst in ((u, v), (v, u)):
-        _scatter_bits(bm, src, dst, valid, table)
+        _scatter_bits(bm, src, dst, valid, table, word_offset, word_count)
     return bm
+
+
+# ---------------------------------------------------------------------------
+# Bitmap layouts under a mesh.  ``partition="nodes"``: a list of S
+# contiguous word slabs ``int32[N, W/S]``, slab s on shard s's device, never
+# one [N, W] tensor (that would hold O(N·W) on a device).
+# ---------------------------------------------------------------------------
+
+class BitmapSharding(NamedTuple):
+    """Where a bitmap's pieces live: one word slab per shard (``"nodes"``)
+    or one full copy per distinct device (``"replicated"``)."""
+
+    partition: str
+    devices: tuple        # device of each piece
+    word_offsets: tuple   # first word of each piece
+    word_count: int       # words of each piece
+
+
+def bitmap_sharding(spec: GraphSpec, mesh) -> BitmapSharding:
+    """The layout of the adjacency bitmap under ``spec.partition`` on
+    ``mesh[spec.shard_axis]``."""
+    devs = mesh.shard_devices(spec.shard_axis)
+    if spec.partition == "nodes":
+        wb = spec.word_block
+        return BitmapSharding("nodes", devs,
+                              tuple(s * wb for s in range(len(devs))), wb)
+    uniq = tuple(dict.fromkeys(devs))
+    return BitmapSharding("replicated", uniq, (0,) * len(uniq), spec.n_words)
+
+
+def build_bitmap_partitioned(spec: GraphSpec, st: GraphState,
+                             alive: torch.Tensor, mesh) -> list:
+    """The word slabs of the alive subgraph's adjacency bitmap, each built
+    owner-local on its shard's device from the whole edge table (bits of
+    other slabs dropped): joined, equal to ``build_bitmap``."""
+    sh = bitmap_sharding(spec, mesh)
+    if sh.partition != "nodes":
+        raise ValueError(f"{spec} does not partition its bitmap")
+    return [partial_bitmap(spec, st.edges.to(d), alive.to(d), word_offset=o,
+                           word_count=sh.word_count)
+            for d, o in zip(sh.devices, sh.word_offsets)]
+
+
+def update_bitmap_partitioned(spec: GraphSpec, slabs: list, u: torch.Tensor,
+                              v: torch.Tensor, valid: torch.Tensor, *,
+                              set_bits: bool, mesh) -> list:
+    """Owner-local update of each word slab in place (no exchange): each
+    slab applies only its own bits.  Returns ``slabs``."""
+    sh = bitmap_sharding(spec, mesh)
+    for slab, d, o in zip(slabs, sh.devices, sh.word_offsets):
+        update_bitmap(spec, slab, u.to(d), v.to(d), valid.to(d),
+                      set_bits=set_bits, word_offset=o,
+                      word_count=sh.word_count)
+    return slabs
+
+
+def join_slabs(slabs) -> torch.Tensor:
+    """The full ``[N, W]`` bitmap of a list of word slabs, on the first
+    slab's device (for tests and host copies; the engines never join)."""
+    return torch.cat([s.to(slabs[0].device) for s in slabs], dim=1)
 
 
 def support_all_bitmap(spec: GraphSpec, st: GraphState, alive: torch.Tensor,

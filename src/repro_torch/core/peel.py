@@ -25,6 +25,14 @@ included, stays on the device.  The ``waves < 8 * e_cap`` cap is kept.
 Results (phi and every ``PeelStats`` field) are bitwise those of the
 reference.
 
+``peel(mesh=ShardMesh)`` runs the same disciplines over the shards of
+``mesh[spec.shard_axis]`` (``sharded_peel``), bitwise equal to
+``mesh=None``: edge-sharded engines where each shard works its row block
+of the edge axis (K1 or K2 once a shard a wave) and one packed 4-lane
+``pmin`` decision is read on the host once a wave, and, under
+``partition="nodes"``, the node-partitioned engine where each shard holds
+one word slab of the bitmap and a wave sums the shards' partial supports.
+
 ``set_wave_profile(True)`` (``serve_truss --wave-profile``) routes host-level
 peels through ``_profiled_peel``, the recompute discipline timed wave by
 wave, as the reference does.
@@ -37,9 +45,11 @@ from typing import NamedTuple
 import torch
 
 from ..obs import metrics as obs_metrics, trace as obs_trace
-from .graph import (GraphSpec, GraphState, _endpoints, add_drop, build_bitmap,
-                    nonzero_padded, set_drop, support_all, support_all_bitmap,
-                    triangle_partners, update_bitmap)
+from . import distributed as dist
+from .graph import (GraphSpec, GraphState, _endpoints, add_drop,
+                    bitmap_sharding, build_bitmap, nonzero_padded,
+                    partial_bitmap, set_drop, support, support_all,
+                    support_all_bitmap, triangle_partners, update_bitmap)
 
 _INF = 2**30
 _I32 = torch.int32
@@ -174,22 +184,29 @@ def peel(spec: GraphSpec, st: GraphState, peel_mask: torch.Tensor,
     ``engine='auto'`` picks ``delta`` for ``bitmap`` (incremental bit
     clearing + the fused ``peel_wave`` kernel) and ``recompute`` for
     ``sorted``, as the reference does.  Inputs are moved to ``device``
-    (a no-op when they already live there).  ``mesh`` must be ``None``:
-    the mesh-partitioned engine is a later slice (ROADMAP item 13).
-    Under ``set_wave_profile`` the peel runs ``_profiled_peel`` unless
-    ``profile`` is False: the fused batch engine passes False, since its
-    re-peel runs inside a jit trace in the reference, where the profiled
-    loop never runs.  Returns ``(phi, PeelStats)``.
+    (a no-op when they already live there).  ``mesh`` (a ``ShardMesh``)
+    runs the peel over the shards of ``mesh[spec.shard_axis]``
+    (``sharded_peel``); the state then moves to the first shard's device,
+    which must be of ``device``'s kind, and a ``partition="nodes"`` bitmap
+    is the list of its word slabs.  Under ``set_wave_profile`` the peel
+    runs ``_profiled_peel`` unless ``profile`` is False: the fused batch
+    engine passes False, since its re-peel runs inside a jit trace in the
+    reference, where the profiled loop never runs.  Returns ``(phi,
+    PeelStats)``.
     """
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh-partitioned peeling is not ported yet (ROADMAP item 13)")
+        device = dist.lead_device(mesh, spec.shard_axis, device)
     st = GraphState(*_on(device, *st))
-    peel_mask, bitmap = _on(device, peel_mask, bitmap)
+    peel_mask = peel_mask.to(device)
+    if isinstance(bitmap, torch.Tensor):   # word slabs stay on their shards
+        bitmap = bitmap.to(device)
     if engine == "auto":
         engine = "delta" if method == "bitmap" else "recompute"
     if _WAVE_PROFILE and profile:
-        return _profiled_peel(spec, st, peel_mask, method=method)
+        return _profiled_peel(spec, st, peel_mask, method=method, mesh=mesh)
+    if mesh is not None:
+        return sharded_peel(spec, st, peel_mask, bitmap=bitmap, method=method,
+                            engine=engine, mesh=mesh)
     if engine == "delta":
         return delta_peel(spec, st, peel_mask, bitmap=bitmap, method=method,
                           chunk=chunk)
@@ -267,14 +284,19 @@ def _recompute_wave(spec, st, frozen, alive, phi, k, method):
     """One wave of the recompute discipline: the support of the whole
     qualifying subgraph, the level-k kills, and the level jump.  Returns
     ``(alive, phi, k, kill)``."""
-    fphi = st.phi
     # an edge counts toward level-k support iff it is an unpeeled member of
     # the peel set or a frozen edge whose phi keeps it in the k-truss
-    qual = alive | (frozen & (fphi >= k))
+    qual = alive | (frozen & (st.phi >= k))
     if method == "bitmap":
         sup = support_all_bitmap(spec, st, qual)
     else:
         sup = support_all(spec, st, qual)
+    return _recompute_step(sup, frozen, st.phi, alive, phi, k)
+
+
+def _recompute_step(sup, frozen, fphi, alive, phi, k):
+    """The rest of a recompute wave, given the qualifying subgraph's
+    support: the level-k kills and the level jump."""
     kill = alive & (sup < k - 2)
     any_kill = kill.any()
     phi = torch.where(kill, k - 1, phi)
@@ -292,7 +314,7 @@ def _sync(device):
 
 
 def _profiled_peel(spec: GraphSpec, st: GraphState, peel_mask: torch.Tensor,
-                   method: str = "sorted"):
+                   method: str = "sorted", mesh=None):
     """Host-stepped wave-profiled peel (``set_wave_profile``): the recompute
     discipline one wave at a time, each wave timed between two
     ``torch.cuda.synchronize()`` calls on the card.  phi is identical to
@@ -301,12 +323,26 @@ def _profiled_peel(spec: GraphSpec, st: GraphState, peel_mask: torch.Tensor,
     (``deltas`` is 0).
 
     Per wave: ``truss_peel_wave_seconds`` observes the synced wall time and
-    a ``peel.wave`` trace instant carries (wave, k, kills, dur_us).  The
-    reference's collective-share estimate under a mesh waits for the mesh
-    (ROADMAP item 13); ``peel`` raises on a mesh before reaching here."""
+    a ``peel.wave`` trace instant carries (wave, k, kills, dur_us).  Under
+    a ``mesh``, one decision of the sharded engines (the packed 4-lane
+    ``pmin`` over the shards, read on the host) is timed after each wave
+    and ``truss_peel_wave_collective_share`` observes decision / wave: the
+    sharded engines are bitwise equal wave for wave, so the profiled wave
+    is the work a sharded wave does between decisions."""
     e_cap = spec.e_cap
     _check_method(method)
     dev = st.phi.device
+    probe = None
+    if mesh is not None:
+        shard_devs = mesh.shard_devices(spec.shard_axis)
+
+        def probe():
+            _decision([torch.zeros(4, dtype=_I32, device=d)
+                       for d in shard_devs])
+            for d in dict.fromkeys(shard_devs):
+                _sync(d)
+
+        probe()   # first allocations and launches off the clock
     peel_m = peel_mask & st.active
     frozen = st.active & ~peel_m
     alive, phi, k = peel_m, st.phi, _scalar(3, st.phi)
@@ -324,6 +360,10 @@ def _profiled_peel(spec: GraphSpec, st: GraphState, peel_mask: torch.Tensor,
         _WAVE_S.observe(dt)
         obs_trace.instant("peel.wave", wave=waves, k=int(k), kills=nk,
                           dur_us=round(dt * 1e6, 1))
+        if probe is not None and dt > 0:
+            t1 = time.perf_counter()
+            probe()
+            _WAVE_COLL.observe(min(1.0, (time.perf_counter() - t1) / dt))
     return (torch.where(st.active, phi, 0),
             PeelStats(_scalar(waves, phi), _scalar(kills, phi),
                       _scalar(0, phi), _count(peel_m)))
@@ -354,19 +394,28 @@ def _peel_bitmap(spec, st, peel, frozen, fphi, alive0, bitmap):
         # edge + the level-k kill frontier (frozen support is never read —
         # frozen edges retire by level, not threshold)
         sup, kill = kernel_ops.peel_wave_gathered(bm, eu, ev, alive & peel, k)
-        retire = alive & frozen & (fphi < k)
-        dead = kill | retire
-        phi = torch.where(kill, k - 1, phi)
-        alive = alive & ~dead
+        alive, phi, k, dead = _delta_step(sup, kill, peel, frozen, fphi,
+                                          alive, phi, k)
         # clear the whole wave's bits at once — O(wave) real updates
         update_bitmap(spec, bm, st.edges[:, 0], st.edges[:, 1], dead,
                       set_bits=False)
-        k = _next_level(k, dead.any(), alive & peel, sup, alive & frozen, fphi)
         waves += 1
         kills = kills + _count(kill)
         deltas = deltas + 2 * _count(dead)
     return (torch.where(st.active, phi, 0),
             PeelStats(_scalar(waves, phi), kills, deltas))
+
+
+def _delta_step(sup, kill, peel, frozen, fphi, alive, phi, k):
+    """The rest of a delta bitmap wave, given its support and kill
+    frontier: frozen edges past their level retire, kills take phi k - 1,
+    the level jumps past dead levels.  Returns ``(alive, phi, k, dead)``."""
+    retire = alive & frozen & (fphi < k)
+    dead = kill | retire
+    phi = torch.where(kill, k - 1, phi)
+    alive = alive & ~dead
+    k = _next_level(k, dead.any(), alive & peel, sup, alive & frozen, fphi)
+    return alive, phi, k, dead
 
 
 def _peel_sorted(spec, st, peel, frozen, fphi, alive0, chunk):
@@ -431,3 +480,322 @@ def _peel_sorted(spec, st, peel, frozen, fphi, alive0, chunk):
         deltas = deltas + _count(dec1) + _count(dec2)
     return (torch.where(st.active, phi, 0),
             PeelStats(_scalar(waves, phi), kills, deltas))
+
+
+# ---------------------------------------------------------------------------
+# mesh-partitioned engines — the same wave disciplines over a ShardMesh
+# ---------------------------------------------------------------------------
+
+def _decision(lanes):
+    """The one exchange per wave that the edge-sharded loops read on the
+    host: a packed 4-lane ``pmin`` over the shards carrying the global min
+    peelable support, min frozen phi, any-dead and any-work flags (encoded
+    0 = true, so min == logical any).  Each shard's lanes are an int32
+    ``[4]`` tensor on its device.  Returns host ``(min_sup, min_frz,
+    any_dead, go)``."""
+    min_sup, min_frz, not_dead, not_work = dist.pmin(lanes)[0].tolist()
+    return min_sup, min_frz, not_dead == 0, not_work == 0
+
+
+def _go(masks) -> bool:
+    """Whether any shard's mask has a set entry (one ``pmin``, one read)."""
+    return _decision([torch.stack([_scalar(0, m), _scalar(0, m),
+                                   _scalar(0, m), 1 - m.any().to(_I32)])
+                      for m in masks])[3]
+
+
+def _lanes(min_of, min_frz_of, any_dead, any_work):
+    return torch.stack([min_of, min_frz_of, 1 - any_dead.to(_I32),
+                        1 - any_work.to(_I32)])
+
+
+def _row_blocks(spec: GraphSpec, devs, *tensors):
+    """Each tensor's row blocks, block *s* on shard *s*'s device (views
+    where the shard's device holds the tensor)."""
+    blk = spec.e_cap // spec.n_shards
+    return tuple([x[s * blk:(s + 1) * blk].to(d) for s, d in enumerate(devs)]
+                 for x in tensors)
+
+
+def _by_device(devs, per_shard) -> dict:
+    """One entry per distinct device of a collective's per-shard results
+    (shards on one device share one result)."""
+    return dict(zip(devs, per_shard))
+
+
+def _stats_on(lead, waves, kills, deltas, frontier) -> PeelStats:
+    return PeelStats(torch.tensor(waves, dtype=_I32, device=lead),
+                     kills.to(lead), deltas.to(lead), frontier.to(lead))
+
+
+def sharded_peel(spec: GraphSpec, st: GraphState, peel_mask: torch.Tensor,
+                 bitmap=None, method: str = "bitmap", engine: str = "delta",
+                 mesh=None):
+    """Mesh-partitioned ``peel``: same contract, same bits, many shards.
+
+    ``st`` lies on the first shard's device (``shard_state``); each shard
+    works its row block of the edge axis.  Cross-shard coupling is the
+    decision ``pmin`` plus, for the bitmap methods, sums of disjoint-bit
+    partial bitmaps (delta: wave 0 only, then the gathered dead edges
+    clear their bits on each bitmap copy; recompute: the whole qualifying
+    set each wave) or, for sorted recompute, an all-gather of the
+    qualifying masks.  ``partition="nodes"`` with the bitmap method runs
+    ``_partitioned_bitmap_peel``, whose ``bitmap`` is the list of word
+    slabs.  Wave-by-wave arithmetic is the single-device loops', so phi
+    and ``PeelStats`` are bitwise equal.
+    """
+    if mesh is None:
+        raise ValueError("sharded_peel requires a mesh (use peel otherwise)")
+    dist.require_mesh(mesh)
+    if int(mesh.shape[spec.shard_axis]) != spec.n_shards:
+        raise ValueError(
+            f"mesh axis {spec.shard_axis!r} has "
+            f"{int(mesh.shape[spec.shard_axis])} shards but spec declares "
+            f"{spec.n_shards} shards (build the spec with graph.with_mesh)")
+    if spec.partition == "nodes" and method == "bitmap":
+        if engine not in ("delta", "recompute"):
+            raise ValueError(f"unknown engine {engine!r}")
+        return _partitioned_bitmap_peel(spec, st, peel_mask, bitmap, mesh,
+                                        engine)
+    if engine == "delta":
+        if method != "bitmap":
+            raise ValueError(
+                "the sorted delta discipline is not mesh-partitioned (its "
+                "chunk-admission order is global); use engine='recompute' "
+                "or method='bitmap'")
+        return _sharded_delta_bitmap(spec, st, peel_mask, bitmap, mesh)
+    if engine != "recompute":
+        raise ValueError(f"unknown engine {engine!r}")
+    return _sharded_recompute(spec, st, peel_mask, mesh, method)
+
+
+def _sharded_delta_bitmap(spec, st, peel_mask, bitmap, mesh):
+    """Edge-sharded twin of ``_peel_bitmap``: K1 on each shard's row block
+    against one bitmap copy per distinct device.  Every shard's K1 of a
+    wave runs before any bit is cleared; then the shards' dead masks are
+    gathered and one ``update_bitmap`` clear is applied to each copy —
+    exactly the bits the reference's psum of dead partial bitmaps clears,
+    without a zero-filled ``[N, W]`` partial per shard per wave."""
+    from ..kernels import ops as kernel_ops  # kernels never import core
+
+    devs = mesh.shard_devices(spec.shard_axis)
+    lead = devs[0]
+    edges, active, fphi, pm = _row_blocks(spec, devs, st.edges, st.active,
+                                          st.phi, peel_mask)
+    peelm = [p & a for p, a in zip(pm, active)]
+    frozen = [a & ~p for a, p in zip(active, peelm)]
+    alive = [p | (f & (x >= 3)) for p, f, x in zip(peelm, frozen, fphi)]
+    eu, ev = zip(*(_endpoints(spec, e) for e in edges))
+    full = {d: st.edges.to(d) for d in dict.fromkeys(devs)}
+
+    # wave 0: the qualifying bitmap, summed from the shards' partials
+    if bitmap is None:
+        bms = _by_device(devs, dist.psum(
+            [partial_bitmap(spec, e, a) for e, a in zip(edges, alive)]))
+    elif not isinstance(bitmap, torch.Tensor):
+        raise ValueError("a partition='replicated' bitmap is one [N, W] "
+                         "tensor")
+    else:
+        # the provided bitmap covers st.active: clear the bits of edges
+        # outside the initial qualifying set (frozen with phi < 3)
+        out = _by_device(devs, dist.psum(
+            [partial_bitmap(spec, e, a & ~q)
+             for e, a, q in zip(edges, active, alive)]))
+        bms = {d: bitmap.to(d) - b for d, b in out.items()}
+
+    phi = list(fphi)
+    kills = [_scalar(0, x) for x in fphi]
+    deltas = [_scalar(0, x) for x in fphi]
+    k, waves, go = 3, 0, _go(peelm)
+    while go and waves < 8 * spec.e_cap:
+        # the fused kernel on every shard's row block, before any clear
+        outs = [kernel_ops.peel_wave_gathered(bms[d], u, v, a & p, k)
+                for d, u, v, a, p in zip(devs, eu, ev, alive, peelm)]
+        dead, lanes = [], []
+        for s, (sup, kill) in enumerate(outs):
+            retire = alive[s] & frozen[s] & (fphi[s] < k)
+            dead.append(kill | retire)
+            phi[s] = torch.where(kill, k - 1, phi[s])
+            alive[s] = alive[s] & ~dead[s]
+            kills[s] = kills[s] + _count(kill)
+            deltas[s] = deltas[s] + 2 * _count(dead[s])
+            work = alive[s] & peelm[s]
+            lanes.append(_lanes(torch.where(work, sup, _INF).min(),
+                                torch.where(alive[s] & frozen[s], fphi[s],
+                                            _INF).min(),
+                                dead[s].any(), work.any()))
+        # the bit exchange: the wave's dead edges, gathered, cleared on
+        # each bitmap copy
+        gone = _by_device(devs, dist.all_gather(dead))
+        for d, bm in bms.items():
+            update_bitmap(spec, bm, full[d][:, 0], full[d][:, 1], gone[d],
+                          set_bits=False)
+        min_sup, min_frz, any_dead, go = _decision(lanes)
+        if not any_dead:
+            k = max(k + 1, min(min_sup + 3, min_frz + 1))
+        waves += 1
+    phi = torch.cat([torch.where(a, x, 0).to(lead)
+                     for a, x in zip(active, phi)])
+    return phi, _stats_on(lead, waves, dist.psum(kills)[0],
+                          dist.psum(deltas)[0],
+                          dist.psum([_count(p) for p in peelm])[0])
+
+
+def _sharded_recompute(spec, st, peel_mask, mesh, method):
+    """Edge-sharded twin of ``recompute_peel``: each wave recomputes the
+    support of each shard's row block against the whole qualifying
+    subgraph — K2 on the summed partial bitmaps (``bitmap``) or the
+    adjacency rows against the all-gathered qualifying mask
+    (``sorted``)."""
+    from ..kernels import ops as kernel_ops  # kernels never import core
+
+    _check_method(method)
+    devs = mesh.shard_devices(spec.shard_axis)
+    lead = devs[0]
+    edges, active, fphi, pm = _row_blocks(spec, devs, st.edges, st.active,
+                                          st.phi, peel_mask)
+    peelm = [p & a for p, a in zip(pm, active)]
+    frozen = [a & ~p for a, p in zip(active, peelm)]
+    eu, ev = zip(*(_endpoints(spec, e) for e in edges))
+    # node tables replicated, one copy per distinct device
+    tables = {d: GraphState(*(x.to(d) for x in st))
+              for d in dict.fromkeys(devs)}
+
+    def sup_of(qual):
+        if method == "bitmap":
+            bms = dist.psum([partial_bitmap(spec, e, q)
+                             for e, q in zip(edges, qual)])
+            return [torch.where(q, kernel_ops.bitmap_support_gathered(
+                bm, u, v), 0) for bm, u, v, q in zip(bms, eu, ev, qual)]
+        qual_g = dist.all_gather(qual)
+        return [torch.where(q, support(spec, tables[d], u, v, alive=g), 0)
+                for d, u, v, q, g in zip(devs, eu, ev, qual, qual_g)]
+
+    alive, phi = list(peelm), list(fphi)
+    kills = [_scalar(0, x) for x in fphi]
+    k, waves, go = 3, 0, _go(peelm)
+    while go and waves < 8 * spec.e_cap:
+        qual = [a | (f & (x >= k)) for a, f, x in zip(alive, frozen, fphi)]
+        sups = sup_of(qual)
+        lanes = []
+        for s, sup in enumerate(sups):
+            kill = alive[s] & (sup < k - 2)
+            phi[s] = torch.where(kill, k - 1, phi[s])
+            alive[s] = alive[s] & ~kill
+            kills[s] = kills[s] + _count(kill)
+            lanes.append(_lanes(torch.where(alive[s], sup, _INF).min(),
+                                torch.where(frozen[s] & (fphi[s] >= k),
+                                            fphi[s], _INF).min(),
+                                kill.any(), alive[s].any()))
+        min_sup, j2m, any_kill, go = _decision(lanes)
+        if not any_kill:
+            # level fixpoint -> jump k past dead levels (see recompute_peel)
+            k = max(min(min_sup + 3, j2m + 1), k + 1)
+        waves += 1
+    phi = torch.cat([torch.where(a, x, 0).to(lead)
+                     for a, x in zip(active, phi)])
+    return phi, _stats_on(lead, waves, dist.psum(kills)[0],
+                          _scalar(0, phi),
+                          dist.psum([_count(p) for p in peelm])[0])
+
+
+def _own_slabs(spec, bitmap, sh) -> list:
+    """The engine's own copies of a node-partitioned bitmap's word slabs."""
+    if not isinstance(bitmap, (list, tuple)) or len(bitmap) != len(sh.devices):
+        raise ValueError(f"a partition='nodes' bitmap is a list of "
+                         f"{len(sh.devices)} word slabs (graph."
+                         f"build_bitmap_partitioned)")
+    for slab in bitmap:
+        if tuple(slab.shape) != (spec.n_nodes, sh.word_count):
+            raise ValueError(f"word slab of shape {tuple(slab.shape)}, "
+                             f"expected {(spec.n_nodes, sh.word_count)}")
+    return [slab.to(d).clone() for slab, d in zip(bitmap, sh.devices)]
+
+
+def _partitioned_bitmap_peel(spec, st, peel_mask, bitmap, mesh, engine):
+    """Node-partitioned twin of ``_peel_bitmap`` / ``recompute_peel``
+    (``spec.partition == "nodes"``): shard *s* holds only the bitmap word
+    slab ``[:, s·Wb:(s+1)·Wb]`` — O(N·W/S) — and the edge-axis state runs
+    replicated, one copy per distinct device, through the single-device
+    wave arithmetic.
+
+    A wave's one exchange is a ``psum`` of the shards' int32 partial
+    supports (K2 on each slab): popcounts of disjoint columns sum to the
+    full support, so the kills, phi and k are the replicated engines'.
+    Bit clearing (delta) and slab rebuilds (recompute) are owner-local.
+    ``PeelStats`` are the replicated values, not sums."""
+    from ..kernels import ops as kernel_ops  # kernels never import core
+
+    sh = bitmap_sharding(spec, mesh)
+    devs, offs, wb = sh.devices, sh.word_offsets, sh.word_count
+    lead = devs[0]
+    reps = tuple(dict.fromkeys(devs))
+    edges = {d: st.edges.to(d) for d in reps}
+    active = {d: st.active.to(d) for d in reps}
+    fphi = {d: st.phi.to(d) for d in reps}
+    peelm = {d: peel_mask.to(d) & active[d] for d in reps}
+    frozen = {d: active[d] & ~peelm[d] for d in reps}
+    ends = {d: _endpoints(spec, edges[d]) for d in reps}
+
+    def psum_sup(slabs):
+        """Partial popcounts of each shard's slab, summed (the wave's one
+        collective)."""
+        return _by_device(devs, dist.psum([
+            kernel_ops.bitmap_support_gathered(slab, *ends[d])
+            for slab, d in zip(slabs, devs)]))
+
+    def slabs_of(valid):
+        return [partial_bitmap(spec, edges[d], valid[d], word_offset=o,
+                               word_count=wb) for d, o in zip(devs, offs)]
+
+    phi = dict(fphi)
+    k = {d: _scalar(3, fphi[d]) for d in reps}
+    kills = {d: _scalar(0, fphi[d]) for d in reps}
+    deltas = {d: _scalar(0, fphi[d]) for d in reps}
+    waves = 0
+    if engine == "delta":
+        alive = {d: peelm[d] | (frozen[d] & (fphi[d] >= 3)) for d in reps}
+        if bitmap is None:
+            slabs = slabs_of(alive)
+        else:
+            # the provided slabs cover st.active: drop the bits of edges
+            # outside the initial qualifying set, owner-local
+            slabs = _own_slabs(spec, bitmap, sh)
+            for slab, d, o in zip(slabs, devs, offs):
+                update_bitmap(spec, slab, edges[d][:, 0], edges[d][:, 1],
+                              active[d] & ~alive[d], set_bits=False,
+                              word_offset=o, word_count=wb)
+        while (waves < 8 * spec.e_cap
+               and bool((alive[lead] & peelm[lead]).any())):
+            sups = psum_sup(slabs)
+            dead = {}
+            for d in reps:
+                # threshold AFTER the sum: a slab's partial never meets k
+                work = alive[d] & peelm[d]
+                sup = torch.where(work, sups[d], 0)
+                kill = work & (sup < k[d] - 2)
+                alive[d], phi[d], k[d], dead[d] = _delta_step(
+                    sup, kill, peelm[d], frozen[d], fphi[d], alive[d],
+                    phi[d], k[d])
+                kills[d] = kills[d] + _count(kill)
+                deltas[d] = deltas[d] + 2 * _count(dead[d])
+            for slab, d, o in zip(slabs, devs, offs):
+                update_bitmap(spec, slab, edges[d][:, 0], edges[d][:, 1],
+                              dead[d], set_bits=False, word_offset=o,
+                              word_count=wb)
+            waves += 1
+    else:  # recompute: rebuild each shard's slab from qual every wave
+        alive = dict(peelm)
+        while waves < 8 * spec.e_cap and bool(alive[lead].any()):
+            qual = {d: alive[d] | (frozen[d] & (fphi[d] >= k[d]))
+                    for d in reps}
+            sups = psum_sup(slabs_of(qual))
+            for d in reps:
+                alive[d], phi[d], k[d], kill = _recompute_step(
+                    torch.where(qual[d], sups[d], 0), frozen[d], fphi[d],
+                    alive[d], phi[d], k[d])
+                kills[d] = kills[d] + _count(kill)
+            waves += 1
+    phi = torch.where(active[lead], phi[lead], 0)
+    return phi, _stats_on(lead, waves, kills[lead], deltas[lead],
+                          _count(peelm[lead]))

@@ -80,8 +80,10 @@ doubles as a read-your-writes generation token, and ``stats()`` reports
 per-replica lag from the lease files tailers publish.
 
 ``device`` (default ``"cuda"``) is where the graph state and every peel
-live; ``restore`` and the self-heal rebuild on it too.  ``mesh`` must be
-``None`` (the sharded substrate is ROADMAP item 13).
+live; ``restore`` and the self-heal rebuild on it too.  ``mesh`` (a
+``ShardMesh``) runs every flush's re-peel over its shards, the state on
+its first shard's device; ``partition="nodes"`` splits the adjacency
+bitmap into one word slab per shard.
 """
 from __future__ import annotations
 
@@ -225,8 +227,12 @@ class TrussService:
                                   or os.path.exists(store.snap_path)):
             raise ValueError(
                 "store already holds state — use TrussService.restore(store)")
-        # mesh other than None and partition other than "replicated" raise
-        # in DynamicGraph: the sharded substrate is ROADMAP item 13
+        # mesh: every flush's fused re-peel shards over the mesh; snapshots
+        # record the (mesh-padded) capacities only, so replicas and
+        # restores on any shard count stay bitwise equal to this primary.
+        # partition: "nodes" splits the adjacency bitmap's word axis over
+        # the mesh (O(N·W/S) a device; a wave sums the shards' partial
+        # supports)
         self.graph = DynamicGraph(n_nodes, edges, d_max=d_max, e_cap=e_cap,
                                   support_method=support_method,
                                   tracked_ks=tuple(tracked_ks), mesh=mesh,

@@ -1,7 +1,8 @@
 """The port's CUDA kernels on the card: each held against its plain PyTorch
 version (K1/K2 bitwise, K3, K4 and K5 within stated tolerances), and the
 truss engine, the LM prefill and the xDeepFM scores on the card equal to
-the same on the CPU; the WAL-backed truss service on the card launching
+the same on the CPU; the sharded truss engines (every shard on the
+card) equal to mesh=None; the WAL-backed truss service on the card launching
 K1 through a fused flush and K2 through its recompute fallback, and its
 snapshots restoring bitwise; a replica on the card tailing such a
 primary (K1 in its applies, bitwise equal at every generation), its
@@ -24,6 +25,7 @@ from repro_torch.data.synthetic import ClickStream
 from repro_torch.kernels import (bitmap_support, cin, flash_attention, ops,
                                  peel_wave, ref, segment_matmul)
 from repro_torch.faults import PeelChaos
+from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.cluster import Replica
 from repro_torch.models import recsys, transformer
 from repro_torch.obs import profiling
@@ -236,6 +238,64 @@ def test_engine_on_card_equals_engine_on_cpu(cuda, method):
         assert (core.stats_dict(g_gpu.last_peel_stats)
                 == core.stats_dict(g_cpu.last_peel_stats))
     assert g_gpu.phi_dict() == core.oracle.scratch_phi(n, present)
+
+
+# ---------------------------------------------------------------------------
+# the sharded substrate on the card: every shard on the one card
+# ---------------------------------------------------------------------------
+
+def _graph_record(g):
+    return ([x.clone() for x in g.state], core.stats_dict(g.last_peel_stats))
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("partition", ["replicated", "nodes"])
+def test_sharded_engines_on_card_equal_mesh_none(cuda, shards, partition):
+    """The edge-sharded delta engine (K1 on each shard's row block) and the
+    node-partitioned one (K2 on each shard's word slab) on a 4,000-node
+    bitmap: decompose, a fused batch and a recompute decompose bitwise
+    equal to mesh=None, every K1/K2 launch of the sharded runs on the
+    digest body."""
+    n = 4000
+    edges = powerlaw_graph(n, 5, seed=0)
+    e_cap = 2 * len(edges) + (-2 * len(edges)) % 4
+    ups = _service_updates(np.random.default_rng(3),
+                           {tuple(map(int, e)) for e in edges}, n, 200)
+    g0 = core.DynamicGraph(n, edges, support_method="bitmap", e_cap=e_cap,
+                           device=cuda)
+    want = [_graph_record(g0)]
+    g0.apply_batch(ups, strategy="fused")
+    want.append(_graph_record(g0))
+    re0 = core.decompose_with_stats(g0.spec, g0.state, "bitmap",
+                                    engine="recompute", device=cuda)
+
+    mesh = make_shard_mesh(shards, device="cuda")
+    counts = [dict(m.LAUNCHES_BY_BODY) for m in (peel_wave, bitmap_support)]
+    g = core.DynamicGraph(n, edges, support_method="bitmap", e_cap=e_cap,
+                          mesh=mesh, partition=partition, device=cuda)
+    got = [_graph_record(g)]
+    if partition == "nodes":
+        assert [tuple(s.shape) for s in g._bitmap] == \
+            [(n, g.spec.word_block)] * shards
+    g.apply_batch(ups, strategy="fused")
+    got.append(_graph_record(g))
+    re = core.decompose_with_stats(g.spec, g.state, "bitmap",
+                                   engine="recompute", mesh=mesh, device=cuda)
+    now = [dict(m.LAUNCHES_BY_BODY) for m in (peel_wave, bitmap_support)]
+    for (arrays, stats), (arrays0, stats0) in zip(got, want):
+        assert stats == stats0
+        assert all(torch.equal(x, y) for x, y in zip(arrays, arrays0))
+    bm = core.join_slabs(g._bitmap) if partition == "nodes" else g._bitmap
+    w = g0._bitmap.shape[1]   # the slabs pad the word axis to S slabs
+    assert torch.equal(bm[:, :w], g0._bitmap) and not bm[:, w:].any()
+    assert torch.equal(re[0], re0[0])
+    assert core.stats_dict(re[1]) == core.stats_dict(re0[1])
+    k1, k2 = ({b: now[i][b] - counts[i][b] for b in now[i]} for i in (0, 1))
+    assert k1["direct"] == 0 and k2["direct"] == 0 and k2["digest"] > 0
+    if partition == "replicated":   # K1 once a shard a wave
+        assert k1["digest"] > 0 and k1["digest"] % shards == 0
+    else:                           # K2 once a slab a wave, never K1
+        assert k1["digest"] == 0 and k2["digest"] % shards == 0
 
 
 # ---------------------------------------------------------------------------

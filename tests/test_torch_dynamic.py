@@ -10,6 +10,7 @@ import repro.core as J
 import repro_torch.core as T
 from repro.core import oracle
 from repro.data.synthetic import er_graph
+from repro_torch.launch.mesh import make_shard_mesh
 
 N = 24
 
@@ -130,9 +131,12 @@ def test_from_state_and_single_device_guards():
                    if (0, N - 1) not in gt.phi_dict() else
                    [(0, *map(int, edges[0]))])
     assert gt.phi_dict() == oracle.scratch_phi(N, gt.phi_dict().keys())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         T.DynamicGraph(N, edges, mesh=object(), device="cpu")
     with pytest.raises(ValueError):
         T.DynamicGraph(N, edges, partition="nodes", device="cpu")
+    gm = T.DynamicGraph(N, edges, mesh=make_shard_mesh(2, device="cpu"),
+                        device="cpu")
+    assert gm.spec.n_shards == 2 and gm.phi_dict() == gj.phi_dict()
     with pytest.raises(ValueError):
         gt.apply_batch([(1, 3, 3)])

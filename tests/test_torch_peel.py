@@ -10,6 +10,7 @@ import torch
 import repro.core as J
 import repro_torch.core as T
 from repro.core import oracle
+from repro_torch.launch.mesh import make_shard_mesh
 
 N, D_MAX, E_CAP = 13, 16, 160
 SJ, ST = J.GraphSpec(N, D_MAX, E_CAP), T.GraphSpec(N, D_MAX, E_CAP)
@@ -118,7 +119,11 @@ def test_decompose_entry_points():
     assert T.stats_dict(stats)["kills"] == len(edges)
     st2 = T.decompose_and_set(ST, st, device="cpu")
     assert torch.equal(st2.phi, phi)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         T.peel(ST, st, st.active, mesh=object(), device="cpu")
+    mesh = make_shard_mesh(2, device="cpu")
+    assert_same(J.decomposition.decompose_with_stats(SJ, sj, "bitmap"),
+                T.peel(T.with_mesh(ST, mesh), st, st.active, method="bitmap",
+                       mesh=mesh, device="cpu"), "mesh")
     with pytest.raises(ValueError):
         T.peel(ST, st, st.active, engine="nope", device="cpu")

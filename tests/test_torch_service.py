@@ -30,6 +30,7 @@ import repro_torch.service as TS
 from repro.core import oracle
 from repro.data.streams import GraphUpdateStream, make_update_stream
 from repro_torch.core import DynamicGraph, representatives
+from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.obs import profiling
 from repro_torch.service import (COMMUNITY, MAX_K, MEMBERS, REPRESENTATIVES,
                                  QueryRequest, TrussService, TrussStore,
@@ -389,10 +390,20 @@ def test_handle_dispatch_and_validation():
     assert s["memory"]["partition"] == "replicated"
 
 
-def test_mesh_and_profiling_not_ported_yet(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 13"):
+def test_mesh_service_and_profiling_region(tmp_path):
+    with pytest.raises(TypeError, match="ShardMesh"):
         TrussService(N, [(0, 1)], d_max=D_MAX, e_cap=E_CAP, mesh=object(),
                      device="cpu")
+    edges = [(0, 1), (1, 2), (0, 2), (2, 3)]
+    plain = _svc(edges, flush_every=100, support_method="bitmap")
+    sharded = _svc(edges, flush_every=100, support_method="bitmap",
+                   mesh=make_shard_mesh(2, device="cpu"), partition="nodes")
+    for svc in (plain, sharded):
+        svc.submit(1, 1, 3)
+        assert svc.flush() == 1
+    assert sharded.stats()["memory"]["n_shards"] == 2
+    for a, b in zip(plain.graph.state, sharded.graph.state):
+        assert torch.equal(a, b)
     with profiling.profile_region("flush"):
         pass  # not armed: a no-op
     assert not os.path.exists(tmp_path / "prof")
