@@ -159,16 +159,42 @@
    (``torch.matmul``) of the outer product materialised before the timing,
    and on one whole bulk layer-2 call (TFLOP/s and share of the bound).
    K5's plan (grid and k slices) is printed for each layer of the path.
-13. Fails unless every kernel was launched by its path (K1 and K2 on the
+13. Drives truss-filtered GCN training (``examples/evolving_graph_training
+    .py``) at ``gcn-cora``'s full width on the slashdot-like graph:
+    ``DynamicGraph(support_method="bitmap", tracked_ks=(5,))``, four
+    rounds of a ``GraphUpdateStream`` chunk of 2,000 updates (K1 in every
+    round's fused batch, digest body), each followed by the k = 5 truss
+    community batched by ``sampler.make_gnn_batch`` (d_feat 1,433, edges
+    padded to 4 x 980,614) and 5 AdamW steps (K4 three times a step: the
+    degree count and each layer's aggregation; the backward a plain row
+    gather; the last step of the last round under ``torch.profiler``).
+    Logs each round's apply seconds, community edges, batch-build seconds,
+    step ms and losses.  Then ``launch.train.main --full --steps 6`` for
+    gcn-cora, gin-tu, meshgraphnet and dimenet, each against 3 steps of
+    the launcher's setup cut by the preemption flag and resumed to 6 by
+    ``main`` (bitwise), and gcn-cora once more as a subprocess whose path
+    holds ``repro_torch`` alone.  The launch counts are read there.  Then
+    a step's loss and gradients through K4 against ``use_kernels(False)``
+    (loss within 1e-5 of itself, each gradient leaf within 1e-4 of its
+    largest magnitude), with K4's rows entry against its plain version on
+    every input the step handed it: each arch at full config on the
+    launcher's first batch, gin-tu's graph readout on the molecule cell,
+    and the truss-filtered step on the last round's batch, whose K4
+    inputs ([3,922,456, 1], [.., 16], [.., 7]) are then timed in turns
+    with the plain version and ``index_add_`` beside the byte bound, and
+    on the community's own rows alone.
+14. Fails unless every kernel was launched by its path (K1 and K2 on the
     truss path, on the service path and on the sharded path, K1 on the
-    cluster path), prints
-    the kernels line, the card line, and last the device line.
+    cluster path and the training rounds, K4 on the recsys and training
+    paths), prints the kernels line, the card line, and last the device
+    line.
 
 Every failed check raises, so the exit code is non-zero.  The script needs
 a CUDA device, ``nvcc`` and the rest of this checkout; it imports no JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import shutil
@@ -225,6 +251,21 @@ K5_CHUNK = 4096               # rows of a bulk batch held to the plain version
 SCORE_TOL = 1e-5              # click probabilities, fp32 sums reordered
 P99_CALLS, BULK_CALLS, RETRIEVAL_CALLS, TOP_K = 200, 3, 10, 100
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core peak
+# Phase 13: the truss-filtered GCN loop of examples/evolving_graph_training.py
+# at gcn-cora's full width on the slashdot-like graph (the example's AdamW
+# settings), then every GNN arch at full config through the launcher
+TRAIN_ARCH, TRAIN_K, TRAIN_ROUNDS, TRAIN_STEPS = "gcn-cora", 5, 4, 5
+TRAIN_CHUNK = 2_000                # updates a round (GraphUpdateStream)
+TRAIN_D_FEAT = 1_433               # full_graph_sm's d_feat (GNN_SHAPES)
+TRAIN_PAD_EDGES = 4 * N_EDGES      # directed edges padded as the example pads
+TRAIN_OPT = {"lr": 1e-2, "total_steps": 60, "warmup_steps": 5}
+# the card's step through K4 against the plain route: the loss within
+# 1e-5 of itself, each gradient leaf within 1e-4 of the leaf's largest
+# magnitude (fp32 sums in another order, over runs of up to ~2M rows)
+TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+GNN_ARCHS = ("gcn-cora", "gin-tu", "meshgraphnet", "dimenet")
+RESTART_STEPS, RESTART_AT = 6, 3   # 3 steps, preempted, resumed to 6
+MOLECULE_GRAPHS = 128            # GNN_SHAPES' molecule cell: 128 x 30 nodes
 
 
 def log(msg: str) -> None:
@@ -2933,6 +2974,335 @@ def time_recsys_kernels(ops, ref, rs, dev) -> dict:
     return res
 
 
+@contextlib.contextmanager
+def k4_inputs(ops):
+    """Record what the path's segment sums hand K4's rows entry: each
+    ``(messages, seg_ids, N)`` that ``SegmentSum.forward`` passes to
+    ``ops.segment_matmul``, in call order."""
+    seen, inner = [], ops.segment_matmul
+
+    def record(messages, seg_ids, num_segments):
+        seen.append((messages.detach(), seg_ids, num_segments))
+        return inner(messages, seg_ids, num_segments)
+
+    ops.segment_matmul = record
+    try:
+        yield seen
+    finally:
+        ops.segment_matmul = inner
+
+
+def step_vs_plain(ops, ref, loss_fn, params, batch, what: str):
+    """One step's loss and gradients through K4 against the same step under
+    ``use_kernels(False)``: the loss within ``TRAIN_LOSS_RTOL`` of itself,
+    each gradient leaf within ``TRAIN_GRAD_RTOL`` of its largest magnitude.
+    Then K4's rows entry against its plain version on every input the
+    step handed it.  Returns the errors and those inputs."""
+    from repro_torch.training import optimizer as opt
+
+    with k4_inputs(ops) as seen:
+        loss_k, grads_k = opt.value_and_grad(loss_fn, params, batch)
+    if not seen:
+        raise AssertionError(f"{what}: the step handed K4 nothing")
+    ops.use_kernels(False)
+    try:
+        loss_p, grads_p = opt.value_and_grad(loss_fn, params, batch)
+    finally:
+        ops.use_kernels(True)
+    loss_err = abs(float(loss_k) - float(loss_p))
+    if not loss_err <= TRAIN_LOSS_RTOL * abs(float(loss_p)):
+        raise AssertionError(f"{what}: step loss {float(loss_k)} vs plain "
+                             f"{float(loss_p)}")
+    grad_errs = []
+    for i, (a, b) in enumerate(zip(opt.tree_leaves(grads_k),
+                                   opt.tree_leaves(grads_p))):
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        if not bool(torch.isfinite(a).all()) or err > TRAIN_GRAD_RTOL * scale:
+            raise AssertionError(f"{what}: gradient leaf {i}: max |K4 - "
+                                 f"plain| {err} of {scale}")
+        grad_errs.append(err / scale if scale else err)
+    k4_errs = {}
+    with torch.no_grad():
+        for msgs, ids, n in seen:
+            shape = f"[{msgs.shape[0]}, {msgs.shape[1]}] -> {n}"
+            tol = K4_TOL[msgs.dtype]
+            err = check_close(ops.segment_matmul(msgs, ids, n),
+                              ref.segment_matmul_ref(msgs, ids, n), tol,
+                              f"{what}: K4 rows entry {shape}", rtol=tol)
+            k4_errs[shape] = max(err, k4_errs.get(shape, 0.0))
+    return {"loss_abs_err": loss_err, "grad_rel_err": grad_errs,
+            "k4_max_abs_err": k4_errs}, seen
+
+
+def check_arch_steps(ops, ref, dev) -> dict:
+    """``step_vs_plain`` for each GNN arch at full config on the launcher's
+    first batch (``train.setup``), and gin-tu once more on its graph
+    readout over the molecule cell (128 graphs of 30 nodes and 64 edges)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import sampler
+    from repro_torch.launch import train
+    from repro_torch.models import gnn
+
+    out = {}
+    for arch_id in GNN_ARCHS:
+        s = train.setup(arch_id, steps=1, ckpt=os.devnull, full=True,
+                        device=str(dev))
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in s.stream.next().items()}
+        out[arch_id], _ = step_vs_plain(ops, ref, s.loss, s.init(), batch,
+                                        f"{arch_id} --full")
+    cfg = get_config("gin-tu").model
+    mb = sampler.make_batched_graphs(MOLECULE_GRAPHS, 30, 64, 16,
+                                     n_classes=cfg.n_classes, seed=0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in mb.items()}
+    params = gnn.init_params(cfg, torch.Generator(dev).manual_seed(0), 16)
+    out["gin-tu graph readout"], _ = step_vs_plain(
+        ops, ref,
+        lambda p, b: gnn.loss_fn(cfg, p, b, n_graphs=MOLECULE_GRAPHS),
+        params, batch, "gin-tu graph readout")
+    return out
+
+
+def check_restart(arch_id: str, work: str, dev) -> dict:
+    """``launch.train.main --full --steps 6`` straight, against 3 steps of
+    the launcher's own setup (``train.setup``) cut by the preemption flag,
+    then ``main`` resumed from that checkpoint to 6: every parameter,
+    optimizer state and loss bitwise equal (K4 sums in a fixed order, and
+    the indexing backward sorts its indices)."""
+    from repro_torch.launch import train
+    from repro_torch.training import checkpoint, loop
+    from repro_torch.training.optimizer import tree_leaves
+
+    def launcher(tag):
+        return train.main(["--arch", arch_id, "--full", "--steps",
+                           str(RESTART_STEPS), "--device", str(dev), "--ckpt",
+                           os.path.join(work, f"{arch_id}-{tag}.npz")])
+
+    def tensors(out):
+        return tree_leaves([out["params"], out["opt_state"]])
+
+    straight = launcher("straight")
+    losses = [h["loss"] for h in straight["history"]]
+    if len(losses) != RESTART_STEPS or not np.all(np.isfinite(losses)):
+        raise AssertionError(f"launcher {arch_id}: losses {losses}")
+    s = train.setup(arch_id, steps=RESTART_STEPS, full=True, device=str(dev),
+                    ckpt=os.path.join(work, f"{arch_id}-resumed.npz"))
+    pre = checkpoint.PreemptionHandler()
+    cut = loop.run(s.loop, s.opt, s.loss, s.init, s.stream, device=dev,
+                   preemption=pre, hooks=[
+                       lambda step, stats: setattr(pre, "preempted",
+                                                   step + 1 == RESTART_AT)])
+    if len(cut["history"]) != RESTART_AT:
+        raise AssertionError(f"{arch_id}: the preempted run took "
+                             f"{len(cut['history'])} steps, not {RESTART_AT}")
+    resumed = launcher("resumed")
+    if [h["step"] for h in resumed["history"]] != list(range(RESTART_AT,
+                                                             RESTART_STEPS)):
+        raise AssertionError(f"{arch_id}: the resume ran "
+                             f"{[h['step'] for h in resumed['history']]}")
+    resumed_losses = [h["loss"] for h in resumed["history"]]
+    if resumed_losses != losses[RESTART_AT:] or not all(
+            torch.equal(x, y) for x, y in zip(tensors(straight),
+                                              tensors(resumed))):
+        raise AssertionError(f"{arch_id}: the resumed run differs from the "
+                             f"straight one (losses {resumed_losses} vs "
+                             f"{losses[RESTART_AT:]})")
+    return {"bitwise": True, "losses": losses}
+
+
+def _k4_training_shapes(ops, ref, seen, errs: dict, n_real: int, dev) -> dict:
+    """K4's rows entry on the inputs one training step handed it (the
+    degree count and the two layers' messages, on the last round's
+    batch), timed in turns with its plain version and ``index_add_``
+    (CUDA events, median), beside its byte bound from these inputs; and
+    on the community's own rows alone (the first ``n_real``, the padding
+    being a suffix), beside theirs."""
+    def bound(e, d, n):
+        t_bytes = (4 * e * d + 4 * e + 4 * n * d) / HBM_BYTES_PER_S
+        t_ops = e * d / CUDA_CORE_OPS_PER_S
+        return 1e3 * max(t_bytes, t_ops), \
+            "bytes" if t_bytes >= t_ops else "operations"
+
+    out = {}
+    for msgs, ids, n in seen:
+        e, d = msgs.shape
+        shape = f"[{e}, {d}]"
+        hub = int(torch.bincount(ids.long(), minlength=n).max())
+        ms = in_turns({
+            "kernel": lambda: ops.segment_matmul(msgs, ids, n),
+            "plain": lambda: ref.segment_matmul_ref(msgs, ids, n),
+            "index_add_": lambda: torch.zeros(
+                (n, d), device=dev).index_add_(0, ids, msgs)}, reps=3)
+        real_m, real_ids = msgs[:n_real].contiguous(), ids[:n_real]
+        real_ms = in_turns({"kernel": lambda: ops.segment_matmul(
+            real_m, real_ids, n)}, reps=10)["kernel"]
+        b_ms, by = bound(e, d, n)
+        out[shape] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
+                      "library_ms": ms["index_add_"], "bound_ms": b_ms,
+                      "bound_by": by,
+                      "max_abs_err": errs[f"{shape} -> {n}"],
+                      "largest_run": hub,
+                      "community_rows": n_real, "community_ms": real_ms,
+                      "community_bound_ms": bound(n_real, d, n)[0]}
+    return out
+
+
+def drive_training_path(core, edges: np.ndarray, dev, card: str) -> dict:
+    """Phase 13: the truss-filtered GCN rounds, then each GNN arch at full
+    config through the launcher (in process, a restart check each, one as
+    a subprocess whose path holds ``repro_torch`` alone); the launch counts
+    are read just after them.  Then each arch's step and the truss-filtered
+    step against the plain route, and K4 timed on the inputs that step
+    handed it (launches not counted)."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import sampler
+    from repro_torch.data.streams import GraphUpdateStream
+    from repro_torch.kernels import (bitmap_support, ops, peel_wave, ref,
+                                     segment_matmul)
+    from repro_torch.models import gnn
+    from repro_torch.training import optimizer as opt
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH).model
+    out = {"arch": TRAIN_ARCH, "k": TRAIN_K, "chunk": TRAIN_CHUNK,
+           "d_feat": TRAIN_D_FEAT, "pad_edges": TRAIN_PAD_EDGES}
+    t = time.perf_counter()
+    g = core.DynamicGraph(N_NODES, edges, support_method="bitmap",
+                          tracked_ks=(TRAIN_K,), device=dev)
+    sync(dev)
+    out["decompose_s"] = time.perf_counter() - t
+    stream = GraphUpdateStream(g.edge_list().astype(np.int64), N_NODES,
+                               chunk=TRAIN_CHUNK, seed=1)
+    params = gnn.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             TRAIN_D_FEAT)
+    first = [p.clone() for p in opt.tree_leaves(params)]
+    state = opt.adamw_init(params)
+    loss_fn = lambda p, b: gnn.loss_fn(cfg, p, b)
+    step = opt.make_train_step(loss_fn, opt.AdamWConfig(**TRAIN_OPT))
+    per_step = cfg.n_layers + 1        # the degree count, then each layer
+    reset_counts(peel_wave, bitmap_support, segment_matmul)
+    rounds = []
+    for rnd in range(TRAIN_ROUNDS):
+        ups = [tuple(map(int, r)) for r in stream.next()]
+        k1, k1d = peel_wave.LAUNCHES, peel_wave.LAUNCHES_BY_BODY["digest"]
+        t = time.perf_counter()
+        g.apply_batch(ups, strategy="auto")
+        sync(dev)
+        rec = {"apply_s": time.perf_counter() - t,
+               "k1_launches": peel_wave.LAUNCHES - k1}
+        if rec["k1_launches"] <= 0 or \
+                peel_wave.LAUNCHES_BY_BODY["digest"] - k1d != rec["k1_launches"]:
+            raise AssertionError(f"round {rnd}: K1 launched {rec['k1_launches']} "
+                                 f"times, expected the digest body in every "
+                                 f"one and at least one")
+        t = time.perf_counter()
+        community = g.k_truss(TRAIN_K)
+        if len(community) == 0:
+            community = g.edge_list()
+        nb = sampler.make_gnn_batch(
+            community.astype(np.int64), N_NODES, TRAIN_D_FEAT,
+            n_classes=cfg.n_classes, pad_nodes=N_NODES,
+            pad_edges=TRAIN_PAD_EDGES, seed=rnd)
+        batch = gnn.batch_to_torch(nb, dev)
+        del nb
+        sync(dev)
+        rec.update(community_edges=len(community),
+                   batch_s=time.perf_counter() - t, step_ms=[], loss=[])
+        for i in range(TRAIN_STEPS):
+            n4 = segment_matmul.LAUNCHES
+            t = time.perf_counter()
+            if rnd == TRAIN_ROUNDS - 1 and i == TRAIN_STEPS - 1 \
+                    and dev.type == "cuda":
+                # the last step under the profiler: busy share, top ops
+                box = []
+                out["profiled_step_busy"] = profiled(
+                    lambda: box.append(step(params, state, batch)),
+                    require="segment_sum")
+                params, state, stats = box[0]
+            else:
+                params, state, stats = step(params, state, batch)
+            loss = float(stats["loss"])
+            sync(dev)
+            rec["step_ms"].append(1e3 * (time.perf_counter() - t))
+            rec["loss"].append(loss)
+            if segment_matmul.LAUNCHES - n4 != per_step:
+                raise AssertionError(f"round {rnd}: K4 launched "
+                                     f"{segment_matmul.LAUNCHES - n4} times "
+                                     f"in a step, expected {per_step}")
+            if not np.isfinite(loss):
+                raise AssertionError(f"round {rnd}: loss {loss}")
+        log(f"training round {rnd} ({card}): {json.dumps(rec)}")
+        rounds.append(rec)
+    out["rounds"] = rounds
+    if not any(not torch.equal(a, b)
+               for a, b in zip(opt.tree_leaves(params), first)):
+        raise AssertionError("the truss-filtered rounds left the params as "
+                             "they were")
+    rounds_k4 = segment_matmul.LAUNCHES
+
+    work = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    try:
+        out["launcher"] = {}
+        for arch_id in GNN_ARCHS:
+            n4 = segment_matmul.LAUNCHES
+            t = time.perf_counter()
+            rec = check_restart(arch_id, work, dev)
+            rec.update(s=time.perf_counter() - t,
+                       k4_launches=segment_matmul.LAUNCHES - n4)
+            if rec["k4_launches"] <= 0:
+                raise AssertionError(f"launcher {arch_id}: {rec}")
+            log(f"launcher {arch_id} --full ({card}): {json.dumps(rec)}")
+            out["launcher"][arch_id] = rec
+        out["launches"] = {"peel_wave": peel_wave.LAUNCHES,
+                           "bitmap_support": bitmap_support.LAUNCHES,
+                           "segment_matmul": segment_matmul.LAUNCHES,
+                           "segment_matmul_rounds": rounds_k4}
+        out["by_body"] = {"peel_wave": dict(peel_wave.LAUNCHES_BY_BODY),
+                          "bitmap_support": dict(
+                              bitmap_support.LAUNCHES_BY_BODY)}
+        pkg = os.path.join(work, "pkg")
+        os.makedirs(pkg)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+             TRAIN_ARCH, "--full", "--steps", "3", "--device", str(dev),
+             "--ckpt", os.path.join(work, "sub.npz")],
+            env=_launcher_env(pkg), cwd=ROOT, capture_output=True, text=True,
+            timeout=LAUNCHER_TIMEOUT_S)
+        line = proc.stdout.strip().splitlines()[-1] if proc.stdout else ""
+        if proc.returncode != 0 or not line.endswith(f"on {dev}"):
+            raise AssertionError(f"launch.train subprocess exited "
+                                 f"{proc.returncode}: {proc.stdout[-2000:]}"
+                                 f"{proc.stderr[-4000:]}")
+        out["subprocess"] = {"s": time.perf_counter() - t, "line": line}
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    # each arch's step (K4) against the plain route at full config, then
+    # the truss-filtered step on the last batch, and K4 timed on what
+    # that step handed it
+    t = time.perf_counter()
+    out["arch_vs_plain"] = check_arch_steps(ops, ref, dev)
+    out["arch_vs_plain_s"] = time.perf_counter() - t
+    log(f"each arch's step vs plain ({card}): "
+        f"{json.dumps(out['arch_vs_plain'])}")
+    out["vs_plain"], seen = step_vs_plain(ops, ref, loss_fn, params, batch,
+                                          "truss-filtered step")
+    if len(seen) != per_step:
+        raise AssertionError(f"the truss-filtered step handed K4 "
+                             f"{len(seen)} inputs, expected {per_step}")
+    n_real = int(batch["edge_mask"].sum())
+    if not bool(batch["edge_mask"][:n_real].all()):
+        raise AssertionError("the batch's padding edges are not a suffix")
+    out["k4_shapes"] = _k4_training_shapes(
+        ops, ref, seen, out["vs_plain"]["k4_max_abs_err"], n_real, dev)
+    del g, batch, params, state, seen
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def reset_counts(*mods) -> None:
     """Set the launch counts of the kernel modules to 0 (and K3's by body)."""
     for mod in mods:
@@ -3097,6 +3467,25 @@ def main() -> int:
     k45_time = time_recsys_kernels(ops, ref, rs, dev)
     del rs
     torch.cuda.empty_cache()
+
+    # truss-filtered GCN training (K1 in every round's batch, K4 in every
+    # aggregation) and the GNN launcher; the counts are set to 0 inside,
+    # just before the path, and read just after it
+    tr = drive_training_path(core, edges, dev, card)
+    tr_launches = tr["launches"]
+    log(f"training path ({card}): {tr['phase_s']:.1f} s, launches "
+        f"{tr_launches}, by body {tr['by_body']}; {json.dumps(tr)}")
+    if tr_launches["peel_wave"] <= 0 or tr["by_body"]["peel_wave"] != {
+            "digest": tr_launches["peel_wave"], "direct": 0}:
+        raise AssertionError(f"K1 on the training path: {tr['by_body']}, "
+                             f"expected the digest body in every call")
+    if tr["by_body"]["bitmap_support"]["direct"]:
+        raise AssertionError(f"K2 on the training path ran {tr['by_body']}, "
+                             f"expected the digest body in every call")
+    if tr_launches["segment_matmul_rounds"] <= 0:
+        raise AssertionError("K4 was not launched by the training rounds")
+    launches["segment_matmul_training"] = tr_launches["segment_matmul"]
+    launches["peel_wave_training"] = tr_launches["peel_wave"]
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -3107,9 +3496,9 @@ def main() -> int:
     # K1/K2: the top-level time is the digest body's (the path's) on a full
     # wave; "bodies" has both bodies in turns, K1 also at 10% and 1% alive,
     # host us a call, and the probe mappings; launches are the truss
-    # path's, the service path's, the cluster path's and the sharded
-    # path's ("path" has each, "cluster_paths" the cluster's by primary,
-    # replica, promotion and replay check)
+    # path's, the service path's, the cluster path's, the sharded path's
+    # and the training path's ("path" has each, "cluster_paths" the
+    # cluster's by primary, replica, promotion and replay check)
     for name in ("peel_wave", "bitmap_support"):
         f = full[name]
         kernels.append({
@@ -3117,20 +3506,21 @@ def main() -> int:
             "source": "src/repro_torch/csrc/bitmap_popcount.cu",
             "replaces": sources[name],
             "launches": launches[name] + svc_launches[name]
-            + cl_launches[name] + sh_launches[name],
+            + cl_launches[name] + sh_launches[name] + tr_launches[name],
             "max_abs_err": max(f["err"], err), "ms": f["ms"],
             "plain_ms": f["plain_ms"], "bound_ms": f["bound_ms"],
             "bound_by": f["bound_by"], "library_ms": None,
             "path": {"truss": launches[name],
                      "service": svc_launches[name],
                      "cluster": cl_launches[name],
-                     "sharded": sh_launches[name]},
+                     "sharded": sh_launches[name],
+                     "training": tr_launches[name]},
             "cluster_paths": {path: by[name]["launches"]
                               for path, by in cl_out["launches"].items()},
             "launches_by_body": {
                 body: by_body[name][body] + svc_by_body[name][body]
                 + cl_by_body[name][body] + sh_by_body[name][body]
-                for body in by_body[name]},
+                + tr["by_body"][name][body] for body in by_body[name]},
             "bodies": f["bodies"]})
     kernels[0]["nonzero"] = full["nonzero"]
     kernels[0]["id_check_host_us"] = full["id_check_host_us"]
@@ -3160,11 +3550,16 @@ def main() -> int:
                 "bound_by": k3_time[key]["bound"][1],
                 "library_ms": k3_time[key]["sdpa"]}
                 for key in ("flat", "gemma")}})
-    # K4: the path's entry (declared sorted, the mean fused) at bulk; the
-    # sum and sorting entries and the p99 shape under "entries"
+    # K4: the recsys path's entry (declared sorted, the mean fused) at
+    # bulk; the sum and sorting entries and the p99 shape under "entries";
+    # the training path's rows entry under "training_rows_entry"
     k4 = k45_time["segment_matmul serve_bulk"]
     k4_timing = (k4["ms"]["mean"], k4["ms"]["plain_mean"],
                  k4["ms"]["embedding_bag_mean"], k4["bound_ms"], k4["bound_by"])
+    extra_errs = {"segment_matmul": [v["max_abs_err"] for v in
+                                     tr["k4_shapes"].values()] + [
+        e for a in tr["arch_vs_plain"].values()
+        for e in a["k4_max_abs_err"].values()], "cin": []}
     for name, source, replaces, timing in (
             ("segment_matmul", "segment_sum.cu",
              "src/repro/kernels/segment_matmul.py:44", k4_timing),
@@ -3173,11 +3568,14 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches[name],
-            "max_abs_err": max(e for k, e in k45_errs.items()
-                               if k.startswith(name)),
+            "launches": launches[name] + launches.get(f"{name}_training", 0),
+            "max_abs_err": max([e for k, e in k45_errs.items()
+                                if k.startswith(name)] + extra_errs[name]),
             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms})
+    kernels[-2]["path"] = {"recsys": launches["segment_matmul"],
+                           "training": tr_launches["segment_matmul"]}
+    kernels[-2]["training_rows_entry"] = tr["k4_shapes"]
     kernels[-2]["entries"] = {
         shape: {key: k45_time[f"segment_matmul {shape}"]["ms"][key]
                 for key in ("sum", "mean", "sorting", "plain", "plain_mean",

@@ -1,6 +1,5 @@
-"""Config schema: architecture + input-shape cells (the LM and recsys parts
-of ``repro/configs/base.py``, copied so the port imports nothing of
-``repro``).
+"""Config schema: architecture + input-shape cells (a copy of
+``repro/configs/base.py``, so the port imports nothing of ``repro``).
 
 Every architecture gets one ``<id>.py`` exporting ``CONFIG``; ``smoke`` is
 a reduced same-family config for the CPU tests.  ``family`` stays a field so
@@ -53,6 +52,23 @@ class LMConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class GNNConfig:
+    name: str
+    model: str                    # gcn | gin | meshgraphnet | dimenet
+    n_layers: int
+    d_hidden: int
+    aggregator: str = "sum"
+    mlp_layers: int = 2
+    eps_learnable: bool = False   # GIN
+    norm_sym: bool = False        # GCN symmetric normalization
+    n_bilinear: int = 8           # DimeNet
+    n_spherical: int = 7
+    n_radial: int = 6
+    n_classes: int = 16
+    d_in: int = 0                 # set per shape if 0
+
+
+@dataclasses.dataclass(frozen=True)
 class RecsysConfig:
     name: str
     n_sparse: int
@@ -73,6 +89,18 @@ LM_SHAPES = (
     ShapeCell("long_500k", "long_decode", {"seq": 524288, "batch": 1}),
 )
 
+GNN_SHAPES = (
+    ShapeCell("full_graph_sm", "full_graph",
+              {"n_nodes": 2708, "n_edges": 10556, "d_feat": 1433}),
+    ShapeCell("minibatch_lg", "minibatch",
+              {"n_nodes": 232965, "n_edges": 114615892, "batch_nodes": 1024,
+               "fanout": (15, 10), "d_feat": 602}),
+    ShapeCell("ogb_products", "full_graph",
+              {"n_nodes": 2449029, "n_edges": 61859140, "d_feat": 100}),
+    ShapeCell("molecule", "batched_graphs",
+              {"n_nodes": 30, "n_edges": 64, "batch": 128, "d_feat": 16}),
+)
+
 RECSYS_SHAPES = (
     ShapeCell("train_batch", "train_batch", {"batch": 65536}),
     ShapeCell("serve_p99", "serve", {"batch": 512}),
@@ -84,8 +112,8 @@ RECSYS_SHAPES = (
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     arch_id: str
-    family: str                   # lm | recsys (gnn: a later slice)
-    model: Any                    # LMConfig | RecsysConfig
+    family: str                   # lm | gnn | recsys
+    model: Any                    # LMConfig | GNNConfig | RecsysConfig
     shapes: tuple[ShapeCell, ...]
     smoke: Any                    # reduced same-family model config
     notes: str = ""

@@ -7,9 +7,9 @@ through ``shard_map``, and its callers hand one ``Mesh`` to
 ``Replica(mesh=...)``.  The port keeps that program structure with a
 ``ShardMesh``: one process, one ``torch.device`` per shard (devices may
 repeat: on one card every shard is ``cuda:0``), and explicit ``psum`` /
-``pmin`` / ``all_gather`` over lists of per-shard tensors, each result
-landing on every shard's device.  The same program runs unchanged over
-several cards.
+``pmin`` / ``pmax`` / ``all_gather`` over lists of per-shard tensors, each
+result landing on every shard's device.  The same program runs unchanged
+over several cards.
 
 The façade drives a from-scratch decomposition over a raw edge list
 through the shared engine (``peel(mesh=...)``):
@@ -109,6 +109,14 @@ def pmin(parts) -> list:
     total = parts[0].clone()
     for p in parts[1:]:
         torch.minimum(total, p.to(total.device), out=total)
+    return _spread(total, parts)
+
+
+def pmax(parts) -> list:
+    """Elementwise maximum over shards."""
+    total = parts[0].clone()
+    for p in parts[1:]:
+        torch.maximum(total, p.to(total.device), out=total)
     return _spread(total, parts)
 
 

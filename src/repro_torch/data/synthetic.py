@@ -1,8 +1,8 @@
-"""Synthetic data: Erdos-Renyi and power-law edge lists, recsys click
-batches.
+"""Synthetic data: Erdos-Renyi and power-law edge lists, node positions,
+LM token batches and recsys click batches.
 
-Copied from ``repro.data.synthetic`` (graphs and ``ClickStream``), so a
-seed gives the same numpy arrays in both packages.
+Copied from ``repro.data.synthetic``, so a seed gives the same numpy arrays
+in both packages.
 """
 from __future__ import annotations
 
@@ -104,6 +104,47 @@ def powerlaw_graph(n: int, m_per_node: int = 4, seed: int = 0,
         allu, allv = allu[keep], allv[keep]
     out = np.stack([allu, allv], 1)
     return out[np.lexsort((out[:, 1], out[:, 0]))]
+
+
+def random_positions(n: int, seed: int = 0) -> np.ndarray:
+    return np.random.default_rng(seed).normal(size=(n, 3)).astype(np.float32)
+
+
+class TokenStream:
+    """Deterministic synthetic LM batches; state = (seed, step).
+
+    ``structured=True`` emits noisy arithmetic progressions (mod vocab) —
+    a learnable next-token signal for convergence demos; the default uniform
+    stream sits at the log(vocab) entropy floor by construction."""
+
+    def __init__(self, vocab: int, batch: int, seq: int, seed: int = 0,
+                 step: int = 0, structured: bool = False):
+        self.vocab, self.batch, self.seq = vocab, batch, seq
+        self.seed, self.step = seed, step
+        self.structured = structured
+
+    def next(self) -> dict:
+        rng = np.random.default_rng((self.seed, self.step))
+        if self.structured:
+            phase = rng.integers(0, self.vocab, size=(self.batch, 1))
+            stride = rng.integers(1, 17, size=(self.batch, 1))
+            idx = np.arange(self.seq + 1)[None, :]
+            toks = (phase + stride * idx) % self.vocab
+            noise = rng.random(size=toks.shape) < 0.05
+            toks = np.where(noise, rng.integers(0, self.vocab, size=toks.shape), toks)
+            toks = toks.astype(np.int32)
+        else:
+            toks = rng.integers(0, self.vocab, size=(self.batch, self.seq + 1),
+                                dtype=np.int32)
+        self.step += 1
+        return {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def state_dict(self) -> dict:
+        return {"seed": self.seed, "step": self.step}
+
+    @classmethod
+    def from_state(cls, vocab, batch, seq, state):
+        return cls(vocab, batch, seq, seed=state["seed"], step=state["step"])
 
 
 class ClickStream:

@@ -6,6 +6,10 @@ tensor launches the hand-written kernel (``peel_wave``, ``bitmap_support``,
 ``flash_attention``, ``segment_matmul``, ``cin``), which raises if it
 cannot run; a CPU tensor takes the plain version in ``ref``.  There is no fallback from one to the other.  ``use_kernels(False)``
 is the explicit A/B switch that sends every device to the plain version.
+
+``segment_sum`` is the one differentiable entry: K4's rows entry forward
+(the GNN family's aggregation), and as its backward the row gather
+``ref.segment_sum_vjp_ref``, the same plain code on every device.
 """
 from __future__ import annotations
 
@@ -139,6 +143,31 @@ def segment_matmul(messages, seg_ids, num_segments: int):
     if _on_card(messages, seg_ids):
         return segment_sum_cuda(messages, seg_ids, num_segments)
     return ref.segment_matmul_ref(messages, seg_ids, num_segments)
+
+
+class SegmentSum(torch.autograd.Function):
+    """``segment_matmul`` with a gradient: forward K4's rows entry (the
+    plain version on a CPU tensor or under ``use_kernels(False)``),
+    backward ``grad_messages[i] = grad_out[seg_ids[i]]``, zero for ids
+    outside ``[0, N)``.  The ids get no gradient."""
+
+    @staticmethod
+    def forward(ctx, messages, seg_ids, num_segments):
+        ctx.save_for_backward(seg_ids)
+        return segment_matmul(messages.contiguous(), seg_ids, num_segments)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (seg_ids,) = ctx.saved_tensors
+        return ref.segment_sum_vjp_ref(grad_out, seg_ids), None, None
+
+
+def segment_sum(messages, seg_ids, num_segments: int):
+    """Differentiable segment sum over messages ``[E, D]`` (fp32 or fp16)
+    and int32 ids ``[E]`` -> ``[N, D]`` in ``messages.dtype``: the
+    reference's ``jax.ops.segment_sum`` for 2-D data.  On a CUDA tensor it
+    launches K4 or raises; it never gives way to ``index_add_``."""
+    return SegmentSum.apply(messages, seg_ids, int(num_segments))
 
 
 def segment_matmul_gathered(table, indices, seg_ids, num_segments: int, *,

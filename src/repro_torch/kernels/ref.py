@@ -6,9 +6,9 @@ int32 overflow or on an arithmetic right shift.  ``attention_ref``
 materialises the ``[BH, Sq, Skv]`` scores in fp32; ``chunked_attention_ref``
 (the model's layout) keeps them to one ``[q_chunk, kv_chunk]`` block.
 ``segment_matmul_ref`` is ``jax.ops.segment_sum`` (ids outside ``[0, n)``
-dropped); ``take_rows_ref`` is ``jnp.take`` along rows (negative ids wrap,
-ids outside ``[-R, R)`` give NaN rows); ``cin_layer_ref`` is one xDeepFM
-CIN layer.
+dropped), ``segment_sum_vjp_ref`` its gradient; ``take_rows_ref`` is
+``jnp.take`` along rows (negative ids wrap, ids outside ``[-R, R)`` give
+NaN rows); ``cin_layer_ref`` is one xDeepFM CIN layer.
 """
 from __future__ import annotations
 
@@ -149,6 +149,20 @@ def segment_matmul_ref(messages: torch.Tensor, seg_ids: torch.Tensor,
                       dtype=torch.float32, device=messages.device)
     out.index_add_(0, seg_ids[keep].long(), messages[keep].float())
     return out.to(messages.dtype)
+
+
+def segment_sum_vjp_ref(grad_out: torch.Tensor,
+                        seg_ids: torch.Tensor) -> torch.Tensor:
+    """The gradient of a segment sum with respect to its messages:
+    ``grad[i] = grad_out[seg_ids[i]]``, zero where ``seg_ids[i]`` lies
+    outside ``[0, N)`` (those messages were dropped) -> ``[E, D]``.  A row
+    gather: the backward on every device, since the reference has no
+    backward kernel."""
+    n = grad_out.shape[0]
+    keep = (seg_ids >= 0) & (seg_ids < n)
+    rows = grad_out[torch.where(keep, seg_ids, 0).long()]
+    return torch.where(keep[:, None], rows, torch.zeros((), dtype=rows.dtype,
+                                                        device=rows.device))
 
 
 def take_rows_ref(table: torch.Tensor, indices: torch.Tensor) -> torch.Tensor:

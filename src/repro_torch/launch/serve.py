@@ -3,8 +3,9 @@
 
 Runs the arch's smoke config on ``--device`` (the card by default), as the
 reference does: LM archs run the batched decode engine; recsys runs batched
-scoring of ``--requests`` rows of a ``ClickStream`` batch.  Archs the port
-does not have yet (the GNN family) exit with a message.
+scoring of ``--requests`` rows of a ``ClickStream`` batch.  The GNN family
+has no serving path (the reference reaches it only through training) and
+exits with a message, as does an arch the port does not know.
 """
 from __future__ import annotations
 

@@ -1,5 +1,6 @@
-"""Models of the port: the dense LM family (``layers``, ``transformer``)
-and the recsys family (``recsys``: xDeepFM)."""
-from . import layers, recsys, transformer
+"""Models of the port: the dense LM family (``layers``, ``transformer``),
+the GNN family (``gnn``: GCN, GIN, MeshGraphNet, DimeNet) and the recsys
+family (``recsys``: xDeepFM)."""
+from . import gnn, layers, recsys, transformer
 
-__all__ = ["layers", "recsys", "transformer"]
+__all__ = ["gnn", "layers", "recsys", "transformer"]

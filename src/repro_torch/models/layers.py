@@ -22,6 +22,7 @@ from __future__ import annotations
 import math
 from typing import Any
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -46,6 +47,35 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int,
 def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
     return torch.randn((vocab, d), generator=gen, device=gen.device,
                        dtype=torch.float32) * 0.02
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_map(v, fn) for v in tree]
+    return fn(tree)
+
+
+def params_from_numpy(tree: dict, device="cuda") -> dict:
+    """A reference parameter pytree of dicts and lists, as numpy arrays,
+    as the port's parameters (float32) on ``device`` (the recsys and GNN
+    families; the LM family stacks its layers, ``transformer``'s own)."""
+    return _map(tree, lambda a: torch.from_numpy(
+        np.array(a, dtype=np.float32)).to(device))
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Inverse of ``params_from_numpy``: every tensor as a float32 numpy
+    array, under the same keys and lists."""
+    return _map(params, lambda t: t.detach().cpu().numpy())
+
+
+def batch_to_torch(batch: dict, device="cuda") -> dict:
+    """A batch of numpy arrays (a ``ClickStream`` or sampler batch) as
+    tensors on ``device``."""
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
+            for k, v in batch.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -23,12 +23,12 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from ..configs.base import RecsysConfig
 from ..kernels import ops as kernel_ops
-from .layers import dense_init
+from .layers import (batch_to_torch, dense_init, params_from_numpy,  # noqa: F401
+                     params_to_numpy)
 
 F32 = torch.float32
 
@@ -75,33 +75,6 @@ def init_params(cfg: RecsysConfig, gen: torch.Generator) -> dict:
                  "b": torch.zeros((dims[i + 1],), dtype=F32, device=dev)}
                 for i in range(len(dims) - 1)]
     return p
-
-
-def _map(tree, fn):
-    if isinstance(tree, dict):
-        return {k: _map(v, fn) for k, v in tree.items()}
-    if isinstance(tree, (list, tuple)):
-        return [_map(v, fn) for v in tree]
-    return fn(tree)
-
-
-def params_from_numpy(tree: dict, device="cuda") -> dict:
-    """The reference's parameter pytree, as numpy arrays, as the port's
-    parameters (float32) on ``device``."""
-    return _map(tree, lambda a: torch.from_numpy(
-        np.array(a, dtype=np.float32)).to(device))
-
-
-def params_to_numpy(params: dict) -> dict:
-    """Inverse of ``params_from_numpy``: every tensor as a float32 numpy
-    array, under the same keys and lists."""
-    return _map(params, lambda t: t.detach().cpu().numpy())
-
-
-def batch_to_torch(batch: dict, device="cuda") -> dict:
-    """A ``ClickStream`` batch (numpy) as tensors on ``device``."""
-    return {k: torch.from_numpy(np.asarray(v)).to(device)
-            for k, v in batch.items()}
 
 
 def _field_rows(cfg: RecsysConfig, ids: torch.Tensor,

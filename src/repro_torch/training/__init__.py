@@ -1,5 +1,8 @@
-"""Training support of the port: so far only ``checkpoint`` (save, restore
-and ``latest_step``), which the service's snapshots go through."""
-from . import checkpoint
+"""Training substrate of the port: ``optimizer`` (AdamW, SGD, schedules,
+the train step), ``compression`` (int8 with error feedback, the compressed
+psum over a ``ShardMesh``), ``checkpoint`` (save, restore, the async
+writer, the preemption hook; the service's snapshots go through it too)
+and ``loop`` (the fault-tolerant training loop)."""
+from . import checkpoint, compression, loop, optimizer
 
-__all__ = ["checkpoint"]
+__all__ = ["checkpoint", "compression", "loop", "optimizer"]

@@ -11,13 +11,21 @@ bfloat16 or fp8 through ``savez``, so those are stored as their raw bits
 tensor of that dtype through an integer view: no ``ml_dtypes`` needed.
 
 An atomic rename makes a partially written checkpoint invisible.  The
-async writer and the preemption hook of the reference are ROADMAP item 16.
+async writer snapshots synchronously and writes in a background thread;
+its snapshot is always a host copy (``Tensor.to("cpu", copy=True)``, numpy
+arrays copied), never a view: ``.cpu()`` of a CPU tensor is the tensor
+itself, and a later in-place write to it must not reach the file.
+SIGTERM sets the preemption handler's flag, on which the training loop
+checkpoints and exits.
 """
 from __future__ import annotations
 
 import json
 import os
+import queue
+import signal
 import tempfile
+import threading
 
 import numpy as np
 import torch
@@ -102,11 +110,12 @@ def _unflatten(flat: dict):
     return fix(root)
 
 
-def _to_device(tree, device):
+def to_device(tree, device):
+    """A tree of numpy arrays and tensors as tensors on ``device``."""
     if isinstance(tree, dict):
-        return {k: _to_device(v, device) for k, v in tree.items()}
+        return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(_to_device(v, device) for v in tree)
+        return type(tree)(to_device(v, device) for v in tree)
     if isinstance(tree, np.ndarray):
         tree = torch.from_numpy(np.array(tree))
     return tree.to(device)
@@ -141,7 +150,7 @@ def restore(path: str, device=None):
         flat = {k: z[k] for k in z.files}
     tree = _unflatten(flat)
     if device is not None:
-        tree = _to_device(tree, torch.device(device))
+        tree = to_device(tree, torch.device(device))
     return tree
 
 
@@ -152,3 +161,70 @@ def latest_step(path: str) -> int | None:
         return None
     with open(meta) as f:
         return json.load(f)["step"]
+
+
+def _host_copy(tree):
+    """A copy of ``tree`` on the host: tensors copied to the CPU (a CPU
+    tensor too), numpy arrays copied, other leaves as they are."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        return tree.detach().to("cpu", copy=True)
+    if isinstance(tree, np.ndarray):
+        return tree.copy()
+    return tree
+
+
+class AsyncCheckpointer:
+    """Snapshot synchronously (a host copy), write in background; a bounded
+    queue applies back-pressure instead of dropping checkpoints."""
+
+    def __init__(self, max_pending: int = 2):
+        self._q: queue.Queue = queue.Queue(maxsize=max_pending)
+        self._thread = threading.Thread(target=self._worker, daemon=True)
+        self._errors: list = []
+        self._thread.start()
+
+    def _worker(self):
+        while True:
+            item = self._q.get()
+            if item is None:
+                return
+            path, tree, step = item
+            try:
+                save(path, tree, step)
+            except Exception as e:  # surfaced on next save()/wait()
+                self._errors.append(e)
+            finally:
+                self._q.task_done()
+
+    def save(self, path: str, tree, step: int | None = None):
+        if self._errors:
+            raise self._errors.pop()
+        self._q.put((path, _host_copy(tree), step))
+
+    def wait(self):
+        self._q.join()
+        if self._errors:
+            raise self._errors.pop()
+
+    def close(self):
+        self._q.put(None)
+        self._thread.join()
+
+
+class PreemptionHandler:
+    """SIGTERM -> set flag; the training loop checkpoints and exits cleanly
+    (what a maintenance event looks like to the worker)."""
+
+    def __init__(self):
+        self.preempted = False
+        try:
+            signal.signal(signal.SIGTERM, self._handler)
+        except ValueError:
+            pass  # non-main thread (tests)
+
+    def _handler(self, signum, frame):
+        self.preempted = True

@@ -6,7 +6,9 @@ card) equal to mesh=None; the WAL-backed truss service on the card launching
 K1 through a fused flush and K2 through its recompute fallback, and its
 snapshots restoring bitwise; a replica on the card tailing such a
 primary (K1 in its applies, bitwise equal at every generation), its
-promotion, and a profiled flush with every device record.
+promotion, and a profiled flush with every device record; the GNN
+family's differentiable segment sum (K4 forward, a plain gather backward)
+and one training step of each GNN smoke config against the plain route.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -27,7 +29,11 @@ from repro_torch.kernels import (bitmap_support, cin, flash_attention, ops,
 from repro_torch.faults import PeelChaos
 from repro_torch.launch.mesh import make_shard_mesh
 from repro_torch.cluster import Replica
-from repro_torch.models import recsys, transformer
+from repro_torch.data import sampler
+from repro_torch.models import gnn, recsys, transformer
+from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                            make_train_step, tree_leaves,
+                                            value_and_grad)
 from repro_torch.obs import profiling
 from repro_torch.service import TrussService, TrussStore
 
@@ -864,3 +870,78 @@ def test_recsys_serve_on_card_equals_serve_on_cpu(cuda):
     assert cin.LAUNCHES == n5 + len(cfg.cin_layers)
     exp = recsys.serve(cfg, params, recsys.batch_to_torch(nb, "cpu"))
     torch.testing.assert_close(got, exp, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the GNN family's differentiable segment sum (K4's rows entry forward, a
+# plain row gather backward) and training steps on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("e,d,n", [(100, 16, 17), (5000, 7, 300), (4097, 1, 64)])
+def test_segment_sum_function_on_card_equals_plain_version(cuda, e, d, n):
+    """Forward within 1e-5 of the plain version (fp32 sums in another
+    order), one K4 launch; backward bitwise equal to the plain gather, no
+    launch, zero for ids outside ``[0, n)``."""
+    rng = np.random.default_rng(e + d)
+    data = torch.from_numpy(rng.normal(size=(e, d)).astype(np.float32)).to(cuda)
+    seg = torch.from_numpy(rng.integers(-2, n + 2, e).astype(np.int32)).to(cuda)
+    cot = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(cuda)
+    x = data.clone().requires_grad_(True)
+    launches = segment_matmul.LAUNCHES
+    out = ops.segment_sum(x, seg, n)
+    assert segment_matmul.LAUNCHES == launches + 1 and out.dtype == torch.float32
+    torch.testing.assert_close(out, ref.segment_matmul_ref(data, seg, n),
+                               rtol=1e-5, atol=1e-5)
+    (grad,) = torch.autograd.grad(out, x, cot)
+    assert segment_matmul.LAUNCHES == launches + 1
+    assert torch.equal(grad, ref.segment_sum_vjp_ref(cot, seg))
+    outside = (seg < 0) | (seg >= n)
+    assert not bool(grad[outside].any())
+    assert torch.equal(grad.cpu(), ref.segment_sum_vjp_ref(cot.cpu(), seg.cpu()))
+
+
+@pytest.mark.parametrize("arch_id", ["gcn-cora", "gin-tu", "meshgraphnet",
+                                     "dimenet"])
+def test_gnn_train_step_on_card_equals_plain_route(cuda, arch_id):
+    """One AdamW step of each GNN smoke config on the card through K4 against
+    the same step under ``use_kernels(False)`` and on the CPU: loss and
+    every gradient leaf within rtol 1e-5 plus 1e-5 of the leaf's largest
+    magnitude (fp32 sums in another order); the step's parameters finite
+    and moved."""
+    cfg = get_config(arch_id).smoke
+    nb = sampler.make_gnn_batch(powerlaw_graph(48, 3, seed=2), 48, d_feat=8,
+                                n_classes=cfg.n_classes, with_pos=True,
+                                with_triplets=cfg.model == "dimenet",
+                                pad_nodes=64, pad_edges=400, seed=3)
+    params = gnn.init_params(cfg, torch.Generator().manual_seed(0), 8)
+    card = gnn.params_from_numpy(gnn.params_to_numpy(params), device=cuda)
+    loss_fn = lambda p, b: gnn.loss_fn(cfg, p, b)
+    batch = gnn.batch_to_torch(nb, cuda)
+    launches = segment_matmul.LAUNCHES
+    loss, grads = value_and_grad(loss_fn, card, batch)
+    per_step = segment_matmul.LAUNCHES - launches
+    expected = {"gcn": cfg.n_layers + 1, "gin": cfg.n_layers,
+                "meshgraphnet": cfg.n_layers, "dimenet": cfg.n_layers}
+    assert per_step == expected[cfg.model], per_step
+    ops.use_kernels(False)
+    try:
+        p_loss, p_grads = value_and_grad(loss_fn, card, batch)
+    finally:
+        ops.use_kernels(True)
+    assert segment_matmul.LAUNCHES == launches + per_step
+    c_loss, c_grads = value_and_grad(loss_fn, params, gnn.batch_to_torch(nb, "cpu"))
+
+    def close(got, exp):
+        tol = 1e-5 * max(1.0, float(exp.abs().max()))
+        torch.testing.assert_close(got.cpu(), exp.cpu(), rtol=1e-5, atol=tol)
+
+    for other_loss, other in ((p_loss, p_grads), (c_loss, c_grads)):
+        close(loss, other_loss)
+        for g, h in zip(tree_leaves(grads), tree_leaves(other)):
+            close(g, h)
+    step = make_train_step(loss_fn, AdamWConfig(total_steps=10, warmup_steps=1))
+    new, state, stats = step(card, adamw_init(card), batch)
+    assert int(state["step"]) == 1 and bool(torch.isfinite(stats["loss"]))
+    assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(new))
+    assert any(not torch.equal(a, b) for a, b in
+               zip(tree_leaves(new), tree_leaves(card)))
