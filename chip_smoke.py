@@ -183,11 +183,31 @@
     inputs ([3,922,456, 1], [.., 16], [.., 7]) are then timed in turns
     with the plain version and ``index_add_`` beside the byte bound, and
     on the community's own rows alone.
-14. Fails unless every kernel was launched by its path (K1 and K2 on the
+14. Trains ``qwen3-0.6b`` at full width and depth and xDeepFM at the full
+    config through ``launch.train.main --full`` (``LM_TRAIN``: train_4k
+    with its batch cut to 4, ``[4, 4096]``; ``RS_TRAIN``: train_batch's
+    65,536 rows), 3 steps each, the kernel counts set to 0 just before
+    each run and read just after: qwen3 must launch K3's wgmma body 56
+    times a step (each of 28 layers forward and again in its remat) and
+    no SIMT body, xDeepFM K4 once and K5 three times a step.  Logs the
+    step seconds, losses (qwen3's first near ln 151,936), peak device
+    memory and the final checkpoint's host copy and write seconds and
+    bytes (deleted after).  Then each card step against
+    ``use_kernels(False)`` on the card (qwen3: loss 5e-3 relative, leaves
+    5e-2 relative Frobenius, beside the plain route's own spread with its
+    attention blocks halved; xDeepFM on 4,096 rows: loss 1e-5, leaves 1e-4
+    of their largest magnitude, with the plain route's K5 backwards taking
+    the kernel route's relu decisions, which may differ only within
+    ``K5_TOL`` of 0), the restart check of phase 13 at both
+    smoke configs, and the plain backwards timed: attention's at the
+    training layer beside K3's forward, K5's at each of the step's CIN
+    layers (and its share of the step) and K4's gathered one.
+15. Fails unless every kernel was launched by its path (K1 and K2 on the
     truss path, on the service path and on the sharded path, K1 on the
     cluster path and the training rounds, K4 on the recsys and training
-    paths), prints the kernels line, the card line, and last the device
-    line.
+    paths, K3 and K5 on the LM and recsys training paths too), prints the
+    smoke's total seconds, the kernels line, the card line, and last the
+    device line.
 
 Every failed check raises, so the exit code is non-zero.  The script needs
 a CUDA device, ``nvcc`` and the rest of this checkout; it imports no JAX.
@@ -195,6 +215,7 @@ a CUDA device, ``nvcc`` and the rest of this checkout; it imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import shutil
@@ -264,6 +285,21 @@ TRAIN_OPT = {"lr": 1e-2, "total_steps": 60, "warmup_steps": 5}
 # magnitude (fp32 sums in another order, over runs of up to ~2M rows)
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
 GNN_ARCHS = ("gcn-cora", "gin-tu", "meshgraphnet", "dimenet")
+# Phase 14: qwen3-0.6b and xDeepFM training through the launcher.  qwen3 at
+# full width and depth on train_4k's [256, 4096] with only the batch cut,
+# to 4 (prefill's [4, 4096], whose K3 time is on record); xDeepFM's
+# train_batch at the full config and its own 65,536 rows, not cut
+LM_TRAIN = ["--batch", "4", "--seq", "4096", "--steps", "3"]
+RS_TRAIN = ["--batch", "65536", "--steps", "3"]
+LM_TRAIN_STEPS = RS_TRAIN_STEPS = 3
+RS_CHECK_ROWS = 4096     # the rows of the batch held to the plain route
+# qwen3's card step against use_kernels(False) on the card: the loss within
+# 5e-3 relative and each gradient leaf within 5e-2 relative Frobenius
+# error.  The bf16 forward differs by K3's roundings (its P as hi + lo bf16
+# terms, fp32 sums in another order), a bf16 step that the remat and 28
+# layers carry into every gradient; on the CPU the same bf16 paths measured
+# up to 2.3e-2 against the reference (tests/test_torch_lm_training.py)
+LM_STEP_LOSS_RTOL, LM_STEP_GRAD_FRO = 5e-3, 5e-2
 RESTART_STEPS, RESTART_AT = 6, 3   # 3 steps, preempted, resumed to 6
 MOLECULE_GRAPHS = 128            # GNN_SHAPES' molecule cell: 128 x 30 nodes
 
@@ -3010,18 +3046,8 @@ def step_vs_plain(ops, ref, loss_fn, params, batch, what: str):
     finally:
         ops.use_kernels(True)
     loss_err = abs(float(loss_k) - float(loss_p))
-    if not loss_err <= TRAIN_LOSS_RTOL * abs(float(loss_p)):
-        raise AssertionError(f"{what}: step loss {float(loss_k)} vs plain "
-                             f"{float(loss_p)}")
-    grad_errs = []
-    for i, (a, b) in enumerate(zip(opt.tree_leaves(grads_k),
-                                   opt.tree_leaves(grads_p))):
-        scale = float(b.abs().max())
-        err = float((a - b).abs().max())
-        if not bool(torch.isfinite(a).all()) or err > TRAIN_GRAD_RTOL * scale:
-            raise AssertionError(f"{what}: gradient leaf {i}: max |K4 - "
-                                 f"plain| {err} of {scale}")
-        grad_errs.append(err / scale if scale else err)
+    loss_error(loss_k, loss_p, what, TRAIN_LOSS_RTOL)
+    grad_errs = leaf_errors(grads_k, grads_p, what, TRAIN_GRAD_RTOL, "max")
     k4_errs = {}
     with torch.no_grad():
         for msgs, ids, n in seen:
@@ -3064,20 +3090,21 @@ def check_arch_steps(ops, ref, dev) -> dict:
     return out
 
 
-def check_restart(arch_id: str, work: str, dev) -> dict:
-    """``launch.train.main --full --steps 6`` straight, against 3 steps of
+def check_restart(arch_id: str, work: str, dev, full: bool = True) -> dict:
+    """``launch.train.main [--full] --steps 6`` straight, against 3 steps of
     the launcher's own setup (``train.setup``) cut by the preemption flag,
     then ``main`` resumed from that checkpoint to 6: every parameter,
-    optimizer state and loss bitwise equal (K4 sums in a fixed order, and
-    the indexing backward sorts its indices)."""
+    optimizer state and loss bitwise equal (K4 and K5 sum in a fixed order,
+    and the indexing backward sorts its indices)."""
     from repro_torch.launch import train
     from repro_torch.training import checkpoint, loop
     from repro_torch.training.optimizer import tree_leaves
 
     def launcher(tag):
-        return train.main(["--arch", arch_id, "--full", "--steps",
-                           str(RESTART_STEPS), "--device", str(dev), "--ckpt",
-                           os.path.join(work, f"{arch_id}-{tag}.npz")])
+        return train.main(["--arch", arch_id, "--steps", str(RESTART_STEPS),
+                           "--device", str(dev), "--ckpt",
+                           os.path.join(work, f"{arch_id}-{tag}.npz")]
+                          + (["--full"] if full else []))
 
     def tensors(out):
         return tree_leaves([out["params"], out["opt_state"]])
@@ -3086,7 +3113,7 @@ def check_restart(arch_id: str, work: str, dev) -> dict:
     losses = [h["loss"] for h in straight["history"]]
     if len(losses) != RESTART_STEPS or not np.all(np.isfinite(losses)):
         raise AssertionError(f"launcher {arch_id}: losses {losses}")
-    s = train.setup(arch_id, steps=RESTART_STEPS, full=True, device=str(dev),
+    s = train.setup(arch_id, steps=RESTART_STEPS, full=full, device=str(dev),
                     ckpt=os.path.join(work, f"{arch_id}-resumed.npz"))
     pre = checkpoint.PreemptionHandler()
     cut = loop.run(s.loop, s.opt, s.loss, s.init, s.stream, device=dev,
@@ -3303,12 +3330,387 @@ def drive_training_path(core, edges: np.ndarray, dev, card: str) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def timed_checkpoints(checkpoint):
+    """Seconds and bytes of each checkpoint the loop writes while inside:
+    the host copy (``_host_copy``, on the loop's thread) and the write
+    (``save``, on the writer's), by wrapping both; the copy is timed at
+    its outermost call."""
+    got = {"host_copy_s": [], "write_s": [], "bytes": []}
+    copy, save = checkpoint._host_copy, checkpoint.save
+    depth = [0]          # _host_copy recurses through this name
+
+    def timed_copy(tree):
+        depth[0] += 1
+        t = time.perf_counter()
+        try:
+            return copy(tree)
+        finally:
+            depth[0] -= 1
+            if not depth[0]:
+                got["host_copy_s"].append(time.perf_counter() - t)
+
+    def timed_save(path, tree, step=None):
+        t = time.perf_counter()
+        save(path, tree, step)
+        got["write_s"].append(time.perf_counter() - t)
+        got["bytes"].append(os.path.getsize(path))
+
+    checkpoint._host_copy, checkpoint.save = timed_copy, timed_save
+    try:
+        yield got
+    finally:
+        checkpoint._host_copy, checkpoint.save = copy, save
+
+
+def leaf_errors(grads_k, grads_p, what: str, tol: float, metric: str) -> list:
+    """Each gradient leaf of the kernel route against the plain route's, by
+    ``metric`` ("max": max abs error over the leaf's largest magnitude;
+    "fro": relative Frobenius error), failing past ``tol`` or on a value
+    that is not finite."""
+    from repro_torch.training import optimizer as opt
+
+    errs = []
+    for i, (a, b) in enumerate(zip(opt.tree_leaves(grads_k),
+                                   opt.tree_leaves(grads_p))):
+        if metric == "fro":
+            err = float(torch.linalg.vector_norm((a - b).float()))
+            scale = float(torch.linalg.vector_norm(b.float()))
+        else:
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+        if not bool(torch.isfinite(a).all()) or not err <= tol * scale:
+            raise AssertionError(f"{what}: gradient leaf {i} off by {err} "
+                                 f"of {scale} ({metric}) against the plain "
+                                 f"route")
+        errs.append(err / scale if scale else err)
+    return errs
+
+
+def loss_error(loss_k, loss_p, what: str, rtol: float) -> float:
+    """The step loss's relative error against the plain route's, failing
+    past ``rtol``."""
+    err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if not err <= rtol:
+        raise AssertionError(f"{what}: step loss {float(loss_k)} vs plain "
+                             f"{float(loss_p)}")
+    return err
+
+
+def lm_step_vs_plain(ops, ref, loss_fn, params, batch, what: str) -> dict:
+    """One LM step's loss and gradients through K3 against the same step
+    under ``use_kernels(False)`` on the card: the loss within
+    ``LM_STEP_LOSS_RTOL``, each leaf within ``LM_STEP_GRAD_FRO`` relative
+    Frobenius error.  Beside it, not held, the bf16 noise floor: the plain
+    route against itself with the attention's blocks halved (1,024 -> 512
+    queries and keys), fp32 sums in another order as K3's are."""
+    from repro_torch.training import optimizer as opt
+
+    loss_k, grads_k = opt.value_and_grad(loss_fn, params, batch)
+    ops.use_kernels(False)
+    inner = ref.chunked_attention_ref
+    try:
+        loss_p, grads_p = opt.value_and_grad(loss_fn, params, batch)
+        ref.chunked_attention_ref = functools.partial(inner, q_chunk=512,
+                                                      kv_chunk=512)
+        _, grads_h = opt.value_and_grad(loss_fn, params, batch)
+    finally:
+        ref.chunked_attention_ref = inner
+        ops.use_kernels(True)
+    errs = leaf_errors(grads_k, grads_p, what, LM_STEP_GRAD_FRO, "fro")
+    floor = [float(torch.linalg.vector_norm((a - b).float())
+                   / torch.linalg.vector_norm(b.float())) for a, b in zip(
+        opt.tree_leaves(grads_h), opt.tree_leaves(grads_p))]
+    return {"loss": float(loss_k), "plain_loss": float(loss_p),
+            "loss_rel_err": loss_error(loss_k, loss_p, what,
+                                       LM_STEP_LOSS_RTOL),
+            "leaves": len(errs), "leaf_fro_err_max": max(errs),
+            "leaf_fro_err_median": float(np.median(errs)),
+            "noise_floor_fro_max": max(floor),
+            "noise_floor_fro_median": float(np.median(floor))}
+
+
+@contextlib.contextmanager
+def cin_backward_outputs(ref, replay=None):
+    """Record the layer output that each K5 backward reads its relu mask
+    from (``ref.cin_layer_vjp_ref``'s ``out``), in call order; with
+    ``replay`` (an earlier recording), hand each call that output instead
+    of its own, recording its own."""
+    seen, inner = [], ref.cin_layer_vjp_ref
+    it = iter(replay or ())
+
+    def wrapped(xk, x0, w, out, g, **kw):
+        seen.append(out)
+        return inner(xk, x0, w, next(it) if replay else out, g, **kw)
+
+    ref.cin_layer_vjp_ref = wrapped
+    try:
+        yield seen
+    finally:
+        ref.cin_layer_vjp_ref = inner
+
+
+def recsys_step_vs_plain(ops, ref, loss_fn, params, batch, what: str) -> dict:
+    """One xDeepFM step's loss and gradients through K4 and K5 against the
+    same step under ``use_kernels(False)`` on the card: the loss within
+    ``TRAIN_LOSS_RTOL``, each leaf within ``TRAIN_GRAD_RTOL`` of its largest
+    magnitude, at matched relu decisions.  K5's backward masks its cotangent by ``out > 0``; the two
+    routes' pre-activations differ by fp32 rounding, so where one lies
+    within that of 0 they can take opposite sides of the kink, and one such
+    element moves a table row's gradient by ~1e-4 of the leaf's scale
+    (PERF.md section 6).  So the plain route's K5 backwards read the
+    kernel route's outputs for their masks, and every decision that differs
+    must lie within ``K5_TOL`` of 0 on both routes.  The errors of the
+    plain route on its own decisions are logged beside, not held."""
+    from repro_torch.training import optimizer as opt
+
+    with cin_backward_outputs(ref) as outs_k:
+        loss_k, grads_k = opt.value_and_grad(loss_fn, params, batch)
+    ops.use_kernels(False)
+    try:
+        with cin_backward_outputs(ref, replay=outs_k) as outs_p:
+            loss_p, grads_p = opt.value_and_grad(loss_fn, params, batch)
+        _, grads_own = opt.value_and_grad(loss_fn, params, batch)
+    finally:
+        ops.use_kernels(True)
+    if len(outs_k) != len(outs_p) or not outs_k:
+        raise AssertionError(f"{what}: K5 backwards {len(outs_k)} vs "
+                             f"{len(outs_p)}")
+    flips, flip_max = 0, 0.0
+    for a, b in zip(outs_k, outs_p):
+        differ = (a > 0) != (b > 0)
+        flips += int(differ.sum())
+        flip_max = max(flip_max, float(torch.where(
+            differ, torch.maximum(a, b), 0.0).max()))
+    if flip_max > K5_TOL:
+        raise AssertionError(f"{what}: the routes' relu decisions differ at "
+                             f"an output of {flip_max}, beyond {K5_TOL}")
+    errs = leaf_errors(grads_k, grads_p, what, TRAIN_GRAD_RTOL, "max")
+    own = [float((a - b).abs().max() / b.abs().max()) for a, b in zip(
+        opt.tree_leaves(grads_k), opt.tree_leaves(grads_own))]
+    return {"loss": float(loss_k), "plain_loss": float(loss_p),
+            "loss_rel_err": loss_error(loss_k, loss_p, what, TRAIN_LOSS_RTOL),
+            "leaf_max_err": errs, "leaves": len(errs),
+            "relu_decisions_differing": flips,
+            "largest_output_at_a_differing_decision": flip_max,
+            "leaf_max_err_own_decisions": own}
+
+
+def train_through_launcher(arch_id: str, args: list, work: str, dev,
+                           mods) -> dict:
+    """``launch.train.main(["--arch", arch_id, "--full", *args])`` on the
+    card with every kernel count set to 0 just before it and read just
+    after; the step seconds, losses, peak device memory and the final
+    checkpoint (host copy and write seconds, bytes; deleted after)."""
+    from repro_torch.launch import train
+    from repro_torch.training import checkpoint
+
+    path = os.path.join(work, f"{arch_id}.npz")
+    reset_counts(*mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    with timed_checkpoints(checkpoint) as ck:
+        t = time.perf_counter()
+        res = train.main(["--arch", arch_id, "--full", *args, "--device",
+                          str(dev), "--ckpt", path])
+        sync(dev)
+        wall = time.perf_counter() - t
+    rec = {"s": wall, "step_s": [h["dt"] for h in res["history"]],
+           "loss": [h["loss"] for h in res["history"]],
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+           "checkpoint": ck,
+           "launches": {m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES
+                        for m in mods},
+           "by_body": {m.__name__.rsplit(".", 1)[-1]: dict(m.LAUNCHES_BY_BODY)
+                       for m in mods if hasattr(m, "LAUNCHES_BY_BODY")}}
+    for f in (path, path + ".meta.json"):
+        if os.path.exists(f):
+            os.remove(f)
+    if not np.all(np.isfinite(rec["loss"])) or len(ck["bytes"]) != 1:
+        raise AssertionError(f"{arch_id} --full: {json.dumps(rec)}")
+    del res
+    torch.cuda.empty_cache()
+    return rec
+
+
+def time_attention_backward(ops, ref, dev) -> dict:
+    """K3's forward and the plain attention backward (``attention_vjp_ref``)
+    at the training layer ``[4, 4096, 16 q / 8 kv, 128]`` bf16 causal, CUDA
+    events, median of 3 (forward 10), with the backward's fp32 flops: the
+    scores recomputed and four products, each ``2·Dh`` a visible pair."""
+    cfg = model_cfg(LM_ARCH)
+    rng = np.random.default_rng(4)
+    b, s, dh = PREFILL_BATCH, PREFILL_SEQ, cfg.head_dim
+    q = _normal(rng, (b, s, cfg.n_heads, dh), torch.bfloat16, dev)
+    k, v = (_normal(rng, (b, s, cfg.n_kv, dh), torch.bfloat16, dev)
+            for _ in range(2))
+    do = _normal(rng, (b, s, cfg.n_heads, dh), torch.bfloat16, dev)
+    fwd = time_ms(lambda: ops.flash_attention_heads(q, k, v), 10)
+    bwd = time_ms(lambda: ref.attention_vjp_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+        do.transpose(1, 2), causal=True, window=None), 3)
+    flops = 5 * 2 * dh * b * cfg.n_heads * attention_pairs(s, True, None)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    ref.attention_vjp_ref(q.transpose(1, 2), k.transpose(1, 2),
+                          v.transpose(1, 2), do.transpose(1, 2), causal=True,
+                          window=None)
+    transient = (torch.cuda.max_memory_allocated(dev) - base) / 1e9
+    return {"shape": f"[{b}, {s}, {cfg.n_heads} q / {cfg.n_kv} kv, {dh}] "
+                     f"bf16 causal", "k3_forward_ms": fwd,
+            "plain_backward_ms": bwd, "backward_gflop": flops / 1e9,
+            "backward_tflops": flops / bwd / 1e9,
+            "backward_transient_gb": transient}
+
+
+def time_cin_backward(ops, ref, dev, step_s: float) -> dict:
+    """The plain K5 backward (``cin_layer_vjp_ref``) of each CIN layer at
+    ``train_batch``'s 65,536 rows, on the layer inputs a step's forward
+    makes from the launcher's first batch: CUDA events, median of 3, its
+    sum and its share of the median step; K4's plain gathered backward
+    (``segment_gathered_vjp_ref``) on the step's bags too."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.synthetic import ClickStream
+    from repro_torch.models import recsys
+
+    cfg = get_config(RECSYS_ARCH).model
+    params = recsys.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    rows = int(RS_TRAIN[RS_TRAIN.index("--batch") + 1])
+    batch = recsys.batch_to_torch(ClickStream(cfg, rows, seed=0).next(), dev)
+    rng = np.random.default_rng(6)
+    out = {"layers": []}
+    with torch.no_grad():
+        x0 = recsys._field_embeddings(cfg, params, batch).contiguous()
+        xk = x0
+        for w in params["cin"]:
+            o = ops.cin_layer(xk, x0, w)
+            g = _normal(rng, tuple(o.shape), torch.float32, dev)
+            ms = time_ms(lambda: ref.cin_layer_vjp_ref(xk, x0, w, o, g), 3)
+            out["layers"].append({"h": xk.shape[1], "plain_backward_ms": ms})
+            xk = o
+        mh_rows, bag_ids = recsys.multihot_bags(cfg, batch["multihot_ids"])
+        nb = rows * cfg.n_multihot
+        gb = _normal(rng, (nb, cfg.embed_dim), torch.float32, dev)
+        out["k4_plain_backward_ms"] = time_ms(
+            lambda: ref.segment_gathered_vjp_ref(
+                gb, params["table"].shape, mh_rows, bag_ids, True), 3)
+    out["k5_plain_backward_ms"] = sum(r["plain_backward_ms"]
+                                      for r in out["layers"])
+    out["k5_backward_share_of_step"] = \
+        1e-3 * out["k5_plain_backward_ms"] / step_s
+    del params, batch, x0, xk
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_lm_recsys_training(dev, card: str) -> dict:
+    """Phase 14: qwen3-0.6b at full width and depth and xDeepFM's
+    train_batch through ``launch.train.main --full`` on the card (the
+    kernel counts set to 0 just before each run and read just after: K3's
+    wgmma body 28 times forward and 28 in the remat a step, K4 once and K5
+    three times a step); each card step against ``use_kernels(False)``;
+    the restart check at both smoke configs; the plain backwards timed."""
+    from repro_torch.kernels import cin, flash_attention, ops, ref, segment_matmul
+    from repro_torch.launch import train
+
+    t_phase = time.perf_counter()
+    mods = (flash_attention, segment_matmul, cin)
+    cfg = model_cfg(LM_ARCH)
+    out = {"lm_reduced": f"train_4k [256, 4096] cut to [{PREFILL_BATCH}, "
+                         f"{PREFILL_SEQ}]: the batch only",
+           "recsys_reduced": "none: train_batch's 65,536 rows at the full "
+                             "config"}
+    work = tempfile.mkdtemp(prefix="chip_smoke_train14_")
+    try:
+        lm = train_through_launcher(LM_ARCH, LM_TRAIN, work, dev, mods)
+        per_step = 2 * cfg.n_layers      # each layer, then its remat
+        want = {"wgmma": LM_TRAIN_STEPS * per_step, "simt": 0}
+        if lm["by_body"]["flash_attention"] != want or \
+                lm["launches"]["segment_matmul"] or lm["launches"]["cin"]:
+            raise AssertionError(f"{LM_ARCH} training launched {lm['launches']}"
+                                 f" by body {lm['by_body']}, expected {want}")
+        if abs(lm["loss"][0] - np.log(cfg.vocab)) > 0.5:
+            raise AssertionError(f"{LM_ARCH}: first loss {lm['loss'][0]}, "
+                                 f"expected near ln {cfg.vocab}")
+        log(f"phase 14 {LM_ARCH} --full {LM_TRAIN} ({card}): {json.dumps(lm)}")
+        out["lm"] = lm
+
+        rs = train_through_launcher(RECSYS_ARCH, RS_TRAIN, work, dev, mods)
+        n_cin = len(model_cfg(RECSYS_ARCH).cin_layers)
+        if rs["launches"] != {"flash_attention": 0,
+                              "segment_matmul": RS_TRAIN_STEPS,
+                              "cin": n_cin * RS_TRAIN_STEPS}:
+            raise AssertionError(f"{RECSYS_ARCH} training launched "
+                                 f"{rs['launches']}, expected K4 once and K5 "
+                                 f"{n_cin} times a step")
+        log(f"phase 14 {RECSYS_ARCH} --full {RS_TRAIN} ({card}): "
+            f"{json.dumps(rs)}")
+        out["recsys"] = rs
+
+        # each card step against the plain route (launches not counted)
+        t = time.perf_counter()
+        s = train.setup(LM_ARCH, steps=1, ckpt=os.devnull, full=True,
+                        batch=PREFILL_BATCH, seq=PREFILL_SEQ, device=str(dev))
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in s.stream.next().items()}
+        out["lm_vs_plain"] = lm_step_vs_plain(
+            ops, ref, s.loss, s.init(), batch, f"{LM_ARCH} step")
+        out["lm_vs_plain"]["s"] = time.perf_counter() - t
+        log(f"{LM_ARCH} step vs plain ({card}; loss rtol {LM_STEP_LOSS_RTOL}"
+            f", leaves {LM_STEP_GRAD_FRO} relative Frobenius): "
+            f"{json.dumps(out['lm_vs_plain'])}")
+        del s, batch
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        s = train.setup(RECSYS_ARCH, steps=1, ckpt=os.devnull, full=True,
+                        batch=RS_CHECK_ROWS, device=str(dev))
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in s.stream.next().items()}
+        out["recsys_vs_plain"] = recsys_step_vs_plain(
+            ops, ref, s.loss, s.init(), batch, f"{RECSYS_ARCH} step")
+        out["recsys_vs_plain"]["s"] = time.perf_counter() - t
+        log(f"{RECSYS_ARCH} step vs plain on {RS_CHECK_ROWS} rows ({card}; "
+            f"loss rtol {TRAIN_LOSS_RTOL}, leaves {TRAIN_GRAD_RTOL} of their "
+            f"largest magnitude at matched relu decisions): "
+            f"{json.dumps(out['recsys_vs_plain'])}")
+        del s, batch
+        torch.cuda.empty_cache()
+
+        out["restart"] = {}
+        for arch_id in (LM_ARCH, RECSYS_ARCH):
+            t = time.perf_counter()
+            rec = check_restart(arch_id, work, dev, full=False)
+            rec["s"] = time.perf_counter() - t
+            out["restart"][arch_id] = rec
+        log(f"phase 14 restarts at the smoke configs ({card}): "
+            f"{json.dumps(out['restart'])}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+    out["attention_backward"] = time_attention_backward(ops, ref, dev)
+    out["attention_backward"]["per_step_s"] = \
+        1e-3 * out["attention_backward"]["plain_backward_ms"] * cfg.n_layers
+    log(f"attention backward ({card}): {json.dumps(out['attention_backward'])}")
+    out["cin_backward"] = time_cin_backward(
+        ops, ref, dev, float(np.median(out["recsys"]["step_s"])))
+    log(f"K5 plain backward ({card}): {json.dumps(out['cin_backward'])}")
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def model_cfg(arch_id: str):
+    """The full model config of ``arch_id``."""
+    from repro_torch.configs import get_config
+    return get_config(arch_id).model
+
+
 def reset_counts(*mods) -> None:
     """Set the launch counts of the kernel modules to 0 (and K3's by body)."""
     for mod in mods:
         mod.LAUNCHES = 0
         for body in getattr(mod, "LAUNCHES_BY_BODY", ()):
             mod.LAUNCHES_BY_BODY[body] = 0
+
+
+T_START = time.perf_counter()
 
 
 def main() -> int:
@@ -3486,6 +3888,19 @@ def main() -> int:
         raise AssertionError("K4 was not launched by the training rounds")
     launches["segment_matmul_training"] = tr_launches["segment_matmul"]
     launches["peel_wave_training"] = tr_launches["peel_wave"]
+
+    # qwen3-0.6b and xDeepFM training through the launcher (K3's wgmma
+    # body, K4's gathered entry, K5); the counts are set to 0 inside, just
+    # before each run, and read just after it
+    lt = drive_lm_recsys_training(dev, card)
+    lm_tr = lt["lm"]["by_body"]["flash_attention"]["wgmma"]
+    rs_tr = lt["recsys"]["launches"]
+    wgmma_paths[f"{LM_ARCH} training"] = lm_tr
+    launches["flash_attention_wgmma"] += lm_tr
+    launches["segment_matmul_training"] += rs_tr["segment_matmul"]
+    launches["cin_training"] = rs_tr["cin"]
+    log(f"LM and recsys training ({card}): {lt['phase_s']:.1f} s; "
+        f"{json.dumps(lt)}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -3529,6 +3944,8 @@ def main() -> int:
     # turns with the wgmma body there); "layouts" has each body at each
     # layout it was timed at, "path" the paths that launched it
     layouts = {"flat": f"{list(K3_SHAPE)}",
+               "gqa": f"{LM_ARCH} prefill and training [{PREFILL_BATCH}, "
+                      f"{PREFILL_SEQ}, 16 q / 8 kv, 128]",
                "gemma": f"{GEMMA_ARCH} [{GEMMA_BATCH}, {GEMMA_SEQ}, "
                         f"{GEMMA_HEADS[0]} q / {GEMMA_HEADS[1]} kv, "
                         f"{GEMMA_HEADS[2]}]"}
@@ -3549,7 +3966,7 @@ def main() -> int:
                 "bound_ms": k3_time[key]["bound"][0],
                 "bound_by": k3_time[key]["bound"][1],
                 "library_ms": k3_time[key]["sdpa"]}
-                for key in ("flat", "gemma")}})
+                for key in ("flat", "gqa", "gemma")}})
     # K4: the recsys path's entry (declared sorted, the mean fused) at
     # bulk; the sum and sorting entries and the p99 shape under "entries";
     # the training path's rows entry under "training_rows_entry"
@@ -3574,8 +3991,11 @@ def main() -> int:
             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms})
     kernels[-2]["path"] = {"recsys": launches["segment_matmul"],
-                           "training": tr_launches["segment_matmul"]}
+                           "training": tr_launches["segment_matmul"],
+                           "recsys training": rs_tr["segment_matmul"]}
     kernels[-2]["training_rows_entry"] = tr["k4_shapes"]
+    kernels[-2]["gathered_plain_backward_ms"] = \
+        lt["cin_backward"]["k4_plain_backward_ms"]
     kernels[-2]["entries"] = {
         shape: {key: k45_time[f"segment_matmul {shape}"]["ms"][key]
                 for key in ("sum", "mean", "sorting", "plain", "plain_mean",
@@ -3589,8 +4009,17 @@ def main() -> int:
     # call, and the GEMM's compile report
     kernels[-1].update({"sgemm_ms": k45_time["cin sgemm_ms"],
                         "bulk_layer2": k45_time["cin bulk layer 2"],
-                        "compile": k5_compile})
+                        "compile": k5_compile,
+                        "path": {"recsys": launches["cin"],
+                                 "recsys training": rs_tr["cin"]},
+                        "plain_backward": lt["cin_backward"]})
+    # K3's training forward is prefill's GQA layout ("layouts" has it under
+    # the prefill name); its backward is plain
+    kernels[2]["training"] = lt["attention_backward"]
     log(f"recsys outputs: {json.dumps(out_errs)}")
+    log(f"smoke total ({card}): {time.perf_counter() - T_START:.1f} s of "
+        f"the 1,200 s limit; phase 13 {tr['phase_s']:.1f} s, phase 14 "
+        f"{lt['phase_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

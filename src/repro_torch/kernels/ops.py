@@ -7,9 +7,16 @@ tensor launches the hand-written kernel (``peel_wave``, ``bitmap_support``,
 cannot run; a CPU tensor takes the plain version in ``ref``.  There is no fallback from one to the other.  ``use_kernels(False)``
 is the explicit A/B switch that sends every device to the plain version.
 
-``segment_sum`` is the one differentiable entry: K4's rows entry forward
-(the GNN family's aggregation), and as its backward the row gather
-``ref.segment_sum_vjp_ref``, the same plain code on every device.
+Four entries are differentiable, each a ``torch.autograd.Function`` whose
+forward is the kernel (the plain version on a CPU tensor or under
+``use_kernels(False)``) and whose backward is plain PyTorch, the same code
+on every device: the reference has no backward kernel to port.
+``segment_sum`` (K4's rows entry, the GNN family's aggregation; backward
+``ref.segment_sum_vjp_ref``), ``flash_attention_heads`` (K3; backward
+``ref.attention_vjp_ref``), ``segment_matmul_gathered`` (K4's gathered
+entry, the embedding bag; backward ``ref.segment_gathered_vjp_ref``) and
+``cin_layer`` (K5; backward ``ref.cin_layer_vjp_ref``).  Under
+``torch.no_grad`` each launches exactly what its forward launches.
 """
 from __future__ import annotations
 
@@ -124,16 +131,44 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     return ref.attention_ref(q, k, v, causal=causal, window=window)
 
 
+class FlashAttention(torch.autograd.Function):
+    """Attention in the model's layout with a gradient.  Forward: K3 (body
+    by ``body_for``) when ``kernel`` is set and the tensors are on the card
+    with kernels enabled, else ``ref.chunked_attention_ref``.  It saves q,
+    k and v; the backward is ``ref.attention_vjp_ref``, which recomputes
+    the scores a query block at a time and launches no kernel."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, kernel):
+        if kernel and _on_card(q, k, v):
+            o = flash_attention_cuda(q, k, v, causal=causal, window=window)
+        else:
+            o = ref.chunked_attention_ref(
+                q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                causal=causal, window=window).transpose(1, 2)
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v = ctx.saved_tensors
+        causal, window = ctx.mask
+        grads = ref.attention_vjp_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            do.transpose(1, 2), causal=causal, window=window)
+        return tuple(g.transpose(1, 2) for g in grads) + (None, None, None)
+
+
 def flash_attention_heads(q, k, v, *, causal: bool = True,
-                          window: int | None = None):
-    """K3 in the model's layout — the entry the prefill path calls: q
-    ``[B, S, Hq, Dh]``, k/v ``[B, S, Hkv, Dh]`` (GQA, KV heads read in
-    place on the card) -> ``[B, S, Hq, Dh]`` in ``q.dtype``."""
-    if _on_card(q, k, v):
-        return flash_attention_cuda(q, k, v, causal=causal, window=window)
-    return ref.chunked_attention_ref(
-        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-        causal=causal, window=window).transpose(1, 2)
+                          window: int | None = None, kernel: bool = True):
+    """K3 in the model's layout — the entry the prefill and training paths
+    call: q ``[B, S, Hq, Dh]``, k/v ``[B, S, Hkv, Dh]`` (GQA, KV heads read
+    in place on the card) -> ``[B, S, Hq, Dh]`` in ``q.dtype``,
+    differentiable (``FlashAttention``).  ``kernel=False`` takes the
+    chunked plain version on every device (the model's route below 512
+    positions)."""
+    return FlashAttention.apply(q, k, v, causal, window, kernel)
 
 
 def segment_matmul(messages, seg_ids, num_segments: int):
@@ -170,14 +205,8 @@ def segment_sum(messages, seg_ids, num_segments: int):
     return SegmentSum.apply(messages, seg_ids, int(num_segments))
 
 
-def segment_matmul_gathered(table, indices, seg_ids, num_segments: int, *,
-                            ids_sorted: bool = False, mean: bool = False):
-    """K4's gathered entry — the one ``embedding_bag`` calls:
-    ``segment_matmul(table[indices], seg_ids, N)`` with the rows read in
-    place on the card (``jnp.take`` semantics for the indices).
-    ``ids_sorted`` declares the ids ascending, so nothing sorts them (a
-    false declaration raises on the CPU and gives all NaN on the card);
-    ``mean`` divides each sum by ``max(count, 1)`` in the same call."""
+def _segment_matmul_gathered(table, indices, seg_ids, num_segments: int,
+                             ids_sorted: bool, mean: bool):
     if _on_card(table, indices, seg_ids):
         return segment_sum_cuda(table, seg_ids, num_segments, indices,
                                 ids_sorted=ids_sorted, mean=mean)
@@ -190,9 +219,58 @@ def segment_matmul_gathered(table, indices, seg_ids, num_segments: int, *,
                                            num_segments)
 
 
+class SegmentSumGathered(torch.autograd.Function):
+    """K4's gathered entry with a gradient for the table: backward
+    ``ref.segment_gathered_vjp_ref``, a dense table gradient.  The indices
+    and ids get none."""
+
+    @staticmethod
+    def forward(ctx, table, indices, seg_ids, num_segments, ids_sorted, mean):
+        ctx.save_for_backward(indices, seg_ids)
+        ctx.table_shape, ctx.mean = table.shape, mean
+        return _segment_matmul_gathered(table, indices, seg_ids, num_segments,
+                                        ids_sorted, mean)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        indices, seg_ids = ctx.saved_tensors
+        grad = ref.segment_gathered_vjp_ref(grad_out, ctx.table_shape,
+                                            indices, seg_ids, ctx.mean)
+        return grad, None, None, None, None, None
+
+
+def segment_matmul_gathered(table, indices, seg_ids, num_segments: int, *,
+                            ids_sorted: bool = False, mean: bool = False):
+    """K4's gathered entry — the one ``embedding_bag`` calls:
+    ``segment_matmul(table[indices], seg_ids, N)`` with the rows read in
+    place on the card (``jnp.take`` semantics for the indices).
+    ``ids_sorted`` declares the ids ascending, so nothing sorts them (a
+    false declaration raises on the CPU and gives all NaN on the card);
+    ``mean`` divides each sum by ``max(count, 1)`` in the same call.
+    Differentiable in ``table`` (``SegmentSumGathered``)."""
+    return SegmentSumGathered.apply(table, indices, seg_ids,
+                                    int(num_segments), ids_sorted, mean)
+
+
+class CinLayer(torch.autograd.Function):
+    """K5 with a gradient: it saves its inputs and output, and its backward
+    is ``ref.cin_layer_vjp_ref`` (batch-chunked, relu mask from the
+    output)."""
+
+    @staticmethod
+    def forward(ctx, xk, x0, w):
+        out = (cin_layer_cuda(xk, x0, w) if _on_card(xk, x0, w)
+               else ref.cin_layer_ref(xk, x0, w))
+        ctx.save_for_backward(xk, x0, w, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return ref.cin_layer_vjp_ref(*ctx.saved_tensors, g)
+
+
 def cin_layer(xk, x0, w):
     """K5: ``relu(einsum('bhd,bmd,ohm->bod', xk, x0, w))`` in fp32 ->
-    ``[B, O, D]`` in ``xk.dtype`` (float32 on the card)."""
-    if _on_card(xk, x0, w):
-        return cin_layer_cuda(xk, x0, w)
-    return ref.cin_layer_ref(xk, x0, w)
+    ``[B, O, D]`` in ``xk.dtype`` (float32 on the card), differentiable
+    (``CinLayer``)."""
+    return CinLayer.apply(xk, x0, w)

@@ -5,9 +5,11 @@
 All modules are (init, apply) pairs over plain dicts of tensors.  Compute
 dtype is bf16 with fp32 params and fp32 softmax/normaliser math, and the
 casts sit where the reference puts them, so bf16 rounds at the same places.
-Prefill attention on a CUDA tensor at ``s >= 512`` launches the hand-written
-kernel K3 (``kernels.ops.flash_attention_heads``); everywhere else it takes
-``_chunked_attention``, exactly as the reference does off the TPU.  Decode
+Prefill and training attention on a CUDA tensor at ``s >= 512`` launches
+the hand-written kernel K3 (``kernels.ops.flash_attention_heads``);
+everywhere else it takes ``_chunked_attention``, exactly as the reference
+does off the TPU.  Both go through that one differentiable entry, whose
+backward is plain (``kernels.ref.attention_vjp_ref``).  Decode
 attention is plain fp32 tensor math, as in the reference, and updates the KV
 cache in place (the reference donates it).
 
@@ -27,7 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kernel_ops
-from ..kernels.ref import chunked_attention_ref as _chunked_attention
+from ..kernels.ref import chunked_attention_ref as _chunked_attention  # noqa: F401
 
 Params = dict[str, Any]
 COMPUTE_DTYPE = torch.bfloat16
@@ -164,13 +166,11 @@ def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
     k = rope(k, positions, rope_theta)
 
     if cache is None:
-        if x.device.type == "cuda" and s >= 512:
-            out = kernel_ops.flash_attention_heads(
-                q, k, v, causal=causal, window=window)      # [B, S, Hq, Dh]
-        else:
-            out = _chunked_attention(q.transpose(1, 2), k.transpose(1, 2),
-                                     v.transpose(1, 2), causal=causal,
-                                     window=window).transpose(1, 2)
+        # K3 on the card at s >= 512, the chunked plain version elsewhere;
+        # one differentiable entry either way (backward: attention_vjp_ref)
+        out = kernel_ops.flash_attention_heads(
+            q, k, v, causal=causal, window=window,
+            kernel=x.device.type == "cuda" and s >= 512)  # [B, S, Hq, Dh]
         out = out.reshape(b, s, n_heads * head_dim)
         new_cache = None
     else:

@@ -1,5 +1,5 @@
 """xDeepFM (Lian et al., KDD'18), port of ``repro/models/recsys.py``: sparse
-embedding tables + CIN + deep MLP, for serving.
+embedding tables + CIN + deep MLP, for serving and training.
 
 Tables are one fused ``[n_sparse · vocab, D]`` matrix, as in the reference.
 ``embedding_bag`` is the gathered segment sum K4
@@ -7,17 +7,24 @@ Tables are one fused ``[n_sparse · vocab, D]`` matrix, as in the reference.
 exists on the card), its mean fused into the same launch; the multi-hot bag
 ids are sorted by construction, and ``_field_embeddings`` says so, so
 nothing sorts them.  Each CIN layer is K5 (``kernels.ops.cin_layer``).  On
-CPU tensors both take their plain versions.  Single-hot fields, the wide term and the retrieval candidates
-stay plain gathers (``jnp.take`` in the reference).
+CPU tensors both take their plain versions.  Single-hot fields, the wide
+term and the retrieval candidates stay plain gathers (``jnp.take`` in the
+reference).
+
+``_field_embeddings``, ``_cin``, ``forward`` and ``loss_fn`` are
+differentiable: K4's and K5's entries are ``torch.autograd.Function``s
+whose backwards are plain PyTorch (``kernels.ref.segment_gathered_vjp_ref``,
+a dense table gradient; ``kernels.ref.cin_layer_vjp_ref``, chunked over the
+batch), and the plain gathers take autograd's indexing backward, which
+sorts its indices on the card, so a step's gradient is the same bits each
+time.  ``serve`` and ``retrieval_score`` run under ``torch.no_grad``.
 
 Parameters are a plain dict under the reference's key names (``cin`` and
 ``mlp`` lists); ``params_from_numpy`` / ``params_to_numpy`` carry a
 reference pytree (as numpy) across.  Batches are dicts of tensors under
 ``ClickStream``'s keys.  Initializers draw from an explicit
 ``torch.Generator`` on the device the parameters live on; its numbers are
-not ``jax.random``'s.  Everything here is forward only, under
-``torch.no_grad``; the gradient of ``loss_fn`` comes with the port's
-training slice.
+not ``jax.random``'s.
 """
 from __future__ import annotations
 
@@ -101,7 +108,6 @@ def multihot_bags(cfg: RecsysConfig, mh: torch.Tensor):
     return rows.transpose(0, 1).reshape(-1), bag_ids
 
 
-@torch.no_grad()
 def _field_embeddings(cfg: RecsysConfig, params: dict,
                       batch: dict) -> torch.Tensor:
     """``[B, n_sparse + 1, D]``: single-hot gathers + embedding-bag
@@ -121,7 +127,6 @@ def _field_embeddings(cfg: RecsysConfig, params: dict,
     return torch.cat([single, multi, dense], dim=1)
 
 
-@torch.no_grad()
 def _cin(params: dict, x0: torch.Tensor) -> torch.Tensor:
     """Compressed Interaction Network.  x0: ``[B, M, D]`` -> ``[B,
     sum(H_k)]``; each layer is K5 (relu included)."""
@@ -133,7 +138,6 @@ def _cin(params: dict, x0: torch.Tensor) -> torch.Tensor:
     return torch.cat(feats, dim=-1)
 
 
-@torch.no_grad()
 def forward(cfg: RecsysConfig, params: dict, batch: dict) -> torch.Tensor:
     """Click logit ``[B]``."""
     emb = _field_embeddings(cfg, params, batch)      # [B, M, D]
@@ -154,9 +158,8 @@ def forward(cfg: RecsysConfig, params: dict, batch: dict) -> torch.Tensor:
     return lin + cin_logit + h[:, 0] + params["bias"]
 
 
-@torch.no_grad()
 def loss_fn(cfg: RecsysConfig, params: dict, batch: dict) -> torch.Tensor:
-    """Mean binary cross-entropy of the click logits (forward only)."""
+    """Mean binary cross-entropy of the click logits."""
     logit = forward(cfg, params, batch)
     y = batch["labels"].to(F32)
     return torch.mean(torch.clamp(logit, min=0) - logit * y

@@ -1,14 +1,19 @@
 """LM family, dense half of ``repro/models/transformer.py``: a decoder-only
 transformer (GQA, qk-norm, MQA/GeGLU, SWA, LayerNorm/GELU variants) with its
-prefill and ring-buffer decode paths.
+training loss, prefill and ring-buffer decode paths.
 
 Parameters are a plain dict under the reference's key names, with the
 reference's ``[L, ...]``-stacked ``layers`` held as a list of per-layer
 dicts, so a layer loop replaces ``lax.scan``.  ``params_from_numpy`` /
-``params_to_numpy`` carry a reference pytree (as numpy) across.  The
-forward paths run under ``torch.no_grad``; the KV cache of ``decode_step``
-is updated in place.  The training loss waits for the port's training
-slice, MoE layers for its MoE slice.
+``params_to_numpy`` carry a reference pytree (as numpy) across.
+
+``loss_fn`` is differentiable: each layer runs under
+``torch.utils.checkpoint`` (the reference's per-layer remat), so its
+forward, K3 included, runs again in the backward; the cross-entropy runs
+one sequence chunk at a time, each chunk checkpointed, so the ``[B, S, V]``
+logits never exist.  ``backbone``, ``prefill`` and ``decode_step`` run
+under ``torch.no_grad``; the KV cache of ``decode_step`` is updated in
+place.  MoE layers wait for the port's MoE slice.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import math
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import LMConfig
 from . import layers
@@ -136,20 +142,57 @@ def _layer_fwd(cfg: LMConfig, lp: dict, x: torch.Tensor,
     return x + m
 
 
-@torch.no_grad()
-def backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> hidden [B, S, D] bf16 (dense: no aux loss)."""
+def _backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] -> hidden [B, S, D] bf16 (dense: no aux loss), with a
+    gradient: each layer is checkpointed (recomputed in the backward), as
+    the reference remats each layer; under ``torch.no_grad`` that saves
+    nothing and recomputes nothing."""
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     for lp in params["layers"]:
-        x = _layer_fwd(cfg, lp, x, positions)
+        x = checkpoint(_layer_fwd, cfg, lp, x, positions, use_reentrant=False,
+                       preserve_rng_state=False)
     return layers.norm_apply(params["final_norm"], x, cfg.norm)
+
+
+@torch.no_grad()
+def backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+    """tokens [B, S] -> hidden [B, S, D] bf16 (dense: no aux loss)."""
+    return _backbone(cfg, params, tokens)
 
 
 def _unembed(cfg: LMConfig, params: dict) -> torch.Tensor:
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return w.to(COMPUTE_DTYPE)
+
+
+def _chunk_loss(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Summed ``logsumexp - gold`` of one sequence chunk: logits ``(h @
+    w)`` in bf16, then fp32, as the reference's ``chunk_loss``."""
+    logits = (h @ w).float()                                     # [B, c, V]
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, t[..., None].long())[..., 0]
+    return torch.sum(lse - gold)
+
+
+def loss_fn(cfg: LMConfig, params: dict, batch: dict, *,
+            xent_chunk: int = 512) -> torch.Tensor:
+    """Causal LM loss, differentiable: the mean next-token cross-entropy.
+    The logits are computed one ``xent_chunk``-long sequence chunk at a
+    time under ``checkpoint`` (recomputed in the backward), so ``[B, S,
+    V]`` never exists.  As in the reference, ``S // chunk`` chunks are
+    summed and the sum is divided by ``B·S``; the MoE aux term is 0 for
+    the dense models ported."""
+    tokens, targets = batch["tokens"], batch["targets"]
+    hidden = _backbone(cfg, params, tokens)
+    w = _unembed(cfg, params)
+    b, s, _ = hidden.shape
+    c = min(xent_chunk, s)
+    losses = [checkpoint(_chunk_loss, hidden[:, i * c:(i + 1) * c],
+                         targets[:, i * c:(i + 1) * c], w, use_reentrant=False,
+                         preserve_rng_state=False) for i in range(s // c)]
+    return torch.stack(losses).sum() / (b * s)
 
 
 @torch.no_grad()

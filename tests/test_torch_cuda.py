@@ -8,7 +8,10 @@ snapshots restoring bitwise; a replica on the card tailing such a
 primary (K1 in its applies, bitwise equal at every generation), its
 promotion, and a profiled flush with every device record; the GNN
 family's differentiable segment sum (K4 forward, a plain gather backward)
-and one training step of each GNN smoke config against the plain route.
+and one training step of each GNN smoke config against the plain route;
+the LM and recsys training entries (K3, K4's gathered entry and K5 as
+autograd Functions with plain backwards) and one training step of the
+qwen3 and xDeepFM smoke configs against the plain route.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -945,3 +948,170 @@ def test_gnn_train_step_on_card_equals_plain_route(cuda, arch_id):
     assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(new))
     assert any(not torch.equal(a, b) for a, b in
                zip(tree_leaves(new), tree_leaves(card)))
+
+
+# ---------------------------------------------------------------------------
+# the LM and recsys training paths: K3, K4's gathered entry and K5 as
+# autograd Functions (the kernel forward, a plain backward) and one training
+# step of each smoke config on the card against the plain route
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("b,s,hq,hkv,dh,dtype,body", [
+    (2, 1024, 16, 8, 128, torch.bfloat16, "wgmma"),
+    (1, 512, 4, 2, 32, torch.float32, "simt")])
+def test_flash_attention_function_on_card(cuda, b, s, hq, hkv, dh, dtype, body):
+    """Forward: one launch of the body ``body_for`` picks, within the
+    path's tolerance of ``use_kernels(False)`` (one bf16 step; 2e-5 in
+    fp32).  Backward: no launch, and bitwise equal to the plain route's,
+    since both run ``ref.attention_vjp_ref`` on the same saved inputs."""
+    rng = np.random.default_rng(s + dh)
+    leaves = [_heads(rng, (b, s, h, dh), dtype, cuda).requires_grad_(True)
+              for h in (hq, hkv, hkv)]
+    do = _heads(rng, (b, s, hq, dh), dtype, cuda)
+    n = dict(flash_attention.LAUNCHES_BY_BODY)
+    out = ops.flash_attention_heads(*leaves, window=300)
+    grads = torch.autograd.grad(out, leaves, do)
+    torch.cuda.synchronize()
+    assert flash_attention.LAUNCHES_BY_BODY[body] == n[body] + 1
+    assert sum(flash_attention.LAUNCHES_BY_BODY.values()) == sum(n.values()) + 1
+    ops.use_kernels(False)
+    try:
+        p_out = ops.flash_attention_heads(*leaves, window=300)
+        p_grads = torch.autograd.grad(p_out, leaves, do)
+    finally:
+        ops.use_kernels(True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(out, p_out, rtol=2e-5, atol=2e-5)
+    else:
+        torch.testing.assert_close(out.float(), p_out.float(), rtol=1.6e-2,
+                                   atol=1e-3)
+    for g, p in zip(grads, p_grads):
+        assert g.dtype == dtype and torch.equal(g, p)
+
+
+def test_cin_function_on_card(cuda):
+    """K5 at a training layer 2 ``[4,096, 200/40, 10]``: one launch
+    forward, none backward; the forward within 2e-5 of the plain route's,
+    the three gradients bitwise equal to the plain backward on the
+    kernel's output, and the two routes' relu decisions (which the
+    backward's mask follows) differing only where both outputs lie within
+    2e-5 of 0."""
+    rng = np.random.default_rng(7)
+    b, h, m, o, d = 4096, 200, 40, 200, 10
+    xk = _heads(rng, (b, h, d), torch.float32, cuda).requires_grad_(True)
+    x0 = _heads(rng, (b, m, d), torch.float32, cuda).requires_grad_(True)
+    w = (_heads(rng, (o, h, m), torch.float32, cuda) / np.sqrt(h * m)
+         ).requires_grad_(True)
+    g = _heads(rng, (b, o, d), torch.float32, cuda)
+    n = cin.LAUNCHES
+    out = ops.cin_layer(xk, x0, w)
+    grads = torch.autograd.grad(out, (xk, x0, w), g)
+    torch.cuda.synchronize()
+    assert cin.LAUNCHES == n + 1
+    ops.use_kernels(False)
+    try:
+        p_out = ops.cin_layer(xk, x0, w)
+    finally:
+        ops.use_kernels(True)
+    torch.testing.assert_close(out, p_out, rtol=2e-5, atol=2e-5)
+    with torch.no_grad():
+        exp = ref.cin_layer_vjp_ref(xk, x0, w, out, g)
+    for a, e in zip(grads, exp):
+        assert torch.equal(a, e)
+    out, p_out = out.detach(), p_out.detach()
+    differ = (out > 0) != (p_out > 0)
+    assert float(torch.where(differ, torch.maximum(out, p_out), 0.0).max()) <= 2e-5
+
+
+def test_embedding_bag_function_on_card(cuda):
+    """K4's gathered mean entry on an xDeepFM batch's multi-hot bags
+    (declared sorted): one launch forward within 1e-5 of the plain route,
+    none backward; the dense table gradient bitwise equal to the plain
+    route's (the scatter sorts its indices on the card) and within 1e-5 of
+    the CPU's."""
+    cfg = get_config("xdeepfm").smoke
+    nb = ClickStream(cfg, 4096, seed=5).next()
+    mh = torch.from_numpy(nb["multihot_ids"]).to(cuda)
+    rows, bags = recsys.multihot_bags(cfg, mh)
+    rng = np.random.default_rng(5)
+    table = torch.from_numpy(rng.normal(size=(
+        cfg.n_sparse * cfg.vocab_per_field, cfg.embed_dim)).astype(np.float32))
+    t = table.to(cuda).requires_grad_(True)
+    nbags = 4096 * cfg.n_multihot
+    g = _heads(rng, (nbags, cfg.embed_dim), torch.float32, cuda)
+    n = segment_matmul.LAUNCHES
+    out = ops.segment_matmul_gathered(t, rows, bags, nbags, ids_sorted=True,
+                                      mean=True)
+    (grad,) = torch.autograd.grad(out, t, g)
+    torch.cuda.synchronize()
+    assert segment_matmul.LAUNCHES == n + 1
+    ops.use_kernels(False)
+    try:
+        p_out = ops.segment_matmul_gathered(t, rows, bags, nbags,
+                                            ids_sorted=True, mean=True)
+        (p_grad,) = torch.autograd.grad(p_out, t, g)
+    finally:
+        ops.use_kernels(True)
+    torch.testing.assert_close(out, p_out, rtol=1e-5, atol=1e-5)
+    assert torch.equal(grad, p_grad)
+    torch.testing.assert_close(grad.cpu(), ref.segment_gathered_vjp_ref(
+        g.cpu(), table.shape, rows.cpu(), bags.cpu(), mean=True),
+        rtol=1e-5, atol=1e-6)
+
+
+def _step_vs_plain(loss_fn, params, batch):
+    loss, grads = value_and_grad(loss_fn, params, batch)
+    ops.use_kernels(False)
+    try:
+        p_loss, p_grads = value_and_grad(loss_fn, params, batch)
+    finally:
+        ops.use_kernels(True)
+    return loss, grads, p_loss, p_grads
+
+
+def test_lm_train_step_on_card_equals_plain_route(cuda):
+    """qwen3's smoke config at ``[2, 512]``: K3 (the SIMT body at head dim
+    16) launched once a layer forward and once more a layer in the remat;
+    the loss within 5e-3 relative and each gradient leaf within 5e-2
+    relative Frobenius error of ``use_kernels(False)`` (the bf16 forward
+    differs by K3's roundings)."""
+    cfg = get_config("qwen3-0.6b").smoke
+    params = transformer.init_params(cfg, torch.Generator(cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 513)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    loss_fn = lambda p, b: transformer.loss_fn(cfg, p, b)
+    n = flash_attention.LAUNCHES
+    loss, grads, p_loss, p_grads = _step_vs_plain(loss_fn, params, batch)
+    assert flash_attention.LAUNCHES == n + 2 * cfg.n_layers
+    assert abs(float(loss) - float(p_loss)) <= 5e-3 * abs(float(p_loss))
+    for g, p in zip(tree_leaves(grads), tree_leaves(p_grads)):
+        assert float(torch.linalg.vector_norm(g - p)) <= \
+            5e-2 * float(torch.linalg.vector_norm(p))
+
+
+def test_recsys_train_step_on_card_equals_plain_route(cuda):
+    """xDeepFM's smoke config: K4 once and K5 once a CIN layer a step; the
+    loss and every leaf within rtol 1e-5 plus 1e-5 of the leaf's largest
+    magnitude of ``use_kernels(False)`` and of the CPU."""
+    cfg = get_config("xdeepfm").smoke
+    params = recsys.init_params(cfg, torch.Generator().manual_seed(0))
+    card = recsys.params_from_numpy(recsys.params_to_numpy(params), device=cuda)
+    nb = ClickStream(cfg, 512, seed=2).next()
+    loss_fn = lambda p, b: recsys.loss_fn(cfg, p, b)
+    n4, n5 = segment_matmul.LAUNCHES, cin.LAUNCHES
+    loss, grads, p_loss, p_grads = _step_vs_plain(
+        loss_fn, card, recsys.batch_to_torch(nb, cuda))
+    assert segment_matmul.LAUNCHES == n4 + 1
+    assert cin.LAUNCHES == n5 + len(cfg.cin_layers)
+    c_loss, c_grads = value_and_grad(loss_fn, params,
+                                     recsys.batch_to_torch(nb, "cpu"))
+
+    def close(got, exp):
+        tol = 1e-5 * max(1e-30, float(exp.abs().max()))
+        torch.testing.assert_close(got.cpu(), exp.cpu(), rtol=1e-5, atol=tol)
+
+    for other_loss, other in ((p_loss, p_grads), (c_loss, c_grads)):
+        close(loss, other_loss)
+        for g, h in zip(tree_leaves(grads), tree_leaves(other)):
+            close(g, h)

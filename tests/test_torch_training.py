@@ -356,10 +356,14 @@ def test_train_launcher_matches_reference(tmp_path, monkeypatch, capsys):
                         "--ckpt", str(tmp_path / "j.npz")])
     assert [h["step"] for h in more["history"]] == [6, 7]
     assert all(np.isfinite(h["loss"]) for h in more["history"])
+    # the LM and recsys families train too (their parity is in
+    # tests/test_torch_{lm,recsys}_training.py)
     for fam in ("qwen3-0.6b", "xdeepfm"):
-        with pytest.raises(SystemExit, match="16b"):
-            ttrain.main(["--arch", fam, "--device", "cpu",
-                         "--ckpt", str(tmp_path / "x.npz")])
+        fout = ttrain.main(["--arch", fam, "--steps", "2", "--batch", "2",
+                            "--seq", "32", "--device", "cpu",
+                            "--ckpt", str(tmp_path / f"{fam}.npz")])
+        assert [h["step"] for h in fout["history"]] == [0, 1]
+        assert all(np.isfinite(h["loss"]) for h in fout["history"])
 
 
 # ---------------------------------------------------------------------------
