@@ -202,12 +202,36 @@
     smoke configs, and the plain backwards timed: attention's at the
     training layer beside K3's forward, K5's at each of the step's CIN
     layers (and its share of the step) and K4's gathered one.
-15. Fails unless every kernel was launched by its path (K1 and K2 on the
+15. Serves the two MoE archs at full width, each with its depth cut to
+    fit one card in fp32 and the cut printed (``MOE_RUNS``: mixtral-8x7b 8
+    of 32 layers, 47.5 GB; llama4-scout-17b-a16e 4 of 48, 41.5 GB), seeded
+    random weights, each built and freed in turn: two timed prefill calls
+    (mixtral ``[1, 8192]``, where K3's 4,096 window masks; llama4
+    ``[4, 4096]``, a GQA group of 5), K3's wgmma body once a layer a call
+    and its SIMT body never, logits finite, one more call profiled; the
+    logits against the plain route (chunked attention) replaying the
+    kernel route's expert choices (within ``LOGIT_RTOL`` of the largest
+    |logit|), each route's own choices at those matched inputs differing
+    only within ``ROUTE_TIE_GAP`` of a tie, the dropped slots by layer;
+    ``DecodeEngine`` serving 4 requests of 64 + 16 tokens, each wave
+    timed, and ``decode_step``'s replay of the prompts against prefill's
+    logits on every row whose prefill dropped no token and routed as
+    decode did (decode never drops: its capacity is 1); on mixtral's
+    engine cache after serving, ``kv_quant``'s int8 cache and
+    ``attend_quant`` on every layer against the bf16 decode attention
+    (``KV_QUANT_TOL``), bytes and ms of both.  Then ``launch.serve`` and
+    ``launch.train --steps 3`` of both MoE archs as four subprocesses at
+    once (smoke configs, exit 0, finite losses), ``launch.train`` in
+    process on the card and the CPU from the same parameters (first loss
+    within ``MOE_LAUNCH_RTOL``; the aux loss nonzero), and K3 at both MoE
+    layouts against its plain version and timed beside its bound and
+    ``scaled_dot_product_attention``.
+16. Fails unless every kernel was launched by its path (K1 and K2 on the
     truss path, on the service path and on the sharded path, K1 on the
     cluster path and the training rounds, K4 on the recsys and training
-    paths, K3 and K5 on the LM and recsys training paths too), prints the
-    smoke's total seconds, the kernels line, the card line, and last the
-    device line.
+    paths, K3 and K5 on the LM and recsys training paths too, K3 on the
+    MoE prefills), prints the smoke's total seconds, the kernels line, the
+    card line, and last the device line.
 
 Every failed check raises, so the exit code is non-zero.  The script needs
 a CUDA device, ``nvcc`` and the rest of this checkout; it imports no JAX.
@@ -215,6 +239,7 @@ a CUDA device, ``nvcc`` and the rest of this checkout; it imports no JAX.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import os
@@ -301,6 +326,26 @@ RS_CHECK_ROWS = 4096     # the rows of the batch held to the plain route
 # up to 2.3e-2 against the reference (tests/test_torch_lm_training.py)
 LM_STEP_LOSS_RTOL, LM_STEP_GRAD_FRO = 5e-3, 5e-2
 RESTART_STEPS, RESTART_AT = 6, 3   # 3 steps, preempted, resumed to 6
+# Phase 15: MoE serving.  Each arch at full width with its depth cut to fit
+# one H100 in fp32 (47.5 / 41.5 GB of parameters); mixtral's prefill at
+# 8,192 positions, so K3's 4,096 window masks half of the late queries' keys
+MOE_RUNS = (("mixtral-8x7b", 8, 1, 8192),            # arch, layers, batch, seq
+            ("llama4-scout-17b-a16e", 4, 4, 4096))
+MOE_ARCHS = tuple(r[0] for r in MOE_RUNS)
+MOE_SERVE_SLOTS, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 4, 64, 16
+MOE_SERVE_MAX_SEQ = 640
+KV_QUANT_ARCH, KV_QUANT_TOL = "mixtral-8x7b", 1e-2   # the reference's bound
+# A routing decision that differs between two routes (kernel vs plain
+# attention, decode vs prefill) must be a near-tie: the two experts'
+# probabilities on the first route within 2e-2.  The router's logits are
+# rounded to bf16 (COMPUTE_DTYPE) before the fp32 softmax: one bf16 step of
+# a logit near 2-4 is 2**-6 = 0.016, two logits may each round one step
+# apart, and p_a - p_b ~ p_a (l_a - l_b) with p_a < 1 then stays under 0.03
+ROUTE_TIE_GAP = 2e-2
+MOE_LAUNCH_RTOL = 5e-3       # the launcher's first loss, card vs CPU
+MOE_LAUNCH_TIMEOUT = 600
+MOE_K3_LAYOUTS = {"mixtral": (1, 8192, 32, 8, 128, 4096),   # b, s, hq, hkv, dh,
+                  "llama4": (4, 4096, 40, 8, 128, None)}    # window
 MOLECULE_GRAPHS = 128            # GNN_SHAPES' molecule cell: 128 x 30 nodes
 
 
@@ -3696,6 +3741,506 @@ def drive_lm_recsys_training(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: MoE serving on the card
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def moe_tape(layers, replay=None):
+    """Wrap ``layers.moe_apply`` (which the transformer calls through the
+    module) so that every MoE call records its own routing
+    (``layers.moe_route`` on the call's input) on the yielded list; with
+    ``replay`` (another run's list), call ``i`` takes that run's ``i``-th
+    expert choices instead of its own."""
+    orig, tape = layers.moe_apply, []
+
+    def wrapped(p, x, *, n_experts, top_k, kind, capacity_factor=1.25,
+                gate_idx=None):
+        tape.append(layers.moe_route(p["router"], x, n_experts=n_experts,
+                                     top_k=top_k,
+                                     capacity_factor=capacity_factor))
+        if replay is not None:
+            gate_idx = replay[len(tape) - 1].gate_idx
+        return orig(p, x, n_experts=n_experts, top_k=top_k, kind=kind,
+                    capacity_factor=capacity_factor, gate_idx=gate_idx)
+
+    layers.moe_apply = wrapped
+    try:
+        yield tape
+    finally:
+        layers.moe_apply = orig
+
+
+def route_differences(tape_a, tape_b) -> dict:
+    """(token, choice) decisions that differ between two lists of routings
+    of the same calls, each differing one's gap ``|p_a[e_a] - p_a[e_b]|``
+    on the first list's router probabilities (0 at an exact tie)."""
+    n, gaps = 0, []
+    for ra, rb in zip(tape_a, tape_b):
+        n += ra.gate_idx.numel()
+        diff = ra.gate_idx != rb.gate_idx
+        pa = torch.gather(ra.probs, -1, ra.gate_idx)[diff]
+        pb = torch.gather(ra.probs, -1, rb.gate_idx)[diff]
+        gaps += (pa - pb).abs().tolist()
+    return {"decisions": n, "differ": len(gaps),
+            "max_gap": max(gaps, default=0.0),
+            "gaps": sorted(gaps, reverse=True)[:8]}
+
+
+def check_route_gaps(diffs: dict, what: str) -> None:
+    if diffs["max_gap"] > ROUTE_TIE_GAP:
+        raise AssertionError(f"{what}: a routing decision differs "
+                             f"{diffs['max_gap']:.3g} from a tie in the "
+                             f"router probabilities, over {ROUTE_TIE_GAP}: "
+                             f"{json.dumps(diffs)}")
+
+
+def decode_attention(q, k_cache, v_cache, valid, n_kv: int) -> torch.Tensor:
+    """The decode attention of ``layers.attention_apply`` (fp32 scores and
+    softmax over the bf16 cache) for q ``[B, Hq, Dh]`` -> ``[B, Hq, Dh]``."""
+    b, hq, dh = q.shape
+    qg = q.reshape(b, n_kv, hq // n_kv, dh).float()
+    scores = torch.einsum("bkgd,bckd->bkgc", qg, k_cache.float()) * dh ** -0.5
+    w = torch.softmax(torch.where(valid, scores, -1e30), dim=-1)
+    return torch.einsum("bkgc,bckd->bkgd", w, v_cache.float()).reshape(b, hq, dh)
+
+
+def check_kv_quant(cfg, cache: dict, pos: int, dev) -> dict:
+    """The engine's bf16 cache after serving (``[L, B, C, Hkv, Dh]``, ``pos``
+    positions written) through ``kv_quant.quantize_kv``; ``attend_quant`` of
+    a seeded query at the last position on every layer against the bf16
+    decode attention (max abs error within ``KV_QUANT_TOL``); bytes and
+    CUDA-event ms of both."""
+    from repro_torch.serving import kv_quant
+
+    kq, ks = kv_quant.quantize_kv(cache["k"])
+    vq, vs = kv_quant.quantize_kv(cache["v"])
+    c = cache["k"].shape[2]
+    valid = torch.arange(c, device=dev) < pos
+    q = torch.randn((cache["k"].shape[1], cfg.n_heads, cfg.head_dim),
+                    generator=torch.Generator(dev).manual_seed(7), device=dev)
+    errs = []
+    for i in range(cfg.n_layers):
+        layer = {"kq": kq[i], "ks": ks[i], "vq": vq[i], "vs": vs[i]}
+        got = kv_quant.attend_quant(q, layer, valid, cfg.n_kv, cfg.head_dim)
+        exp = decode_attention(q, cache["k"][i], cache["v"][i], valid,
+                               cfg.n_kv)
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"attend_quant layer {i}: not finite")
+        errs.append(float((got - exp).abs().max()))
+    if max(errs) > KV_QUANT_TOL:
+        raise AssertionError(f"attend_quant differs from the bf16 decode "
+                             f"attention by {max(errs)} > {KV_QUANT_TOL}")
+    layer0 = {"kq": kq[0], "ks": ks[0], "vq": vq[0], "vs": vs[0]}
+    nbytes = lambda *ts: sum(t.numel() * t.element_size() for t in ts)  # noqa: E731
+    t = [time_ms(lambda: kv_quant.attend_quant(q, layer0, valid, cfg.n_kv,
+                                               cfg.head_dim), 20),
+         time_ms(lambda: decode_attention(q, cache["k"][0], cache["v"][0],
+                                          valid, cfg.n_kv), 20)]
+    t += [time_ms(lambda: decode_attention(q, cache["k"][0], cache["v"][0],
+                                           valid, cfg.n_kv), 20),
+          time_ms(lambda: kv_quant.attend_quant(q, layer0, valid, cfg.n_kv,
+                                                cfg.head_dim), 20)]
+    return {"cache": list(cache["k"].shape), "positions": pos,
+            "max_abs_err": max(errs), "tol": KV_QUANT_TOL,
+            "int8_bytes": nbytes(kq, ks, vq, vs),
+            "bf16_bytes": nbytes(cache["k"], cache["v"]),
+            "attend_quant_ms": [t[0], t[3]], "bf16_attention_ms": [t[1], t[2]]}
+
+
+def serve_moe(cfg, params, dev, rng) -> dict:
+    """``DecodeEngine``: ``MOE_SERVE_SLOTS`` requests of ``MOE_SERVE_PROMPT``
+    prompt and ``MOE_SERVE_NEW`` new tokens, each wave timed; then
+    ``decode_step``'s replay of the prompts against prefill's logits at the
+    prompt length, row by row (a request's prompt routes per row; decode
+    never drops, its capacity is 1).  The replay takes the expert choices
+    of a prefill at the drop-free capacity (``cap = s``), the function
+    decode computes, and is held within ``LOGIT_RTOL`` of it on every row,
+    decode's own choices differing only within ``ROUTE_TIE_GAP`` of a tie;
+    it is held to the configured prefill (capacity factor 1.25) on the
+    rows where that dropped no token, and each row's drops are logged."""
+    from repro_torch.models import layers, transformer
+    from repro_torch.serving import DecodeEngine, Request
+
+    prompts = rng.integers(1, cfg.vocab, (MOE_SERVE_SLOTS, MOE_SERVE_PROMPT))
+    eng = DecodeEngine(cfg, params, batch_slots=MOE_SERVE_SLOTS,
+                       max_seq=MOE_SERVE_MAX_SEQ, device=dev)
+    for i, p in enumerate(prompts):
+        eng.submit(Request(rid=i, prompt=p.tolist(), max_new=MOE_SERVE_NEW))
+    wave_ms = []
+    while True:
+        t = time.perf_counter()
+        if eng.step() == 0:          # each wave reads its tokens to the host
+            break
+        wave_ms.append(1e3 * (time.perf_counter() - t))
+    done = eng.finished
+    if len(done) != MOE_SERVE_SLOTS or any(len(r.out) != MOE_SERVE_NEW
+                                           for r in done):
+        raise AssertionError(f"{cfg.name}: the engine did not finish every "
+                             f"request")
+    out = {"waves": len(wave_ms), "wave_ms_p50": float(np.median(wave_ms)),
+           "wave_ms_max": max(wave_ms), "wave_ms_first": wave_ms[0],
+           "serve_s": sum(wave_ms) / 1e3,
+           "new_tok_s": MOE_SERVE_SLOTS * MOE_SERVE_NEW / (sum(wave_ms) / 1e3),
+           "cache": list(eng.cache["k"].shape)}
+
+    # prefill of the prompts as configured (capacity factor 1.25: a row may
+    # drop tokens) and with the drop-free capacity (cap = s), which is the
+    # function decode computes: at one position the capacity is 1 for any
+    # factor up to E / k, and a token's k experts are distinct
+    ptoks = torch.from_numpy(prompts).to(dev)
+    with moe_tape(layers) as pre:
+        logits_p = transformer.prefill(cfg, params, ptoks)
+    drops = sum((~r.keep).sum(-1) for r in pre).tolist()        # per row
+    wide = dataclasses.replace(cfg, moe_capacity=cfg.moe_experts / cfg.moe_top_k)
+    with moe_tape(layers) as pre_w:
+        logits_w = transformer.prefill(wide, params, ptoks)
+    if any(not bool(r.keep.all()) for r in pre_w):
+        raise AssertionError(f"{cfg.name}: the drop-free prefill dropped")
+    # decode replays the drop-free prefill's expert choices (position by
+    # position, layer by layer) and records its own at those matched inputs
+    n_l = cfg.n_layers
+    replay = [layers.Routing(None, pre_w[i].gate_idx[:, p:p + 1], None, None,
+                             None, 1)
+              for p in range(MOE_SERVE_PROMPT) for i in range(n_l)]
+    cache = transformer.init_cache(cfg, MOE_SERVE_SLOTS, MOE_SERVE_PROMPT,
+                                   device=dev)
+    with moe_tape(layers, replay=replay) as dec:
+        for pos in range(MOE_SERVE_PROMPT):
+            logits_d, _ = transformer.decode_step(cfg, params, cache,
+                                                  ptoks[:, pos], pos)
+    if any(not bool(r.keep.all()) or r.cap != 1 for r in dec):
+        raise AssertionError(f"{cfg.name}: a decode step dropped a token")
+    own = [layers.Routing(
+        None, torch.cat([dec[p * n_l + i].gate_idx
+                         for p in range(MOE_SERVE_PROMPT)], 1),
+        None, None, None, 1) for i in range(n_l)]
+    lmax = float(logits_w.abs().max())
+    diffs = route_differences(pre_w, own)
+    check_route_gaps(diffs, f"{cfg.name} decode vs drop-free prefill")
+    rows = []
+    for b in range(MOE_SERVE_SLOTS):
+        gap_w = float((logits_d[b] - logits_w[b]).abs().max())
+        gap = float((logits_d[b] - logits_p[b]).abs().max())
+        rows.append({"dropped": drops[b], "dlogit_drop_free": gap_w,
+                     "dlogit": gap, "held_to_configured": drops[b] == 0})
+        if not gap_w <= LOGIT_RTOL * lmax or \
+                (drops[b] == 0 and not gap <= LOGIT_RTOL * lmax):
+            raise AssertionError(f"{cfg.name} row {b}: decode_step replay "
+                                 f"differs from prefill: {rows[-1]}, limit "
+                                 f"{LOGIT_RTOL} x {lmax}")
+    out["replay_routing"] = diffs
+    out.update(replay_rows=rows, largest_logit=lmax,
+               prefill_drops=int(sum(drops)))
+    out["cache_obj"], out["pos"] = eng.cache, eng.pos
+    return out
+
+
+def drive_moe_arch(ops, fa, arch_id: str, n_layers: int, batch: int,
+                   seq: int, dev, card: str) -> dict:
+    """One MoE arch at full width with its depth cut to ``n_layers``,
+    seeded random weights: two timed prefill calls of ``[batch, seq]``
+    (K3's wgmma body once a layer a call, the SIMT body never; the counts
+    set to 0 before them and read after), the logits against the plain
+    route at matched routing and each route's own decisions, serving, and
+    for ``KV_QUANT_ARCH`` the int8 cache.  The launch counts are in
+    ``out["launches"]``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers, transformer
+
+    full = get_config(arch_id).model
+    cfg = dataclasses.replace(full, n_layers=n_layers)
+    out = {"reduced": f"depth {full.n_layers} -> {n_layers} layers (full "
+                      f"width); prefill [{batch}, {seq}]"}
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    sync(dev)
+    n_total = sum(x.numel() for x in _leaves(params))
+    if n_total - cfg.d_model != transformer.param_count(cfg):
+        raise AssertionError(f"{arch_id}: {n_total} parameters - final norm "
+                             f"!= param_count {transformer.param_count(cfg)}")
+    out["params"] = transformer.param_count(cfg)
+    out["active_params"] = transformer.active_param_count(cfg)
+    out["cap"] = layers.moe_capacity(seq, cfg.moe_experts, cfg.moe_top_k,
+                                     cfg.moe_capacity)
+    log(f"{arch_id}: DEPTH CUT {full.n_layers} -> {n_layers} layers at full "
+        f"width (d {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv} kv heads of "
+        f"{cfg.head_dim}, {cfg.moe_experts} experts top-{cfg.moe_top_k} of "
+        f"d_ff {cfg.d_ff}, window {cfg.window}, vocab {cfg.vocab}): "
+        f"param_count {out['params']:,} ({4e-9 * n_total:.1f} GB fp32; full "
+        f"depth {transformer.param_count(full):,}), active a token "
+        f"{out['active_params']:,}; capacity {out['cap']} a row at s = {seq}; "
+        f"init {time.perf_counter() - t:.1f} s ({card})")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (batch, seq))).to(dev)
+
+    reset_counts(fa)
+    for i in range(2):
+        by_body = dict(fa.LAUNCHES_BY_BODY)
+        t0 = time.perf_counter()
+        logits = transformer.prefill(cfg, params, tokens)
+        sync(dev)
+        dt = time.perf_counter() - t0
+        ran = {b: c - by_body[b] for b, c in fa.LAUNCHES_BY_BODY.items()}
+        if ran != {"wgmma": n_layers, "simt": 0}:
+            raise AssertionError(f"{arch_id} prefill launched K3's bodies "
+                                 f"{ran}, expected the wgmma body {n_layers} "
+                                 f"times and the SIMT body never")
+        if logits.shape != (batch, cfg.vocab) or \
+                not bool(torch.isfinite(logits).all()):
+            raise AssertionError(f"{arch_id} prefill logits not finite or of "
+                                 f"the wrong shape")
+        log(f"{arch_id} prefill [{batch}, {seq}] call {i}: {dt:.3f} s, "
+            f"{batch * seq / dt:,.0f} tokens/s, K3's bodies launched {ran}")
+        out.setdefault("prefill_s", []).append(dt)
+    out["launches"] = dict(fa.LAUNCHES_BY_BODY)
+    out["prefill_tok_s"] = batch * seq / min(out["prefill_s"])
+    out["prefill_busy"] = profiled(
+        lambda: transformer.prefill(cfg, params, tokens))
+
+    # the plain route (chunked attention) at the kernel route's routing,
+    # and each route's own decisions at those matched inputs
+    with moe_tape(layers) as tape_k:
+        logits_k = transformer.prefill(cfg, params, tokens)
+    ops.use_kernels(False)
+    try:
+        with moe_tape(layers, replay=tape_k) as tape_p:
+            logits_p = transformer.prefill(cfg, params, tokens)
+    finally:
+        ops.use_kernels(True)
+    dmax = float((logits_k - logits_p).abs().max())
+    lmax = float(logits_p.abs().max())
+    diffs = route_differences(tape_k, tape_p)
+    drops = [int((~r.keep).sum()) for r in tape_k]
+    out.update(dlogit=dmax, largest_logit=lmax, routing=diffs,
+               drops_by_layer=drops,
+               slots=batch * seq * cfg.moe_top_k * n_layers)
+    log(f"{arch_id} prefill vs the plain route at matched routing: max "
+        f"|logit difference| {dmax:.4g} (largest |logit| {lmax:.4g}; limit "
+        f"{LOGIT_RTOL:g} x that = {LOGIT_RTOL * lmax:.4g}); on each route's "
+        f"own choices {diffs['differ']} of {diffs['decisions']} (token, "
+        f"choice) decisions differ, largest gap from a tie "
+        f"{diffs['max_gap']:.3g} (limit {ROUTE_TIE_GAP}); dropped slots a "
+        f"layer {drops} of {batch * seq * cfg.moe_top_k}")
+    if not dmax <= LOGIT_RTOL * lmax:
+        raise AssertionError(f"{arch_id} prefill differs from the plain route "
+                             f"at matched routing by {dmax} > {LOGIT_RTOL} x "
+                             f"{lmax}")
+    check_route_gaps(diffs, f"{arch_id} prefill, kernel vs plain route")
+    del tape_k, tape_p, logits_k, logits_p, tokens
+    torch.cuda.empty_cache()
+
+    t = time.perf_counter()
+    sv = serve_moe(cfg, params, dev, np.random.default_rng(2))
+    cache, pos = sv.pop("cache_obj"), sv.pop("pos")
+    sv["s"] = time.perf_counter() - t
+    log(f"{arch_id} serve ({card}): {MOE_SERVE_SLOTS} requests x "
+        f"({MOE_SERVE_PROMPT} prompt + {MOE_SERVE_NEW} new), cache "
+        f"{sv['cache']} bf16 x2: {json.dumps(sv)}")
+    out["serve"] = sv
+    if arch_id == KV_QUANT_ARCH:
+        out["kv_quant"] = check_kv_quant(cfg, cache, pos, dev)
+        log(f"kv_quant on {arch_id}'s engine cache ({card}): "
+            f"{json.dumps(out['kv_quant'])}")
+    del params, cache
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_launchers(dev, work: str) -> dict:
+    """``python -m repro_torch.launch.serve --arch <moe arch>`` and
+    ``python -m repro_torch.launch.train --arch <moe arch> --steps 3`` on
+    the card (smoke configs), all four subprocesses at once, on a path
+    holding ``repro_torch`` alone: each must exit 0 with finite losses.
+    Then, in process, ``launch.train.main --steps 1`` on the card and on the
+    CPU from the same parameters (drawn on the CPU): the first losses
+    within ``MOE_LAUNCH_RTOL``; and the smoke config's aux loss on the
+    launcher's first batch, which must be finite and nonzero."""
+    import re
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import synthetic
+    from repro_torch.launch import train
+    from repro_torch.models import transformer
+    from repro_torch.training.optimizer import tree_map
+
+    def copy_to(tree, d):
+        return tree_map(lambda t: t.detach().to(d, copy=True), tree)
+
+    env = _launcher_env(work)
+    procs = {}
+    t = time.perf_counter()
+    for arch in MOE_ARCHS:
+        procs[f"{arch} serve"] = ["repro_torch.launch.serve", "--arch", arch,
+                                  "--device", str(dev)]
+        procs[f"{arch} train"] = ["repro_torch.launch.train", "--arch", arch,
+                                  "--steps", "3", "--device", str(dev),
+                                  "--ckpt", os.path.join(work, f"{arch}.npz")]
+    running = {k: subprocess.Popen([sys.executable, "-m", *a], env=env,
+                                   cwd=ROOT, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+               for k, a in procs.items()}
+    out = {}
+    try:
+        for k, p in running.items():
+            text, _ = p.communicate(timeout=MOE_LAUNCH_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"{k} exited {p.returncode}:\n"
+                                     f"{text[-4000:]}")
+            line = text.strip().splitlines()[-1]
+            if k.endswith("train"):
+                m = re.search(r"step0 loss=(\S+) final loss=(\S+) \(3 steps\)"
+                              rf" on {dev}", line)
+                if not m or not all(np.isfinite([float(m[1]), float(m[2])])):
+                    raise AssertionError(f"{k}: {line}")
+                out[k] = {"first": float(m[1]), "final": float(m[2])}
+            else:
+                if "served 8 requests" not in line or \
+                        not line.endswith(f"on {dev}"):
+                    raise AssertionError(f"{k}: {line}")
+                out[k] = line
+    finally:
+        for p in running.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["subprocess_s"] = time.perf_counter() - t
+
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch).smoke
+        drawn = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+        first = {}
+        orig = train.transformer.init_params
+        for i, d in enumerate(("cpu", str(dev))):
+            train.transformer.init_params = \
+                lambda c, gen, d=d: copy_to(drawn, d)
+            try:
+                res = train.main(["--arch", arch, "--steps", "1", "--device",
+                                  d, "--ckpt",
+                                  os.path.join(work, f"{arch}-{i}.npz")])
+            finally:
+                train.transformer.init_params = orig
+            first[d] = res["history"][0]["loss"]
+        rel = abs(first[str(dev)] - first["cpu"]) / abs(first["cpu"])
+        toks = synthetic.TokenStream(cfg.vocab, 8, 128, seed=0).next()["tokens"]
+        _, aux = transformer.backbone(cfg, copy_to(drawn, dev),
+                                      torch.as_tensor(toks, device=dev))
+        aux = float(aux)
+        out[f"{arch} in process"] = {"first_loss": first, "rel": rel,
+                                     "aux": aux}
+        if not rel <= MOE_LAUNCH_RTOL or not np.isfinite(aux) or aux == 0:
+            raise AssertionError(f"{arch} launcher in process: "
+                                 f"{out[f'{arch} in process']}")
+    return out
+
+
+def time_moe_attention(ops, ref, fa, dev) -> dict:
+    """K3 at the two MoE prefill layouts (mixtral's windowed GQA group of
+    4, llama4-scout's causal group of 5): held against the plain version,
+    then timed (CUDA events, median of 10; plain median of 3) beside its
+    bound (the pairs inside the mask) and ``scaled_dot_product_attention``
+    for the same function (llama4: ``enable_gqa``, causal; mixtral: the K/V
+    heads expanded before the clock and an explicit boolean band mask, as
+    SDPA's GQA flag takes no mask but on its math backend)."""
+    import torch.nn.functional as F
+
+    out, errs = {}, {}
+    rng = np.random.default_rng(4)
+    for key, (b, s, hq, hkv, dh, window) in MOE_K3_LAYOUTS.items():
+        q = _normal(rng, (b, s, hq, dh), torch.bfloat16, dev)
+        k, v = (_normal(rng, (b, s, hkv, dh), torch.bfloat16, dev)
+                for _ in range(2))
+        kern = lambda: fa.flash_attention_cuda(q, k, v, window=window)  # noqa: E731
+        n = dict(fa.LAUNCHES_BY_BODY)
+        got = kern()
+        if fa.LAUNCHES_BY_BODY["wgmma"] != n["wgmma"] + 1:
+            raise AssertionError(f"K3 at {key}'s layout did not run the "
+                                 f"wgmma body")
+        exp = ref.chunked_attention_ref(
+            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+            causal=True, window=window).transpose(1, 2)
+        name = f"{key} [{b}, {s}, {hq} q / {hkv} kv, {dh}] window {window}"
+        errs[name] = check_close(got, exp, K3_PATH_ATOL, f"K3 {name}",
+                                 K3_PATH_RTOL)
+        del got, exp
+        ops.use_kernels(False)
+        try:
+            pm = time_ms(lambda: ops.flash_attention_heads(
+                q, k, v, window=window), 3)
+        finally:
+            ops.use_kernels(True)
+        qt = q.transpose(1, 2)
+        if window is None:
+            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
+                enable_gqa=True)
+        else:
+            ke = k.repeat_interleave(hq // hkv, 2).transpose(1, 2)
+            ve = v.repeat_interleave(hq // hkv, 2).transpose(1, 2)
+            pos = torch.arange(s, device=dev)
+            band = (pos[:, None] >= pos[None, :]) & \
+                (pos[:, None] - pos[None, :] < window)
+            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                qt, ke, ve, attn_mask=band)
+            lib_out = lib_fn().transpose(1, 2)
+            errs[f"SDPA at {name} (yardstick, not held)"] = float(
+                (lib_out.float() - kern().float()).abs().max())
+            del lib_out
+        t = [time_ms(kern, 10), time_ms(lib_fn, 10), time_ms(lib_fn, 10),
+             time_ms(kern, 10)]
+        pairs = attention_pairs(s, True, window)
+        flops = 4 * dh * b * hq * pairs
+        bound = k3_bound(q, k, flops)
+        ms = (t[0] + t[3]) / 2
+        out[key] = {"layout": name, "ms": ms, "ms_turns": [t[0], t[3]],
+                    "plain_ms": pm, "sdpa_ms": (t[1] + t[2]) / 2,
+                    "sdpa_turns": [t[1], t[2]], "bound_ms": bound[0],
+                    "bound_by": bound[1], "pairs": pairs,
+                    "tflops": flops / ms / 1e9}
+        log(f"K3 {name} bf16: wgmma body {t[0]:.4f} / {t[3]:.4f} ms "
+            f"({flops / ms / 1e9:.1f} TFLOP/s over the {pairs:,} pairs a "
+            f"head inside the mask, {bound[0] / ms:.1%} of the bound), plain "
+            f"{pm:.3f} ms, scaled_dot_product_attention {t[1]:.4f} / "
+            f"{t[2]:.4f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
+            f"({flops / 1e9:.1f} GFLOP; {bound[2] / 1e6:.1f} MB)")
+        del q, k, v
+        torch.cuda.empty_cache()
+    return {"layouts": out, "errs": errs}
+
+
+def drive_moe_serving(dev, card: str) -> dict:
+    """Phase 15: both MoE archs (full width, labelled depth cuts), each
+    built, driven and freed in turn; the launchers; K3 at both MoE
+    layouts.  Returns the phase's readings; ``launches`` holds K3's launches
+    by body on the two archs' prefill paths."""
+    from repro_torch.kernels import flash_attention, ops, ref
+
+    t_phase = time.perf_counter()
+    out = {"archs": {}}
+    launches = {"wgmma": 0, "simt": 0}
+    for arch_id, n_layers, batch, seq in MOE_RUNS:
+        t = time.perf_counter()
+        res = drive_moe_arch(ops, flash_attention, arch_id, n_layers, batch,
+                             seq, dev, card)
+        res["s"] = time.perf_counter() - t
+        for body, n in res["launches"].items():
+            launches[body] += n
+        out["archs"][arch_id] = res
+        log(f"phase 15 {arch_id} ({card}): {json.dumps(res)}")
+    out["launches"] = launches
+    work = tempfile.mkdtemp(prefix="chip_smoke_moe_")
+    try:
+        t = time.perf_counter()
+        out["launchers"] = moe_launchers(dev, work)
+        out["launchers"]["s"] = time.perf_counter() - t
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"phase 15 launchers ({card}): {json.dumps(out['launchers'])}")
+    out["k3"] = time_moe_attention(ops, ref, flash_attention, dev)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def model_cfg(arch_id: str):
     """The full model config of ``arch_id``."""
     from repro_torch.configs import get_config
@@ -3901,6 +4446,20 @@ def main() -> int:
     launches["cin_training"] = rs_tr["cin"]
     log(f"LM and recsys training ({card}): {lt['phase_s']:.1f} s; "
         f"{json.dumps(lt)}")
+
+    # MoE serving (K3's wgmma body on both archs' prefill, mixtral's in its
+    # window mode); the counts are set to 0 inside, just before each arch's
+    # prefill calls, and read just after them
+    moe = drive_moe_serving(dev, card)
+    for arch_id, n_layers, _, _ in MOE_RUNS:
+        wgmma_paths[f"{arch_id} prefill ({n_layers} layers)"] = \
+            moe["archs"][arch_id]["launches"]["wgmma"]
+    launches["flash_attention_wgmma"] += moe["launches"]["wgmma"]
+    if moe["launches"]["simt"]:
+        raise AssertionError(f"the MoE prefills launched K3's SIMT body "
+                             f"{moe['launches']['simt']} times")
+    log(f"MoE serving ({card}): {moe['phase_s']:.1f} s; launches "
+        f"{moe['launches']}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -3967,6 +4526,13 @@ def main() -> int:
                 "bound_by": k3_time[key]["bound"][1],
                 "library_ms": k3_time[key]["sdpa"]}
                 for key in ("flat", "gqa", "gemma")}})
+    for key, r in moe["k3"]["layouts"].items():      # the MoE layouts
+        kernels[2]["layouts"][r["layout"]] = {
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": r["sdpa_ms"]}
+    kernels[2]["max_abs_err"] = max([kernels[2]["max_abs_err"]] + [
+        e for name, e in moe["k3"]["errs"].items() if "SDPA" not in name])
     # K4: the recsys path's entry (declared sorted, the mean fused) at
     # bulk; the sum and sorting entries and the p99 shape under "entries";
     # the training path's rows entry under "training_rows_entry"
@@ -4019,7 +4585,7 @@ def main() -> int:
     log(f"recsys outputs: {json.dumps(out_errs)}")
     log(f"smoke total ({card}): {time.perf_counter() - T_START:.1f} s of "
         f"the 1,200 s limit; phase 13 {tr['phase_s']:.1f} s, phase 14 "
-        f"{lt['phase_s']:.1f} s")
+        f"{lt['phase_s']:.1f} s, phase 15 {moe['phase_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,9 @@
 
 ``REGISTRY`` holds all ten architectures of the reference: the LM family,
 the GNN family (``gcn-cora``, ``gin-tu``, ``meshgraphnet``, ``dimenet``)
-and the recsys one (``xdeepfm``); ``--arch <id>`` resolves here.  The MoE
-LMs (``mixtral-8x7b``, ``llama4-scout-17b-a16e``) are registered but raise
-``NotImplementedError`` when their model is built (MoE is a later slice of
-the port).
+and the recsys one (``xdeepfm``); ``--arch <id>`` resolves here.  The LM
+family includes the two MoE archs (``mixtral-8x7b``,
+``llama4-scout-17b-a16e``).
 """
 from . import (dimenet, gcn_cora, gemma_2b, gin_tu, llama4_scout_17b_a16e,
                meshgraphnet, mixtral_8x7b, qwen3_0_6b, starcoder2_7b, xdeepfm)

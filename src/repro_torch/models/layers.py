@@ -1,6 +1,7 @@
-"""Shared neural-net substrate of the LM family, the dense half of
-``repro/models/layers.py``: initializers, norms, RoPE, GQA attention (causal
-/ sliding window / qk-norm, prefill and ring-buffer decode) and GLU MLPs.
+"""Shared neural-net substrate of the LM family (port of
+``repro/models/layers.py``): initializers, norms, RoPE, GQA attention
+(causal / sliding window / qk-norm, prefill and ring-buffer decode), GLU
+MLPs, and GShard-style MoE with top-k routing and per-row capacity.
 
 All modules are (init, apply) pairs over plain dicts of tensors.  Compute
 dtype is bf16 with fp32 params and fp32 softmax/normaliser math, and the
@@ -16,13 +17,17 @@ cache in place (the reference donates it).
 Initializers draw from an explicit ``torch.Generator`` on the device the
 parameters live on; its numbers are not ``jax.random``'s, so the tests carry
 the reference's parameters across with ``transformer.params_from_numpy``.
-The MoE layer is a later slice of the port; the mesh hints
-(``shard_hint``, sequence-parallel attention) wait for the port's mesh.
+The MoE layer routes on the device with no host sync (``moe_route``) and
+runs its experts as bf16 einsums over ``[B, E, cap, ·]``, as the reference
+does outside any kernel, through the single-device branch of the
+reference's ``_expert_block_dispatch``.  The mesh hints (``shard_hint``,
+sequence-parallel attention, the expert block's ``shard_map``) wait for
+the port's LM mesh.
 """
 from __future__ import annotations
 
 import math
-from typing import Any
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -229,14 +234,136 @@ def mlp_apply(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
-# Mixture of Experts: a later slice of the port
+# Mixture of Experts (GShard-style scatter/gather dispatch)
 # ---------------------------------------------------------------------------
 
-def moe_init(*args, **kwargs):
-    raise NotImplementedError("MoE layers are not ported yet (a later slice "
-                              "of the port; ROADMAP.md)")
+def moe_init(gen: torch.Generator, d_model: int, d_ff: int, n_experts: int,
+             kind: str) -> Params:
+    scale_in = 1.0 / math.sqrt(d_model)
+    scale_out = 1.0 / math.sqrt(d_ff)
+
+    def stack(din, dout, scale):
+        return torch.randn((n_experts, din, dout), generator=gen,
+                           device=gen.device, dtype=torch.float32) * scale
+
+    p = {"router": dense_init(gen, d_model, n_experts, scale=0.02)}
+    if kind in ("swiglu", "geglu"):
+        p["w_gate"] = stack(d_model, d_ff, scale_in)
+        p["w_up"] = stack(d_model, d_ff, scale_in)
+        p["w_down"] = stack(d_ff, d_model, scale_out)
+    else:
+        p["w_up"] = stack(d_model, d_ff, scale_in)
+        p["w_down"] = stack(d_ff, d_model, scale_out)
+    return p
 
 
-def moe_apply(*args, **kwargs):
-    raise NotImplementedError("MoE layers are not ported yet (a later slice "
-                              "of the port; ROADMAP.md)")
+class Routing(NamedTuple):
+    """One MoE layer's routing of ``x [B, S, D]`` (TK = S · top_k slots a
+    row, token-major): the router's fp32 softmax ``probs [B, S, E]``, the
+    chosen experts ``gate_idx [B, S, K]``, the renormalised gates ``[B,
+    TK]`` in ``COMPUTE_DTYPE`` (0 where dropped), ``keep [B, TK]``, the
+    dispatch slot ``dest [B, TK]`` (``n_experts · cap`` where dropped) and
+    the per-row capacity ``cap``."""
+    probs: torch.Tensor
+    gate_idx: torch.Tensor
+    gates: torch.Tensor
+    keep: torch.Tensor
+    dest: torch.Tensor
+    cap: int
+
+
+def moe_capacity(s: int, n_experts: int, top_k: int,
+                 capacity_factor: float = 1.25) -> int:
+    """Slots per expert and batch row: ``max(1, ceil(cf · s · k / E))``
+    written as the reference writes it (a host int from shapes)."""
+    return max(1, -(-int(capacity_factor * s * top_k) // n_experts))
+
+
+def moe_route(router: torch.Tensor, x: torch.Tensor, *, n_experts: int,
+              top_k: int, capacity_factor: float = 1.25,
+              gate_idx: torch.Tensor | None = None) -> Routing:
+    """The reference's routing (``repro/models/layers.py:383-403``), on the
+    device of ``x`` with no host sync.  Top-k is a stable descending sort,
+    so exact ties keep the lower expert first as ``lax.top_k`` does.  A
+    given ``gate_idx`` replaces the top-k choice (the gates are then this
+    call's probabilities at those experts); the queue positions, ``keep``
+    and ``dest`` follow from the choice alone."""
+    b, s, _ = x.shape
+    tk = s * top_k
+    logits = torch.einsum("bsd,de->bse", x.to(COMPUTE_DTYPE),
+                          router.to(COMPUTE_DTYPE)).float()
+    probs = torch.softmax(logits, dim=-1)
+    if gate_idx is None:
+        gate_vals, gate_idx = torch.sort(probs, dim=-1, descending=True,
+                                         stable=True)
+        gate_vals, gate_idx = gate_vals[..., :top_k], gate_idx[..., :top_k]
+    else:
+        gate_vals = torch.gather(probs, -1, gate_idx)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
+
+    # per-row capacity and queue positions (GShard groups): an exclusive
+    # cumsum of the one-hot over each row's token-major slots
+    cap = moe_capacity(s, n_experts, top_k, capacity_factor)
+    idx_flat = gate_idx.reshape(b, tk)
+    flat = (idx_flat[..., None] == torch.arange(
+        n_experts, device=x.device)).to(torch.int32)            # [B, TK, E]
+    pos = ((torch.cumsum(flat, dim=1) - flat) * flat).sum(-1)    # [B, TK]
+    keep = pos < cap
+    dest = torch.where(keep, idx_flat * cap + pos,
+                       torch.full_like(idx_flat, n_experts * cap))
+    gates = gate_vals.reshape(b, tk).to(COMPUTE_DTYPE)
+    gates = torch.where(keep, gates, torch.zeros_like(gates))
+    return Routing(probs, gate_idx, gates, keep, dest, cap)
+
+
+def _expert_block(r: Routing, xc: torch.Tensor, w: Params, *, n_experts: int,
+                  top_k: int, kind: str) -> torch.Tensor:
+    """Scatter-dispatch -> expert einsums -> gather-combine, ``[B, S, D]``
+    in and out: the reference's ``expert_block`` as its
+    ``_expert_block_dispatch`` runs it without a model axis.  The dropped
+    slots scatter into one extra row that is cut away, as ``mode="drop"``
+    drops them."""
+    b, s, d = xc.shape
+    tk, n_slots = s * top_k, n_experts * r.cap
+    src = torch.arange(tk, device=xc.device) // top_k
+    updates = xc[:, src, :]                                      # [B, TK, D]
+    buf = torch.zeros((b, n_slots + 1, d), dtype=xc.dtype, device=xc.device)
+    buf = buf.scatter_add(1, r.dest[..., None].expand(b, tk, d), updates)
+    xe = buf[:, :n_slots].reshape(b, n_experts, r.cap, d)
+    if kind in ("swiglu", "geglu"):
+        act = F.silu if kind == "swiglu" else _gelu
+        g = act(torch.einsum("becd,edf->becf", xe,
+                             w["w_gate"].to(COMPUTE_DTYPE)))
+        u = torch.einsum("becd,edf->becf", xe, w["w_up"].to(COMPUTE_DTYPE))
+        ye = torch.einsum("becf,efd->becd", g * u,
+                          w["w_down"].to(COMPUTE_DTYPE))
+    else:
+        h = _gelu(torch.einsum("becd,edf->becf", xe,
+                               w["w_up"].to(COMPUTE_DTYPE)))
+        ye = torch.einsum("becf,efd->becd", h, w["w_down"].to(COMPUTE_DTYPE))
+    got = torch.gather(ye.reshape(b, n_slots, d), 1,
+                       r.dest.clamp(max=n_slots - 1)[..., None].expand(b, tk, d))
+    got = got * r.gates[..., None]
+    return got.reshape(b, s, top_k, d).sum(2)
+
+
+def moe_apply(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
+              kind: str, capacity_factor: float = 1.25,
+              gate_idx: torch.Tensor | None = None) -> tuple:
+    """x: [B, S, D] -> (out [B, S, D] in ``COMPUTE_DTYPE``, aux fp32).
+
+    ``moe_route`` picks each token's experts (or takes ``gate_idx``, to
+    replay another run's choices), ``_expert_block`` runs them, and the
+    Switch load-balance loss is ``E · Σ_e frac_tokens_e · frac_probs_e``
+    over the first choice."""
+    r = moe_route(p["router"], x, n_experts=n_experts, top_k=top_k,
+                  capacity_factor=capacity_factor, gate_idx=gate_idx)
+    w = {k: v for k, v in p.items() if k.startswith("w_")}
+    out = _expert_block(r, x.to(COMPUTE_DTYPE), w, n_experts=n_experts,
+                        top_k=top_k, kind=kind)
+    first = (r.gate_idx[..., 0, None] == torch.arange(
+        n_experts, device=x.device)).float()
+    frac_tokens = first.mean(dim=(0, 1))
+    frac_probs = r.probs.mean(dim=(0, 1))
+    aux = n_experts * torch.sum(frac_tokens * frac_probs)
+    return out, aux

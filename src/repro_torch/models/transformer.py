@@ -1,19 +1,22 @@
-"""LM family, dense half of ``repro/models/transformer.py``: a decoder-only
-transformer (GQA, qk-norm, MQA/GeGLU, SWA, LayerNorm/GELU variants) with its
-training loss, prefill and ring-buffer decode paths.
+"""LM family (port of ``repro/models/transformer.py``): a decoder-only
+transformer covering the seven LM archs (dense GQA, qk-norm, MQA/GeGLU,
+SWA, LayerNorm/GELU, and the MoE variants) with its training loss, prefill
+and ring-buffer decode paths.
 
 Parameters are a plain dict under the reference's key names, with the
 reference's ``[L, ...]``-stacked ``layers`` held as a list of per-layer
 dicts, so a layer loop replaces ``lax.scan``.  ``params_from_numpy`` /
-``params_to_numpy`` carry a reference pytree (as numpy) across.
+``params_to_numpy`` carry a reference pytree (as numpy) across, the MoE
+layers' router and ``[E, d_in, d_out]`` expert stacks included.
 
 ``loss_fn`` is differentiable: each layer runs under
 ``torch.utils.checkpoint`` (the reference's per-layer remat), so its
 forward, K3 included, runs again in the backward; the cross-entropy runs
 one sequence chunk at a time, each chunk checkpointed, so the ``[B, S, V]``
-logits never exist.  ``backbone``, ``prefill`` and ``decode_step`` run
+logits never exist.  It adds ``0.01 ·`` the layers' summed MoE aux loss,
+as the reference does.  ``backbone``, ``prefill`` and ``decode_step`` run
 under ``torch.no_grad``; the KV cache of ``decode_step`` is updated in
-place.  MoE layers wait for the port's MoE slice.
+place.
 """
 from __future__ import annotations
 
@@ -74,6 +77,16 @@ def param_count(cfg: LMConfig) -> int:
     return cfg.n_layers * per_layer + emb
 
 
+def active_param_count(cfg: LMConfig) -> int:
+    """Active parameters a token (MoE: only its top-k experts count): the
+    reference's count less each layer's ``E - k`` idle experts."""
+    if not cfg.moe_experts:
+        return param_count(cfg)
+    n_mat = 3 if cfg.mlp in ("swiglu", "geglu") else 2
+    idle = (cfg.moe_experts - cfg.moe_top_k) * n_mat * cfg.d_model * cfg.d_ff
+    return param_count(cfg) - cfg.n_layers * idle
+
+
 # ---------------------------------------------------------------------------
 # carrying parameters across from the reference
 # ---------------------------------------------------------------------------
@@ -128,6 +141,8 @@ def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 def _layer_fwd(cfg: LMConfig, lp: dict, x: torch.Tensor,
                positions: torch.Tensor, cache=None, cache_pos=None):
+    """One layer -> (x, aux): the MoE layer's aux loss (fp32), 0.0 for a
+    dense layer."""
     h, _ = layers.attention_apply(
         lp["attn"], layers.norm_apply(lp["attn_norm"], x, cfg.norm), positions,
         n_heads=cfg.n_heads, n_kv=cfg.n_kv, head_dim=cfg.head_dim,
@@ -136,29 +151,34 @@ def _layer_fwd(cfg: LMConfig, lp: dict, x: torch.Tensor,
     x = x + h
     z = layers.norm_apply(lp["mlp_norm"], x, cfg.norm)
     if cfg.moe_experts:
-        m, _ = layers.moe_apply(lp["moe"], z)
+        m, aux = layers.moe_apply(lp["moe"], z, n_experts=cfg.moe_experts,
+                                  top_k=cfg.moe_top_k, kind=cfg.mlp,
+                                  capacity_factor=cfg.moe_capacity)
     else:
-        m = layers.mlp_apply(lp["mlp"], z, cfg.mlp)
-    return x + m
+        m, aux = layers.mlp_apply(lp["mlp"], z, cfg.mlp), 0.0
+    return x + m, aux
 
 
-def _backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> hidden [B, S, D] bf16 (dense: no aux loss), with a
-    gradient: each layer is checkpointed (recomputed in the backward), as
-    the reference remats each layer; under ``torch.no_grad`` that saves
-    nothing and recomputes nothing."""
+def _backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> tuple:
+    """tokens [B, S] -> (hidden [B, S, D] bf16, the layers' summed aux
+    loss; 0.0 for a dense model), with a gradient: each layer is
+    checkpointed (recomputed in the backward), as the reference remats each
+    layer; under ``torch.no_grad`` that saves nothing and recomputes
+    nothing."""
     b, s = tokens.shape
     x = _embed(cfg, params, tokens)
     positions = torch.arange(s, device=tokens.device).expand(b, s)
+    aux = 0.0
     for lp in params["layers"]:
-        x = checkpoint(_layer_fwd, cfg, lp, x, positions, use_reentrant=False,
-                       preserve_rng_state=False)
-    return layers.norm_apply(params["final_norm"], x, cfg.norm)
+        x, a = checkpoint(_layer_fwd, cfg, lp, x, positions,
+                          use_reentrant=False, preserve_rng_state=False)
+        aux = aux + a
+    return layers.norm_apply(params["final_norm"], x, cfg.norm), aux
 
 
 @torch.no_grad()
-def backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens [B, S] -> hidden [B, S, D] bf16 (dense: no aux loss)."""
+def backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> tuple:
+    """tokens [B, S] -> (hidden [B, S, D] bf16, aux loss)."""
     return _backbone(cfg, params, tokens)
 
 
@@ -178,27 +198,29 @@ def _chunk_loss(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor) -> torch.Tens
 
 def loss_fn(cfg: LMConfig, params: dict, batch: dict, *,
             xent_chunk: int = 512) -> torch.Tensor:
-    """Causal LM loss, differentiable: the mean next-token cross-entropy.
-    The logits are computed one ``xent_chunk``-long sequence chunk at a
-    time under ``checkpoint`` (recomputed in the backward), so ``[B, S,
-    V]`` never exists.  As in the reference, ``S // chunk`` chunks are
-    summed and the sum is divided by ``B·S``; the MoE aux term is 0 for
-    the dense models ported."""
+    """Causal LM loss, differentiable: the mean next-token cross-entropy
+    plus ``0.01 ·`` the MoE aux loss (0 for a dense model).  The logits are
+    computed one ``xent_chunk``-long sequence chunk at a time under
+    ``checkpoint`` (recomputed in the backward), so ``[B, S, V]`` never
+    exists.  As in the reference, ``S // chunk`` chunks are summed and the
+    sum is divided by ``B·S``."""
     tokens, targets = batch["tokens"], batch["targets"]
-    hidden = _backbone(cfg, params, tokens)
+    hidden, aux = _backbone(cfg, params, tokens)
     w = _unembed(cfg, params)
     b, s, _ = hidden.shape
     c = min(xent_chunk, s)
     losses = [checkpoint(_chunk_loss, hidden[:, i * c:(i + 1) * c],
                          targets[:, i * c:(i + 1) * c], w, use_reentrant=False,
                          preserve_rng_state=False) for i in range(s // c)]
-    return torch.stack(losses).sum() / (b * s)
+    nll = torch.stack(losses).sum() / (b * s)
+    return nll + 0.01 * aux
 
 
 @torch.no_grad()
 def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
-    """Prefill forward returning last-position logits [B, V] fp32."""
-    hidden = backbone(cfg, params, tokens)
+    """Prefill forward returning last-position logits [B, V] fp32 (the aux
+    loss discarded, as the reference does)."""
+    hidden, _ = backbone(cfg, params, tokens)
     return (hidden[:, -1] @ _unembed(cfg, params)).float()
 
 
@@ -227,8 +249,8 @@ def decode_step(cfg: LMConfig, params: dict, cache: dict, token: torch.Tensor,
     x = _embed(cfg, params, token)[:, None, :]
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=token.device)
     for i, lp in enumerate(params["layers"]):
-        x = _layer_fwd(cfg, lp, x, positions,
-                       cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+        x, _ = _layer_fwd(cfg, lp, x, positions,
+                          cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
     logits = (x[:, 0] @ _unembed(cfg, params)).float()
     return logits, cache

@@ -11,7 +11,9 @@ family's differentiable segment sum (K4 forward, a plain gather backward)
 and one training step of each GNN smoke config against the plain route;
 the LM and recsys training entries (K3, K4's gathered entry and K5 as
 autograd Functions with plain backwards) and one training step of the
-qwen3 and xDeepFM smoke configs against the plain route.
+qwen3 and xDeepFM smoke configs against the plain route; the MoE layer of
+both MoE smoke configs on the card against the CPU at matched routing, and
+the int8 KV cache's values and scales on the card equal to the CPU's.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -1115,3 +1117,51 @@ def test_recsys_train_step_on_card_equals_plain_route(cuda):
         close(loss, other_loss)
         for g, h in zip(tree_leaves(grads), tree_leaves(other)):
             close(g, h)
+
+
+@pytest.mark.parametrize("arch_id", ["mixtral-8x7b", "llama4-scout-17b-a16e"])
+def test_moe_apply_on_card_equals_cpu_at_matched_routing(cuda, arch_id):
+    """The MoE layer of each MoE smoke config on the card against the CPU,
+    bf16, with the card replaying the CPU's expert choices: the dispatch
+    slots equal, the output within 2**-7 relative plus 2e-2 and the aux
+    within 2**-7 relative (bf16 matmuls summed in another order)."""
+    from repro_torch.models import layers
+
+    cfg = get_config(arch_id).smoke
+    p = layers.moe_init(torch.Generator().manual_seed(0), cfg.d_model,
+                        cfg.d_ff, cfg.moe_experts, cfg.mlp)
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(3, 40, cfg.d_model)).astype(np.float32)).bfloat16()
+    kw = dict(n_experts=cfg.moe_experts, top_k=cfg.moe_top_k, kind=cfg.mlp)
+    r = layers.moe_route(p["router"], x, n_experts=cfg.moe_experts,
+                         top_k=cfg.moe_top_k)
+    exp, exp_aux = layers.moe_apply(p, x, **kw)
+    pc = {k: v.to(cuda) for k, v in p.items()}
+    rc = layers.moe_route(pc["router"], x.to(cuda), n_experts=cfg.moe_experts,
+                          top_k=cfg.moe_top_k, gate_idx=r.gate_idx.to(cuda))
+    assert torch.equal(rc.dest.cpu(), r.dest) and torch.equal(rc.keep.cpu(), r.keep)
+    got, aux = layers.moe_apply(pc, x.to(cuda), gate_idx=r.gate_idx.to(cuda), **kw)
+    torch.testing.assert_close(got.cpu().float(), exp.float(), rtol=2 ** -7,
+                               atol=2e-2)
+    assert abs(float(aux) - float(exp_aux)) <= 2 ** -7 * abs(float(exp_aux))
+
+
+def test_kv_quant_on_card_equals_cpu_bitwise(cuda):
+    """int8 values and scales of a bf16 and an fp32 cache on the card equal
+    the CPU's bitwise; ``attend_quant`` on the card within 1e-5."""
+    from repro_torch.serving import kv_quant
+
+    rng = np.random.default_rng(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.from_numpy(rng.normal(size=(2, 4, 64, 8, 128)).astype(
+            np.float32)).to(dtype)
+        v, s = kv_quant.quantize_kv(x)
+        vc, sc = kv_quant.quantize_kv(x.to(cuda))
+        assert torch.equal(vc.cpu(), v) and torch.equal(sc.cpu(), s)
+    layer = {"kq": v[0], "ks": s[0], "vq": v[1], "vs": s[1]}
+    q = torch.from_numpy(rng.normal(size=(4, 32, 128)).astype(np.float32))
+    valid = torch.arange(64) < 50
+    exp = kv_quant.attend_quant(q, layer, valid, 8, 128)
+    got = kv_quant.attend_quant(q.to(cuda), {k: t.to(cuda) for k, t in layer.items()},
+                                valid.to(cuda), 8, 128)
+    torch.testing.assert_close(got.cpu(), exp, rtol=1e-5, atol=1e-5)

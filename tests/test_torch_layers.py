@@ -1,6 +1,7 @@
-"""The port's dense layers against ``repro.models.layers`` on the same numpy
-inputs and parameters: norms, RoPE, the three MLP kinds, and both branches
-of ``attention_apply`` (prefill; decode with a ring-buffer wrap).
+"""The port's layers against ``repro.models.layers`` on the same numpy
+inputs and parameters: norms, RoPE, the three MLP kinds, both branches of
+``attention_apply`` (prefill; decode with a ring-buffer wrap) and the MoE
+layer (``tests/test_torch_moe.py`` holds its routing and the MoE archs).
 
 Tolerances: fp32 paths 1e-5 (the same math, sums in another order).  Paths
 that compute in bf16 (matmuls, activations) may round one bf16 step apart
@@ -149,8 +150,20 @@ def test_attention_decode_matches_reference(qk_norm, window, c):
     np.testing.assert_allclose(_np(tv), _np(jv), rtol=BF16_RTOL, atol=BF16_ATOL)
 
 
-def test_moe_raises_not_implemented():
-    with pytest.raises(NotImplementedError):
-        tl.moe_init(torch.Generator(), 8, 16, 4, "swiglu")
-    with pytest.raises(NotImplementedError):
-        tl.moe_apply({}, torch.zeros(1, 1, 8))
+@pytest.mark.parametrize("kind", ["swiglu", "geglu"])
+def test_moe_apply_matches_reference(kind):
+    """The MoE layer in bf16 at widths of its own (4 experts, top-2, an odd
+    sequence length, so the per-row capacity is ``ceil(1.25 · 33 · 2 /
+    4) = 21``): output and aux loss against the reference's."""
+    d, ff, e, k = 48, 64, 4, 2
+    jp = jl.moe_init(jax.random.PRNGKey(3), d, ff, e, kind)
+    tp = {n: _t(v) for n, v in jp.items()}
+    x = _bf16(np.random.default_rng(9).normal(size=(3, 33, d)))
+    exp, jaux = jl.moe_apply(jp, _j(x, jnp.bfloat16), n_experts=e, top_k=k,
+                             kind=kind)
+    got, aux = tl.moe_apply(tp, _t(x, torch.bfloat16), n_experts=e, top_k=k,
+                            kind=kind)
+    assert got.dtype == torch.bfloat16 and got.shape == (3, 33, d)
+    np.testing.assert_allclose(_np(got), _np(exp), rtol=BF16_RTOL,
+                               atol=BF16_ATOL)
+    assert abs(float(aux) - float(jaux)) <= BF16_RTOL * abs(float(jaux))

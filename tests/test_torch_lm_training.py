@@ -295,6 +295,6 @@ def test_serving_paths_build_no_graph():
         p.requires_grad_(True)
     toks = torch.from_numpy(_tokens(cfg, 1, 16)["tokens"])
     assert not tt.prefill(cfg, tp, toks).requires_grad
-    assert not tt.backbone(cfg, tp, toks).requires_grad
+    assert not tt.backbone(cfg, tp, toks)[0].requires_grad
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         ttrain.get_config("qwen3-0.6b").smoke)

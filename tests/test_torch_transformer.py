@@ -1,6 +1,7 @@
 """The port's transformer and decode engine against ``repro``'s, on the smoke
-configs of the dense LM archs, with the reference's parameters carried
-across by ``params_from_numpy``.
+configs of the LM archs (dense, and the MoE archs' parameters, prefill and
+decode; ``tests/test_torch_moe.py`` holds the rest of MoE), with the
+reference's parameters carried across by ``params_from_numpy``.
 
 Tolerance for logits: 3% of the largest |logit|.  Both sides compute in
 bf16 with fp32 norms and softmax and round at the same places, but their
@@ -26,6 +27,7 @@ from repro_torch.models import transformer as tt
 from repro_torch.serving import DecodeEngine, Request
 
 DENSE = ["qwen3-0.6b", "gemma-2b", "starcoder2-7b"]
+MOE = ["mixtral-8x7b", "llama4-scout-17b-a16e"]
 LOGIT_RTOL = 3e-2
 
 
@@ -53,14 +55,14 @@ def _close(got, exp):
 
 
 def test_port_configs_equal_reference_configs():
-    for arch in DENSE + ["mixtral-8x7b", "llama4-scout-17b-a16e"]:
+    for arch in DENSE + MOE:
         a, b = jget(arch), get_config(arch)
         assert dataclasses.asdict(a.model) == dataclasses.asdict(b.model)
         assert dataclasses.asdict(a.smoke) == dataclasses.asdict(b.smoke)
         assert [c.name for c in a.shapes] == [c.name for c in b.shapes]
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_params_round_trip_and_count(arch):
     cfg = jget(arch).smoke
     jp, tp = _carried(cfg)
@@ -72,7 +74,7 @@ def test_params_round_trip_and_count(arch):
     assert tt.param_count(cfg) == jt.param_count(cfg)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + MOE)
 def test_prefill_and_decode_match_reference(arch):
     cfg = jget(arch).smoke
     jp, tp = _carried(cfg)
@@ -163,9 +165,3 @@ def test_sampling_draws_from_the_generator():
         eng.submit(Request(rid=0, prompt=[1, 2], max_new=5))
         outs.append(eng.run()[0].out)
     assert outs[0] == outs[1] and all(0 <= t < cfg.vocab for t in outs[0])
-
-
-@pytest.mark.parametrize("arch", ["mixtral-8x7b", "llama4-scout-17b-a16e"])
-def test_moe_configs_raise_not_implemented(arch):
-    with pytest.raises(NotImplementedError):
-        tt.init_params(get_config(arch).smoke, torch.Generator())
