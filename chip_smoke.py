@@ -226,18 +226,40 @@
     within ``MOE_LAUNCH_RTOL``; the aux loss nonzero), and K3 at both MoE
     layouts against its plain version and timed beside its bound and
     ``scaled_dot_product_attention``.
-16. Fails unless every kernel was launched by its path (K1 and K2 on the
+16. The cell plans (``launch/specs.py``, ``launch/dryrun.py``).  The
+    dry-run of all 36 cells on both production meshes, started as a
+    subprocess before phase 13 on a path holding ``repro_torch`` alone,
+    with no card visible: exit 0 with 72/72 cells traced, each cell's
+    per-device argument GB on both meshes (computed from shapes), matmul
+    flops and trace seconds logged.  Three plans run on the card at
+    ``make_test_mesh((1, 1))``, each cell's global shape and full config
+    (``PLAN_CELLS``): ``qwen3-0.6b/prefill_32k`` (K3's wgmma body once a
+    layer, rows 0-1 against a direct ``prefill`` of those rows within
+    ``LOGIT_RTOL`` of the largest |logit|), ``xdeepfm/serve_bulk`` (K4
+    once, K5 three times) and ``gcn-cora/full_graph_sm``'s train step (K4
+    three times; the batch from ``make_gnn_batch``, padded to the plan's
+    edge count), those two bitwise against the model's own entry point on
+    the same tensors; each plan's arguments equal to its meta trace's
+    shapes, dtypes and ``argument_size_in_bytes``, its outputs to the
+    trace's shapes and dtypes, finite; seconds and peak memory logged.
+    Then one MoE layer of each MoE arch at full width on ``[1, 8192]``
+    over ``make_test_mesh((1, 16))``: mixtral's model-sharded branch (16
+    ``d_ff`` slices of 896) within ``BRANCH_FRO`` of ``mesh=None``,
+    llama4-scout's expert-parallel branch bitwise; both timed.
+17. Fails unless every kernel was launched by its path (K1 and K2 on the
     truss path, on the service path and on the sharded path, K1 on the
     cluster path and the training rounds, K4 on the recsys and training
     paths, K3 and K5 on the LM and recsys training paths too, K3 on the
-    MoE prefills), prints the smoke's total seconds, the kernels line, the
-    card line, and last the device line.
+    MoE prefills, K3, K4 and K5 on the cell plans), prints the smoke's
+    total seconds, the kernels line, the card line, and last the device
+    line.
 
 Every failed check raises, so the exit code is non-zero.  The script needs
 a CUDA device, ``nvcc`` and the rest of this checkout; it imports no JAX.
 """
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -347,6 +369,19 @@ MOE_LAUNCH_TIMEOUT = 600
 MOE_K3_LAYOUTS = {"mixtral": (1, 8192, 32, 8, 128, 4096),   # b, s, hq, hkv, dh,
                   "llama4": (4, 4096, 40, 8, 128, None)}    # window
 MOLECULE_GRAPHS = 128            # GNN_SHAPES' molecule cell: 128 x 30 nodes
+# Phase 16: the cell plans.  The dry-run of all 36 cells on both production
+# meshes as a subprocess (started before phase 13, it runs beside phases
+# 13-15), then three plans on the card at each cell's global shape and full
+# config, at make_test_mesh((1, 1)), and one MoE layer of each MoE arch at
+# full width on phase 15's mixtral shape over a model axis of 16
+DRYRUN_CELLS, DRYRUN_TIMEOUT = 72, 900
+PLAN_CELLS = (("qwen3-0.6b", "prefill_32k"), ("xdeepfm", "serve_bulk"),
+              ("gcn-cora", "full_graph_sm"))
+PLAN_SEED, PLAN_LM_ROWS = 0, 2
+BRANCH_SHAPE, BRANCH_MESH = (1, 8192), (1, 16)
+# the model-sharded branch's bf16 output against mesh=None: relative
+# Frobenius error, the bound tests/test_torch_specs.py sets (BRANCH_FRO)
+BRANCH_FRO = 2e-2
 
 
 def log(msg: str) -> None:
@@ -3755,14 +3790,15 @@ def moe_tape(layers, replay=None):
     orig, tape = layers.moe_apply, []
 
     def wrapped(p, x, *, n_experts, top_k, kind, capacity_factor=1.25,
-                gate_idx=None):
+                gate_idx=None, mesh=None):
         tape.append(layers.moe_route(p["router"], x, n_experts=n_experts,
                                      top_k=top_k,
                                      capacity_factor=capacity_factor))
         if replay is not None:
             gate_idx = replay[len(tape) - 1].gate_idx
         return orig(p, x, n_experts=n_experts, top_k=top_k, kind=kind,
-                    capacity_factor=capacity_factor, gate_idx=gate_idx)
+                    capacity_factor=capacity_factor, gate_idx=gate_idx,
+                    mesh=mesh)
 
     layers.moe_apply = wrapped
     try:
@@ -4241,6 +4277,295 @@ def drive_moe_serving(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the cell plans, the dry-run, the expert block's mesh branches
+# ---------------------------------------------------------------------------
+
+def start_dryrun(work: str) -> dict:
+    """``python -m repro_torch.launch.dryrun --mesh both`` into ``work`` as
+    a subprocess on a path holding ``repro_torch`` alone, with no card
+    visible (it traces on ``meta``), output to a file.  It runs beside the
+    phases that follow its start, on its own core."""
+    pkg = os.path.join(work, "pkg")
+    os.makedirs(pkg)
+    env = _launcher_env(pkg)
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    log_path = os.path.join(work, "dryrun.log")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--mesh",
+             "both", "--out", os.path.join(work, "dryrun_artifacts")],
+            env=env, cwd=work, stdout=f, stderr=subprocess.STDOUT)
+    return {"proc": proc, "t0": time.perf_counter(), "t0_wall": time.time(),
+            "log": log_path, "out": os.path.join(work, "dryrun_artifacts")}
+
+
+def finish_dryrun(run: dict, card: str) -> dict:
+    """Wait for the dry-run (``DRYRUN_TIMEOUT`` after its start), require
+    exit 0 and ``72/72 cells traced``, and log each cell's per-device
+    argument GB on both meshes, its matmul flops and trace seconds."""
+    proc, t_wait = run["proc"], time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, DRYRUN_TIMEOUT
+                                   - (time.perf_counter() - run["t0"])))
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    waited = time.perf_counter() - t_wait
+    with open(run["log"]) as f:
+        text = f.read()
+    if rc != 0 or f"{DRYRUN_CELLS}/{DRYRUN_CELLS} cells traced" not in text:
+        raise AssertionError(f"the dry-run exited {rc}:\n{text[-4000:]}")
+    summary = os.path.join(run["out"], "summary.json")
+    wall = os.path.getmtime(summary) - run["t0_wall"]   # start to summary
+    with open(summary) as f:
+        recs = json.load(f)
+    cells = {}
+    for r in recs:
+        c = cells.setdefault(f"{r['arch']}/{r['cell']}", {})
+        c[f"{r['mesh']}_arg_gb"] = r["argument_size_in_bytes"] / 1e9
+        c["matmul_flops"] = r["matmul_flops"]
+        c[f"{r['mesh']}_trace_s"] = r["trace_s"]
+    for name, c in cells.items():
+        log(f"phase 16 dry-run {name}: arguments {c['single_arg_gb']:.3f} / "
+            f"{c['multi_arg_gb']:.3f} GB a device (single / multi pod, "
+            f"computed from shapes), matmul_flops {c['matmul_flops']:.4e}, "
+            f"trace {c['single_trace_s']} / {c['multi_trace_s']} s")
+    out = {"wall_s": wall, "waited_s": waited, "cells": len(recs),
+           "trace_s": sum(r["trace_s"] for r in recs), "by_cell": cells}
+    log(f"phase 16 dry-run ({card}): {len(recs)}/{DRYRUN_CELLS} cells traced "
+        f"in {wall:.1f} s of wall time from its start to its summary "
+        f"(traces {out['trace_s']:.1f} s); phase 16 waited {waited:.1f} s "
+        f"for it")
+    return out
+
+
+def _tree_sig(tree):
+    """Paths, shapes and dtypes of a tree of tensors."""
+    from repro_torch.launch.specs import tree_paths
+    return [(p, tuple(t.shape), t.dtype) for p, t in tree_paths(tree)]
+
+
+def _plan_args(arch, cell, plan, dev) -> tuple:
+    """The plan's arguments on the card: the port's own init from a seeded
+    generator, the batch from ``PLAN_SEED``."""
+    from repro_torch.data import sampler, synthetic
+    from repro_torch.models import gnn, recsys, transformer
+    from repro_torch.training.optimizer import adamw_init
+
+    gen = torch.Generator(dev).manual_seed(PLAN_SEED)
+    rng = np.random.default_rng(PLAN_SEED)
+    if arch.family == "lm":
+        params = transformer.stack_layers(
+            transformer.init_params(arch.model, gen))
+        b, s = cell.params["batch"], cell.params["seq"]
+        tokens = torch.from_numpy(rng.integers(
+            0, arch.model.vocab, (b, s), dtype=np.int32)).to(dev)
+        return params, tokens
+    if arch.family == "recsys":
+        params = recsys.init_params(arch.model, gen)
+        nb = synthetic.ClickStream(arch.model, cell.params["batch"],
+                                   seed=PLAN_SEED).next()
+        return params, recsys.batch_to_torch(nb, dev)
+    n, d_feat = cell.params["n_nodes"], cell.params["d_feat"]
+    edges = synthetic.powerlaw_graph(n, 4, seed=PLAN_SEED)[:cell.params["n_edges"]]
+    want = plan.args[2]
+    nb = sampler.make_gnn_batch(edges, n, d_feat, n_classes=arch.model.n_classes,
+                                pad_edges=want["edge_src"].shape[0],
+                                seed=PLAN_SEED)
+    batch = gnn.batch_to_torch({k: nb[k] for k in want}, dev)
+    params = gnn.init_params(arch.model, gen, d_feat)
+    return params, adamw_init(params), batch
+
+
+def _direct(arch, args):
+    """The model's own entry point on the plan's tensors (xDeepFM and the
+    GNN family): ``recsys.serve``, or a train step of ``gnn.loss_fn``."""
+    from repro_torch.models import gnn, recsys
+    from repro_torch.training import optimizer
+
+    if arch.family == "recsys":
+        return recsys.serve(arch.model, *args)
+    step = optimizer.make_train_step(
+        lambda p, b: gnn.loss_fn(arch.model, p, b, n_graphs=0),
+        optimizer.AdamWConfig())
+    return step(*args)
+
+
+def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str) -> dict:
+    """One cell's plan run on the card at ``make_test_mesh((1, 1))``: the
+    cell's global shape at full config.  The plan is first traced on
+    ``meta`` at the same mesh (``dryrun.run_cell``); the card's arguments
+    must match its tree and its ``argument_size_in_bytes`` exactly, the
+    outputs its shapes and dtypes; outputs finite; launches counted (set
+    to 0 just before the call, read just after)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import cin, flash_attention, segment_matmul
+    from repro_torch.launch import dryrun, mesh as lmesh, specs
+    from repro_torch.launch.specs import tree_paths
+    from repro_torch.models import transformer
+
+    arch = get_config(arch_id)
+    cell = next(c for c in arch.cells() if c.name == cell_name)
+    rec = dryrun.run_cell(arch, cell_name,
+                          lmesh.make_test_mesh((1, 1), device="meta"), "1x1")
+    if not rec["ok"]:
+        raise AssertionError(f"{arch_id}/{cell_name} on meta: {rec['error']}")
+    plan = specs.build_cell(arch, cell, lmesh.make_test_mesh((1, 1), device=dev))
+    t = time.perf_counter()
+    args = _plan_args(arch, cell, plan, dev)
+    sync(dev)
+    init_s = time.perf_counter() - t
+    if _tree_sig(args) != _tree_sig(plan.args):
+        raise AssertionError(f"{arch_id}/{cell_name}: the card's arguments "
+                             f"differ from the plan's shapes and dtypes")
+    n_bytes = sum(x.numel() * x.element_size() for _, x in tree_paths(args))
+    if n_bytes != rec["argument_size_in_bytes"]:
+        raise AssertionError(f"{arch_id}/{cell_name}: {n_bytes} argument bytes "
+                             f"on the card, the dry-run says "
+                             f"{rec['argument_size_in_bytes']}")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    reset_counts(flash_attention, segment_matmul, cin)
+    t = time.perf_counter()
+    out = plan.fn(*args)
+    sync(dev)
+    run_s = time.perf_counter() - t
+    launches = {"flash_attention": dict(flash_attention.LAUNCHES_BY_BODY),
+                "segment_matmul": segment_matmul.LAUNCHES, "cin": cin.LAUNCHES}
+    res = {"init_s": init_s, "run_s": run_s, "arg_bytes": n_bytes,
+           "dryrun_arg_bytes": rec["argument_size_in_bytes"],
+           "dryrun_out_bytes": rec["output_size_in_bytes"],
+           "matmul_flops": rec["matmul_flops"], "trace_s": rec["trace_s"],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "peak_above_args_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
+           "launches": launches}
+    got = dryrun._shape_tree(out)
+    if got != rec["outputs"]:
+        raise AssertionError(f"{arch_id}/{cell_name}: outputs {got}, the meta "
+                             f"trace's {rec['outputs']}")
+    for p, x in tree_paths(out):
+        if x.is_floating_point() and not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{arch_id}/{cell_name}: {p} not finite")
+    if arch.family == "lm":
+        n = arch.model.n_layers
+        if launches["flash_attention"] != {"wgmma": n, "simt": 0}:
+            raise AssertionError(f"{arch_id}/{cell_name} launched K3's bodies "
+                                 f"{launches['flash_attention']}, expected the "
+                                 f"wgmma body {n} times")
+        # rows 0-1 against a direct prefill of those two rows
+        direct = transformer.prefill(arch.model,
+                                     transformer.unstack_layers(args[0]),
+                                     args[1][:PLAN_LM_ROWS])
+        scale = float(direct.abs().max())
+        res["rows_max_abs_diff"] = float((out[:PLAN_LM_ROWS] - direct).abs().max())
+        res["rows_max_logit"] = scale
+        if res["rows_max_abs_diff"] > LOGIT_RTOL * scale:
+            raise AssertionError(f"{arch_id}/{cell_name}: rows 0-1 differ from "
+                                 f"a direct prefill by {res['rows_max_abs_diff']}"
+                                 f" > {LOGIT_RTOL} x {scale}")
+    else:
+        want = ({"segment_matmul": 1, "cin": 3} if arch.family == "recsys"
+                else {"segment_matmul": 3, "cin": 0})
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"{arch_id}/{cell_name} launched {launches}, "
+                                 f"expected {want}")
+        direct = _direct(arch, args)
+        for (p, x), (_, y) in zip(tree_paths(out), tree_paths(direct)):
+            if not torch.equal(x, y):
+                raise AssertionError(f"{arch_id}/{cell_name}: {p} differs from "
+                                     f"the model's own entry point")
+        res["bitwise_vs_direct"] = True
+    log(f"phase 16 plan {arch_id}/{cell_name} on the card ({card}): "
+        f"{json.dumps(res)}")
+    del out, args
+    torch.cuda.empty_cache()
+    return res
+
+
+def _time_call(fn, reps: int = 3) -> list:
+    ms = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t))
+    return ms
+
+
+def check_expert_branches(dev, card: str) -> dict:
+    """One MoE layer at full width on ``BRANCH_SHAPE`` (phase 15's
+    mixtral prefill), seeded, on ``make_test_mesh(BRANCH_MESH)``:
+    mixtral-8x7b's 8 experts take the model-sharded branch (16 ``d_ff``
+    slices of 896), held to ``mesh=None`` at the same routing within
+    ``BRANCH_FRO`` relative Frobenius error; llama4-scout's 16 take expert
+    parallelism, bitwise equal to ``mesh=None``.  Both timed against
+    ``mesh=None`` (host clock around a synchronised call, 3 calls)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers
+
+    mesh = make_test_mesh(BRANCH_MESH, device=dev)
+    out = {}
+    for arch_id in MOE_ARCHS:
+        cfg = get_config(arch_id).model
+        gen = torch.Generator(dev).manual_seed(PLAN_SEED)
+        p = layers.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.moe_experts, cfg.mlp)
+        x = torch.randn((*BRANCH_SHAPE, cfg.d_model), generator=gen,
+                        device=dev).to(layers.COMPUTE_DTYPE)
+        kw = dict(n_experts=cfg.moe_experts, top_k=cfg.moe_top_k, kind=cfg.mlp,
+                  capacity_factor=cfg.moe_capacity)
+        with torch.no_grad():
+            y0, aux0 = layers.moe_apply(p, x, **kw)
+            y1, aux1 = layers.moe_apply(p, x, mesh=mesh, **kw)
+            t0 = _time_call(lambda: layers.moe_apply(p, x, **kw))
+            t1 = _time_call(lambda: layers.moe_apply(p, x, mesh=mesh, **kw))
+        ep = cfg.moe_experts % BRANCH_MESH[1] == 0
+        fro = float((y1.float() - y0.float()).norm() / y0.float().norm())
+        r = {"branch": "expert parallel" if ep else
+             f"model-sharded, {BRANCH_MESH[1]} d_ff slices of "
+             f"{cfg.d_ff // BRANCH_MESH[1]}",
+             "rel_fro": fro, "finite": bool(torch.isfinite(y1).all()),
+             "aux_equal": bool(torch.equal(aux0, aux1)),
+             "mesh_none_ms": t0, "mesh_ms": t1}
+        if not r["finite"] or not r["aux_equal"]:
+            raise AssertionError(f"{arch_id} expert branch: {r}")
+        if ep and not torch.equal(y0, y1):
+            raise AssertionError(f"{arch_id}: the expert-parallel branch is not "
+                                 f"bitwise equal to mesh=None ({fro})")
+        if not ep and not 0 < fro <= BRANCH_FRO:
+            raise AssertionError(f"{arch_id}: the model-sharded branch is "
+                                 f"{fro} from mesh=None (bound {BRANCH_FRO})")
+        log(f"phase 16 expert branch {arch_id} on {BRANCH_MESH} ({card}): "
+            f"{json.dumps(r)}")
+        out[arch_id] = r
+        del p, x, y0, y1
+        torch.cuda.empty_cache()
+    return out
+
+
+def drive_plans(dev, card: str, dryrun_run: dict) -> dict:
+    """Phase 16: the dry-run's result (started before phase 13), the three
+    plans run on the card, the expert block's mesh branches.  ``launches``
+    sums the plans' launches by kernel."""
+    t_phase = time.perf_counter()
+    out = {"dryrun": finish_dryrun(dryrun_run, card), "plans": {}}
+    launches = {"flash_attention_wgmma": 0, "flash_attention_simt": 0,
+                "segment_matmul": 0, "cin": 0}
+    for arch_id, cell_name in PLAN_CELLS:
+        r = run_plan_on_card(arch_id, cell_name, dev, card)
+        out["plans"][f"{arch_id}/{cell_name}"] = r
+        launches["flash_attention_wgmma"] += r["launches"]["flash_attention"]["wgmma"]
+        launches["flash_attention_simt"] += r["launches"]["flash_attention"]["simt"]
+        launches["segment_matmul"] += r["launches"]["segment_matmul"]
+        launches["cin"] += r["launches"]["cin"]
+    out["launches"] = launches
+    out["branches"] = check_expert_branches(dev, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def model_cfg(arch_id: str):
     """The full model config of ``arch_id``."""
     from repro_torch.configs import get_config
@@ -4415,6 +4740,19 @@ def main() -> int:
     del rs
     torch.cuda.empty_cache()
 
+    # the dry-run of every cell (phase 16) starts here, a subprocess on its
+    # own core with no card visible, and is read in phase 16
+    dry_work = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    dry = start_dryrun(dry_work)
+
+    def stop_dryrun():
+        if dry["proc"].poll() is None:
+            dry["proc"].kill()
+            dry["proc"].wait()
+        shutil.rmtree(dry_work, ignore_errors=True)
+
+    atexit.register(stop_dryrun)
+
     # truss-filtered GCN training (K1 in every round's batch, K4 in every
     # aggregation) and the GNN launcher; the counts are set to 0 inside,
     # just before the path, and read just after it
@@ -4460,6 +4798,20 @@ def main() -> int:
                              f"{moe['launches']['simt']} times")
     log(f"MoE serving ({card}): {moe['phase_s']:.1f} s; launches "
         f"{moe['launches']}")
+
+    # the cell plans: the dry-run's result, three plans on the card (K3,
+    # K4's gathered and rows entries, K5; the counts set to 0 just before
+    # each plan's call and read just after it), the expert branches
+    plans = drive_plans(dev, card, dry)
+    stop_dryrun()
+    for cell, r in plans["plans"].items():
+        if r["launches"]["flash_attention"]["wgmma"]:
+            wgmma_paths[f"{cell} plan"] = r["launches"]["flash_attention"]["wgmma"]
+    launches["flash_attention_wgmma"] += plans["launches"]["flash_attention_wgmma"]
+    launches["segment_matmul_plans"] = plans["launches"]["segment_matmul"]
+    launches["cin_plans"] = plans["launches"]["cin"]
+    log(f"cell plans ({card}): {plans['phase_s']:.1f} s; launches "
+        f"{plans['launches']}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -4551,14 +4903,16 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}", "replaces": replaces,
-            "launches": launches[name] + launches.get(f"{name}_training", 0),
+            "launches": launches[name] + launches.get(f"{name}_training", 0)
+            + launches[f"{name}_plans"],
             "max_abs_err": max([e for k, e in k45_errs.items()
                                 if k.startswith(name)] + extra_errs[name]),
             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
             "library_ms": lms})
     kernels[-2]["path"] = {"recsys": launches["segment_matmul"],
                            "training": tr_launches["segment_matmul"],
-                           "recsys training": rs_tr["segment_matmul"]}
+                           "recsys training": rs_tr["segment_matmul"],
+                           "cell plans": launches["segment_matmul_plans"]}
     kernels[-2]["training_rows_entry"] = tr["k4_shapes"]
     kernels[-2]["gathered_plain_backward_ms"] = \
         lt["cin_backward"]["k4_plain_backward_ms"]
@@ -4577,7 +4931,8 @@ def main() -> int:
                         "bulk_layer2": k45_time["cin bulk layer 2"],
                         "compile": k5_compile,
                         "path": {"recsys": launches["cin"],
-                                 "recsys training": rs_tr["cin"]},
+                                 "recsys training": rs_tr["cin"],
+                                 "cell plans": launches["cin_plans"]},
                         "plain_backward": lt["cin_backward"]})
     # K3's training forward is prefill's GQA layout ("layouts" has it under
     # the prefill name); its backward is plain
@@ -4585,7 +4940,10 @@ def main() -> int:
     log(f"recsys outputs: {json.dumps(out_errs)}")
     log(f"smoke total ({card}): {time.perf_counter() - T_START:.1f} s of "
         f"the 1,200 s limit; phase 13 {tr['phase_s']:.1f} s, phase 14 "
-        f"{lt['phase_s']:.1f} s, phase 15 {moe['phase_s']:.1f} s")
+        f"{lt['phase_s']:.1f} s, phase 15 {moe['phase_s']:.1f} s, phase 16 "
+        f"{plans['phase_s']:.1f} s (the dry-run {plans['dryrun']['wall_s']:.1f}"
+        f" s beside phases 13-15, waited for {plans['dryrun']['waited_s']:.1f}"
+        f" s)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

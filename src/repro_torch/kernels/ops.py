@@ -17,10 +17,22 @@ on every device: the reference has no backward kernel to port.
 entry, the embedding bag; backward ``ref.segment_gathered_vjp_ref``) and
 ``cin_layer`` (K5; backward ``ref.cin_layer_vjp_ref``).  Under
 ``torch.no_grad`` each launches exactly what its forward launches.
+
+A ``meta`` tensor takes the meta route: the kernel's operator in the
+``repro_torch`` namespace (``torch.ops.repro_torch.peel_wave``,
+``bitmap_support``, ``flash_attention``, ``segment_sum``, ``cin_layer``),
+which has a fake implementation only, so it returns outputs of the kernel's
+shapes and dtypes, computes nothing and reads no value.  That is how the
+dry-run (``launch/dryrun.py``) traces a step on shapes alone.  K3's and
+K5's operators carry flop formulas for ``torch.utils.flop_counter``: K3
+counts the (query, key) pairs inside its causal or window band, K5 its
+GEMM.  The Functions' backwards run their plain code on meta tensors too.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import ref
 from .bitmap_support import bitmap_support_cuda
@@ -39,19 +51,100 @@ def use_kernels(flag: bool) -> None:
     _USE_KERNELS = bool(flag)
 
 
-def _on_card(*tensors: torch.Tensor) -> bool:
-    """True when the call launches a kernel: every tensor on one CUDA device
-    and kernels enabled.  CPU tensors take the plain version; any other
-    device raises."""
+def _device(*tensors: torch.Tensor) -> torch.device:
+    """The one device of ``tensors``; raises unless it is a CUDA device,
+    the CPU or ``meta``."""
     dev = tensors[0].device
     if any(t.device != dev for t in tensors):
         raise ValueError(f"tensors on different devices: "
                          f"{[str(t.device) for t in tensors]}")
-    if dev.type == "cuda":
-        return _USE_KERNELS
-    if dev.type == "cpu":
-        return False
-    raise ValueError(f"no kernel or plain path for device {dev}")
+    if dev.type not in ("cuda", "cpu", "meta"):
+        raise ValueError(f"no kernel or plain path for device {dev}")
+    return dev
+
+
+def _is_meta(*tensors: torch.Tensor) -> bool:
+    """True when the call takes the meta route (shapes only)."""
+    return _device(*tensors).type == "meta"
+
+
+def _on_card(*tensors: torch.Tensor) -> bool:
+    """True when the call launches a kernel: every tensor on one CUDA device
+    and kernels enabled.  CPU tensors take the plain version (meta tensors
+    took the meta route before this is asked); any other device raises."""
+    return _device(*tensors).type == "cuda" and _USE_KERNELS
+
+
+# ---------------------------------------------------------------------------
+# the meta route: one operator a kernel, a fake implementation only (any
+# other device has no implementation and raises)
+# ---------------------------------------------------------------------------
+
+_LIB = torch.library.Library("repro_torch", "DEF")
+_LIB.define("peel_wave(Tensor alive) -> (Tensor, Tensor)")
+_LIB.define("bitmap_support(Tensor rows) -> Tensor")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, bool causal, "
+            "int? window) -> Tensor")
+_LIB.define("segment_sum(Tensor rows, Tensor seg_ids, int num_segments) "
+            "-> Tensor")
+_LIB.define("cin_layer(Tensor xk, Tensor x0, Tensor w) -> Tensor")
+_META = torch.ops.repro_torch
+
+
+@torch.library.register_fake("repro_torch::peel_wave")
+def _peel_wave_fake(alive):
+    e = (alive.shape[0],)
+    return (alive.new_empty(e, dtype=torch.int32),
+            alive.new_empty(e, dtype=torch.bool))
+
+
+@torch.library.register_fake("repro_torch::bitmap_support")
+def _bitmap_support_fake(rows):
+    return rows.new_empty((rows.shape[0],), dtype=torch.int32)
+
+
+@torch.library.register_fake("repro_torch::flash_attention")
+def _flash_attention_fake(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+@torch.library.register_fake("repro_torch::segment_sum")
+def _segment_sum_fake(rows, seg_ids, num_segments):
+    return rows.new_empty((num_segments,) + tuple(rows.shape[1:]))
+
+
+@torch.library.register_fake("repro_torch::cin_layer")
+def _cin_layer_fake(xk, x0, w):
+    return xk.new_empty((xk.shape[0], w.shape[0], xk.shape[2]))
+
+
+def attention_pairs(sq: int, skv: int, causal: bool, window) -> int:
+    """The (query, key) pairs of one head that K3's band keeps: query ``i``
+    (at position ``i + skv - sq``) sees keys ``<= i + skv - sq`` when
+    causal and within ``window`` of it."""
+    q = np.arange(sq, dtype=np.int64) + (skv - sq)
+    hi = np.minimum(q + 1, skv) if causal else np.full(sq, skv, np.int64)
+    lo = (np.zeros(sq, np.int64) if window is None
+          else np.maximum(q - window + 1, 0))
+    return int(np.maximum(hi - lo, 0).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_attention_flops(q_shape, k_shape, v_shape, causal, window,
+                           out_shape=None, **kwargs) -> int:
+    """``Q Kᵀ`` and ``P V`` over the pairs inside the band: 4 · B · Hq ·
+    pairs · Dh (q ``[B, Sq, Hq, Dh]``, k ``[B, Skv, Hkv, Dh]``)."""
+    b, sq, hq, dh = q_shape
+    return 4 * b * hq * dh * attention_pairs(sq, k_shape[1], causal, window)
+
+
+@register_flop_formula(torch.ops.repro_torch.cin_layer)
+def _cin_layer_flops(xk_shape, x0_shape, w_shape, out_shape=None,
+                     **kwargs) -> int:
+    """K5's GEMM: ``[O, H·M] x [H·M, B·D]``, 2 · B · O · H · M · D."""
+    b, h, d = xk_shape
+    o, _, m = w_shape
+    return 2 * b * o * h * m * d
 
 
 def _slab(row_offset, row_count, *arrays):
@@ -76,6 +169,8 @@ def bitmap_support(rows_a, rows_b, row_offset=0, row_count=None,
     rows_a, rows_b = _slab(row_offset, row_count, rows_a, rows_b)
     wo = 0 if word_count is None else _word_start(word_offset, word_count,
                                                   rows_a.shape[1])
+    if _is_meta(rows_a, rows_b):
+        return _META.bitmap_support(rows_a)
     if _on_card(rows_a, rows_b):
         return bitmap_support_cuda(rows_a, rows_b, word_offset=wo,
                                    word_count=word_count)
@@ -94,6 +189,8 @@ def bitmap_support_gathered(bitmap, eu, ev, chunk=None, word_offset=0,
     the kernel needs no chunking.  A word slab gives a partial sum."""
     wo = 0 if word_count is None else _word_start(word_offset, word_count,
                                                   bitmap.shape[1])
+    if _is_meta(bitmap, eu, ev):
+        return _META.bitmap_support(eu)
     if _on_card(bitmap, eu, ev):
         return bitmap_support_cuda(bitmap, bitmap, eu, ev, word_offset=wo,
                                    word_count=word_count)
@@ -106,6 +203,8 @@ def peel_wave(rows_a, rows_b, alive, k, row_offset=0, row_count=None):
     """Fused (support, kill-frontier) of the level-``k`` wave over int32
     rows ``[E, W]`` (K1's rows entry).  Returns ``(sup int32, kill bool)``."""
     rows_a, rows_b, alive = _slab(row_offset, row_count, rows_a, rows_b, alive)
+    if _is_meta(rows_a, rows_b, alive):
+        return _META.peel_wave(alive)
     if _on_card(rows_a, rows_b, alive):
         return peel_wave_cuda(rows_a, rows_b, alive, k)
     return ref.peel_wave_ref(rows_a, rows_b, alive, k)
@@ -116,6 +215,8 @@ def peel_wave_gathered(bitmap, eu, ev, alive, k, chunk=None):
     ``peel_wave(bitmap[eu], bitmap[ev], alive, k)`` without building the
     row gathers on the card (the digest body there).  ``chunk`` bounds the
     plain version's gather."""
+    if _is_meta(bitmap, eu, ev, alive):
+        return _META.peel_wave(alive)
     if _on_card(bitmap, eu, ev, alive):
         return peel_wave_cuda(bitmap, bitmap, alive, k, eu, ev)
     return ref.peel_wave_gathered_ref(bitmap, eu, ev, alive, k, chunk)
@@ -124,6 +225,10 @@ def peel_wave_gathered(bitmap, eu, ev, alive, k, chunk=None):
 def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
     """K3 in the reference's layout: q, k, v ``[BH, S, Dh]`` (``Sq == Skv``
     on the card) -> ``[BH, S, Dh]`` in ``q.dtype``."""
+    if _is_meta(q, k, v):
+        return _META.flash_attention(q.unsqueeze(2), k.unsqueeze(2),
+                                     v.unsqueeze(2), causal,
+                                     window).squeeze(2)
     if _on_card(q, k, v):
         return flash_attention_cuda(q.unsqueeze(2), k.unsqueeze(2),
                                     v.unsqueeze(2), causal=causal,
@@ -134,13 +239,16 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int | None = None):
 class FlashAttention(torch.autograd.Function):
     """Attention in the model's layout with a gradient.  Forward: K3 (body
     by ``body_for``) when ``kernel`` is set and the tensors are on the card
-    with kernels enabled, else ``ref.chunked_attention_ref``.  It saves q,
+    with kernels enabled (K3's meta route when they are on ``meta``), else
+    ``ref.chunked_attention_ref``.  It saves q,
     k and v; the backward is ``ref.attention_vjp_ref``, which recomputes
     the scores a query block at a time and launches no kernel."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, kernel):
-        if kernel and _on_card(q, k, v):
+        if kernel and _is_meta(q, k, v):
+            o = _META.flash_attention(q, k, v, causal, window)
+        elif kernel and _on_card(q, k, v):
             o = flash_attention_cuda(q, k, v, causal=causal, window=window)
         else:
             o = ref.chunked_attention_ref(
@@ -175,6 +283,8 @@ def segment_matmul(messages, seg_ids, num_segments: int):
     """K4's rows entry, the reference's signature: ``out[s] = Σ messages[i]
     over seg_ids[i] == s`` -> ``[N, D]`` in ``messages.dtype``; int32 ids,
     those outside ``[0, N)`` dropped; summed in index order in fp32."""
+    if _is_meta(messages, seg_ids):
+        return _META.segment_sum(messages, seg_ids, num_segments)
     if _on_card(messages, seg_ids):
         return segment_sum_cuda(messages, seg_ids, num_segments)
     return ref.segment_matmul_ref(messages, seg_ids, num_segments)
@@ -207,6 +317,8 @@ def segment_sum(messages, seg_ids, num_segments: int):
 
 def _segment_matmul_gathered(table, indices, seg_ids, num_segments: int,
                              ids_sorted: bool, mean: bool):
+    if _is_meta(table, indices, seg_ids):
+        return _META.segment_sum(table, seg_ids, num_segments)
     if _on_card(table, indices, seg_ids):
         return segment_sum_cuda(table, seg_ids, num_segments, indices,
                                 ids_sorted=ids_sorted, mean=mean)
@@ -259,8 +371,12 @@ class CinLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, xk, x0, w):
-        out = (cin_layer_cuda(xk, x0, w) if _on_card(xk, x0, w)
-               else ref.cin_layer_ref(xk, x0, w))
+        if _is_meta(xk, x0, w):
+            out = _META.cin_layer(xk, x0, w)
+        elif _on_card(xk, x0, w):
+            out = cin_layer_cuda(xk, x0, w)
+        else:
+            out = ref.cin_layer_ref(xk, x0, w)
         ctx.save_for_backward(xk, x0, w, out)
         return out
 

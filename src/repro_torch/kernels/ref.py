@@ -280,8 +280,9 @@ def segment_gathered_vjp_ref(grad_out: torch.Tensor, table_shape,
     keep = (seg_ids >= 0) & (seg_ids < n)
     ids = torch.where(keep, seg_ids, 0).long()
     g = grad_out.float()
-    if mean:
-        count = torch.bincount(ids[keep], minlength=n).to(torch.float32)
+    if mean:   # the count of in-range ids a bag, with no data-sized shape
+        count = torch.zeros((n,), dtype=torch.float32, device=g.device)
+        count.index_add_(0, ids, keep.to(torch.float32))
         g = g / torch.clamp(count, min=1.0)[:, None]
     r = table_shape[0]
     idx = indices.long()

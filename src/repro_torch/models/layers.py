@@ -19,10 +19,13 @@ parameters live on; its numbers are not ``jax.random``'s, so the tests carry
 the reference's parameters across with ``transformer.params_from_numpy``.
 The MoE layer routes on the device with no host sync (``moe_route``) and
 runs its experts as bf16 einsums over ``[B, E, cap, ·]``, as the reference
-does outside any kernel, through the single-device branch of the
-reference's ``_expert_block_dispatch``.  The mesh hints (``shard_hint``,
-sequence-parallel attention, the expert block's ``shard_map``) wait for
-the port's LM mesh.
+does outside any kernel.  ``_expert_block_dispatch`` keeps the reference's
+three branches: no mesh and expert parallelism (the experts divide the
+``model`` axis) run the block as one call; otherwise each mesh position
+runs it on its batch slice and its ``d_ff`` slice of the expert weights,
+and the combined bf16 partials are summed over ``model`` (the reference's
+``shard_map``).  ``shard_hint`` returns its input: the reference's is a
+GSPMD constraint, and the port has no partitioner for it to steer.
 """
 from __future__ import annotations
 
@@ -33,11 +36,23 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ..core.distributed import psum
 from ..kernels import ops as kernel_ops
 from ..kernels.ref import chunked_attention_ref as _chunked_attention  # noqa: F401
 
 Params = dict[str, Any]
 COMPUTE_DTYPE = torch.bfloat16
+
+
+def shard_hint(x: torch.Tensor, *dims) -> torch.Tensor:
+    """``x`` itself.  Kept for parity with the reference; nothing calls it.
+
+    The reference's ``shard_hint`` is ``with_sharding_constraint`` against
+    the ambient mesh (``dims``: ``"dp"``, ``"model"`` or None per axis) and
+    a no-op off a mesh.  On a mesh it steers XLA's GSPMD partitioner; the
+    port has none (a mesh program here places each position's work itself,
+    as ``_expert_block_dispatch`` does), so there is nothing to steer."""
+    return x
 
 
 # ---------------------------------------------------------------------------
@@ -152,11 +167,12 @@ def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
                     causal: bool = True, window: int | None = None,
                     qk_norm: bool = False, rope_theta: float = 1e6,
                     cache: tuple | None = None,
-                    cache_pos: int | None = None) -> tuple:
+                    cache_pos=None) -> tuple:
     """x: [B, S, D].  If ``cache`` is given (decode), it is updated in place
     and returned.
 
-    cache = (k_cache, v_cache): [B, C, n_kv, Dh]; cache_pos: int — absolute
+    cache = (k_cache, v_cache): [B, C, n_kv, Dh]; cache_pos: int or 0-d
+    integer tensor (read on the device, never on the host) — absolute
     position of the incoming token; ring-buffered when C < pos.
     """
     b, s, _ = x.shape
@@ -175,15 +191,17 @@ def attention_apply(p: Params, x: torch.Tensor, positions: torch.Tensor, *,
         # one differentiable entry either way (backward: attention_vjp_ref)
         out = kernel_ops.flash_attention_heads(
             q, k, v, causal=causal, window=window,
-            kernel=x.device.type == "cuda" and s >= 512)  # [B, S, Hq, Dh]
+            kernel=x.device.type in ("cuda", "meta") and s >= 512)
         out = out.reshape(b, s, n_heads * head_dim)
         new_cache = None
     else:
         k_cache, v_cache = cache
         c = k_cache.shape[1]
+        if not isinstance(cache_pos, torch.Tensor):   # a fill, no copy
+            cache_pos = torch.full((), cache_pos, device=x.device)
         slot = cache_pos % c  # ring buffer (SWA windows)
-        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+        k_cache.index_copy_(1, slot.reshape(1).long(), k.to(k_cache.dtype))
+        v_cache.index_copy_(1, slot.reshape(1).long(), v.to(v_cache.dtype))
         # decode attention (q_len == 1): bandwidth-bound gather math in fp32
         ring = torch.arange(c, device=x.device)
         kv_pos_abs = cache_pos - ((slot - ring) % c)  # abs position per slot
@@ -317,12 +335,16 @@ def moe_route(router: torch.Tensor, x: torch.Tensor, *, n_experts: int,
 
 
 def _expert_block(r: Routing, xc: torch.Tensor, w: Params, *, n_experts: int,
-                  top_k: int, kind: str) -> torch.Tensor:
+                  top_k: int, kind: str, slices: int = 0) -> torch.Tensor:
     """Scatter-dispatch -> expert einsums -> gather-combine, ``[B, S, D]``
-    in and out: the reference's ``expert_block`` as its
-    ``_expert_block_dispatch`` runs it without a model axis.  The dropped
-    slots scatter into one extra row that is cut away, as ``mode="drop"``
-    drops them."""
+    in and out: the reference's ``expert_block``.  It reads ``r.dest``,
+    ``r.gates`` and ``r.cap`` only.  The dropped slots scatter into one
+    extra row that is cut away, as ``mode="drop"`` drops them.
+
+    ``slices=m`` runs ``m`` ``d_ff`` slices of the experts at once: the
+    weights come as views ``w_gate`` / ``w_up`` ``[E, D, m, f]`` and
+    ``w_down`` ``[E, m, f, D]``, and the result is each slice's combined
+    partial, ``[m, B, S, D]``."""
     b, s, d = xc.shape
     tk, n_slots = s * top_k, n_experts * r.cap
     src = torch.arange(tk, device=xc.device) // top_k
@@ -330,37 +352,115 @@ def _expert_block(r: Routing, xc: torch.Tensor, w: Params, *, n_experts: int,
     buf = torch.zeros((b, n_slots + 1, d), dtype=xc.dtype, device=xc.device)
     buf = buf.scatter_add(1, r.dest[..., None].expand(b, tk, d), updates)
     xe = buf[:, :n_slots].reshape(b, n_experts, r.cap, d)
+    up, down = (("becd,edmf->mbecf", "mbecf,emfd->mbecd") if slices
+                else ("becd,edf->becf", "becf,efd->becd"))
     if kind in ("swiglu", "geglu"):
         act = F.silu if kind == "swiglu" else _gelu
-        g = act(torch.einsum("becd,edf->becf", xe,
-                             w["w_gate"].to(COMPUTE_DTYPE)))
-        u = torch.einsum("becd,edf->becf", xe, w["w_up"].to(COMPUTE_DTYPE))
-        ye = torch.einsum("becf,efd->becd", g * u,
-                          w["w_down"].to(COMPUTE_DTYPE))
+        g = act(torch.einsum(up, xe, w["w_gate"].to(COMPUTE_DTYPE)))
+        u = torch.einsum(up, xe, w["w_up"].to(COMPUTE_DTYPE))
+        ye = torch.einsum(down, g * u, w["w_down"].to(COMPUTE_DTYPE))
     else:
-        h = _gelu(torch.einsum("becd,edf->becf", xe,
-                               w["w_up"].to(COMPUTE_DTYPE)))
-        ye = torch.einsum("becf,efd->becd", h, w["w_down"].to(COMPUTE_DTYPE))
-    got = torch.gather(ye.reshape(b, n_slots, d), 1,
-                       r.dest.clamp(max=n_slots - 1)[..., None].expand(b, tk, d))
+        h = _gelu(torch.einsum(up, xe, w["w_up"].to(COMPUTE_DTYPE)))
+        ye = torch.einsum(down, h, w["w_down"].to(COMPUTE_DTYPE))
+    lead = ye.shape[:-4]                                         # (m,) or ()
+    idx = r.dest.clamp(max=n_slots - 1)[..., None].expand(*lead, b, tk, d)
+    got = torch.gather(ye.reshape(*lead, b, n_slots, d), -2, idx)
     got = got * r.gates[..., None]
-    return got.reshape(b, s, top_k, d).sum(2)
+    return got.reshape(*lead, b, s, top_k, d).sum(-2)
+
+
+def _position_grid(mesh) -> np.ndarray:
+    """The mesh's devices as a ``[dp, model]`` grid: the ``model`` axis
+    last, the data-parallel axes (``pod``, ``data``) flattened in mesh
+    order."""
+    grid = np.empty(len(mesh.devices), dtype=object)
+    grid[:] = mesh.devices
+    grid = grid.reshape(tuple(mesh.shape.values()))
+    grid = np.moveaxis(grid, mesh.axis_names.index("model"), -1)
+    return grid.reshape(-1, mesh.shape["model"])
+
+
+def _row_runs(grid: np.ndarray, b: int) -> list:
+    """``(lo, hi, devices)``: the batch rows of each run of data-parallel
+    grid rows whose positions sit on the same devices, in order; one run
+    of the whole batch where the rows cannot split it (every row then
+    holds the same result)."""
+    if b % len(grid):
+        return [(0, b, tuple(grid[0]))]
+    step, runs = b // len(grid), []
+    for i, row in enumerate(grid):
+        if runs and runs[-1][2] == tuple(row):
+            runs[-1] = (runs[-1][0], (i + 1) * step, runs[-1][2])
+        else:
+            runs.append((i * step, (i + 1) * step, tuple(row)))
+    return runs
+
+
+def _expert_block_dispatch(r: Routing, xc: torch.Tensor, w: Params, *,
+                           n_experts: int, top_k: int, kind: str,
+                           mesh=None) -> torch.Tensor:
+    """The reference's ``_expert_block_dispatch``: with no ``model`` axis,
+    or when the experts divide it (expert parallelism), the block is one
+    call.  Otherwise the expert weights are sharded on ``d_ff``: position
+    ``(i, j)`` takes batch slice ``i`` (the whole batch when the
+    data-parallel size does not divide it), ``w_gate`` / ``w_up`` sliced
+    on their last dim and ``w_down`` on its middle one at ``j``, and runs
+    the block in bf16 on its device; the combined bf16 partials are summed
+    over ``model`` in position order (``psum``), after the combine as the
+    reference sums them, and the batch slices joined on the first
+    position's device.  Positions that share a device run as one call:
+    its batch slices together, its ``d_ff`` slices batched in the einsums
+    (``_expert_block(slices=...)``), so on one card or on ``meta`` a layer
+    is one call whatever the mesh's size."""
+    msize = mesh.shape.get("model", 0) if mesh is not None else 0
+    if msize == 0 or n_experts % msize == 0:
+        return _expert_block(r, xc, w, n_experts=n_experts, top_k=top_k,
+                             kind=kind)
+    grid = _position_grid(mesh)
+    e, d_ff = n_experts, w["w_up"].shape[-1]
+    if d_ff % msize:
+        raise ValueError(f"d_ff {d_ff} does not split over model={msize}")
+    f = d_ff // msize
+    views = {k: (v.reshape(e, msize, f, v.shape[-1]) if k == "w_down"
+                 else v.reshape(e, v.shape[1], msize, f))
+             for k, v in w.items()}                  # the d_ff slice axis
+    outs = []
+    for lo, hi, devs in _row_runs(grid, xc.shape[0]):
+        parts = [None] * msize
+        for dev in dict.fromkeys(devs):
+            cols = [j for j, d in enumerate(devs) if d == dev]
+            if len(cols) < msize:
+                idx = torch.tensor(cols, device=w["w_up"].device)
+                wd = {k: v.index_select(1 if k == "w_down" else 2, idx).to(dev)
+                      for k, v in views.items()}
+            else:
+                wd = {k: v.to(dev) for k, v in views.items()}
+            rd = r._replace(dest=r.dest[lo:hi].to(dev),
+                            gates=r.gates[lo:hi].to(dev))
+            got = _expert_block(rd, xc[lo:hi].to(dev), wd, n_experts=e,
+                                top_k=top_k, kind=kind, slices=len(cols))
+            for j, part in zip(cols, got.unbind(0)):
+                parts[j] = part
+        outs.append(psum(parts)[0].to(grid[0, 0]))
+    return torch.cat(outs) if len(outs) > 1 else outs[0]
 
 
 def moe_apply(p: Params, x: torch.Tensor, *, n_experts: int, top_k: int,
               kind: str, capacity_factor: float = 1.25,
-              gate_idx: torch.Tensor | None = None) -> tuple:
+              gate_idx: torch.Tensor | None = None, mesh=None) -> tuple:
     """x: [B, S, D] -> (out [B, S, D] in ``COMPUTE_DTYPE``, aux fp32).
 
     ``moe_route`` picks each token's experts (or takes ``gate_idx``, to
-    replay another run's choices), ``_expert_block`` runs them, and the
-    Switch load-balance loss is ``E · Σ_e frac_tokens_e · frac_probs_e``
-    over the first choice."""
+    replay another run's choices), ``_expert_block_dispatch`` runs them
+    (over ``mesh``'s positions where the experts do not divide its
+    ``model`` axis), and the Switch load-balance loss is ``E · Σ_e
+    frac_tokens_e · frac_probs_e`` over the first choice."""
     r = moe_route(p["router"], x, n_experts=n_experts, top_k=top_k,
                   capacity_factor=capacity_factor, gate_idx=gate_idx)
     w = {k: v for k, v in p.items() if k.startswith("w_")}
-    out = _expert_block(r, x.to(COMPUTE_DTYPE), w, n_experts=n_experts,
-                        top_k=top_k, kind=kind)
+    out = _expert_block_dispatch(r, x.to(COMPUTE_DTYPE), w,
+                                 n_experts=n_experts, top_k=top_k, kind=kind,
+                                 mesh=mesh)
     first = (r.gate_idx[..., 0, None] == torch.arange(
         n_experts, device=x.device)).float()
     frac_tokens = first.mean(dim=(0, 1))

@@ -16,7 +16,10 @@ one sequence chunk at a time, each chunk checkpointed, so the ``[B, S, V]``
 logits never exist.  It adds ``0.01 ·`` the layers' summed MoE aux loss,
 as the reference does.  ``backbone``, ``prefill`` and ``decode_step`` run
 under ``torch.no_grad``; the KV cache of ``decode_step`` is updated in
-place.
+place, and its position may be a 0-d device tensor (no host read).  Each
+forward takes ``mesh=`` (a ``ShardMesh`` with a ``model`` axis, or None)
+for the MoE layers' expert block (``layers._expert_block_dispatch``);
+nothing else reads it.
 """
 from __future__ import annotations
 
@@ -127,6 +130,32 @@ def params_to_numpy(params: dict) -> dict:
     return out
 
 
+def stack_layers(params: dict) -> dict:
+    """The reference's layout of the port's parameters: ``layers`` as one
+    dict of ``[L, ...]`` tensors (``torch.stack`` of the per-layer leaves,
+    on their device; on ``meta``, shapes only), the rest as it is."""
+    def stack(*leaves):
+        if isinstance(leaves[0], dict):
+            return {k: stack(*(l[k] for l in leaves)) for k in leaves[0]}
+        return torch.stack(leaves)
+
+    return {k: (stack(*v) if k == "layers" else v) for k, v in params.items()}
+
+
+def unstack_layers(params: dict) -> dict:
+    """Inverse of ``stack_layers`` with views: each layer's leaves are
+    ``unbind(0)`` slices of the stacked ones, so a gradient through them
+    lands on the stacked leaves."""
+    def split(tree):
+        if isinstance(tree, dict):
+            per = {k: split(v) for k, v in tree.items()}
+            n = len(next(iter(per.values())))
+            return [{k: v[i] for k, v in per.items()} for i in range(n)]
+        return tree.unbind(0)
+
+    return {k: (split(v) if k == "layers" else v) for k, v in params.items()}
+
+
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
@@ -140,7 +169,8 @@ def _embed(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def _layer_fwd(cfg: LMConfig, lp: dict, x: torch.Tensor,
-               positions: torch.Tensor, cache=None, cache_pos=None):
+               positions: torch.Tensor, cache=None, cache_pos=None,
+               mesh=None):
     """One layer -> (x, aux): the MoE layer's aux loss (fp32), 0.0 for a
     dense layer."""
     h, _ = layers.attention_apply(
@@ -153,13 +183,15 @@ def _layer_fwd(cfg: LMConfig, lp: dict, x: torch.Tensor,
     if cfg.moe_experts:
         m, aux = layers.moe_apply(lp["moe"], z, n_experts=cfg.moe_experts,
                                   top_k=cfg.moe_top_k, kind=cfg.mlp,
-                                  capacity_factor=cfg.moe_capacity)
+                                  capacity_factor=cfg.moe_capacity,
+                                  mesh=mesh)
     else:
         m, aux = layers.mlp_apply(lp["mlp"], z, cfg.mlp), 0.0
     return x + m, aux
 
 
-def _backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> tuple:
+def _backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor,
+              mesh=None) -> tuple:
     """tokens [B, S] -> (hidden [B, S, D] bf16, the layers' summed aux
     loss; 0.0 for a dense model), with a gradient: each layer is
     checkpointed (recomputed in the backward), as the reference remats each
@@ -170,16 +202,17 @@ def _backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> tuple:
     positions = torch.arange(s, device=tokens.device).expand(b, s)
     aux = 0.0
     for lp in params["layers"]:
-        x, a = checkpoint(_layer_fwd, cfg, lp, x, positions,
+        x, a = checkpoint(_layer_fwd, cfg, lp, x, positions, mesh=mesh,
                           use_reentrant=False, preserve_rng_state=False)
         aux = aux + a
     return layers.norm_apply(params["final_norm"], x, cfg.norm), aux
 
 
 @torch.no_grad()
-def backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> tuple:
+def backbone(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
+             mesh=None) -> tuple:
     """tokens [B, S] -> (hidden [B, S, D] bf16, aux loss)."""
-    return _backbone(cfg, params, tokens)
+    return _backbone(cfg, params, tokens, mesh)
 
 
 def _unembed(cfg: LMConfig, params: dict) -> torch.Tensor:
@@ -197,7 +230,7 @@ def _chunk_loss(h: torch.Tensor, t: torch.Tensor, w: torch.Tensor) -> torch.Tens
 
 
 def loss_fn(cfg: LMConfig, params: dict, batch: dict, *,
-            xent_chunk: int = 512) -> torch.Tensor:
+            xent_chunk: int = 512, mesh=None) -> torch.Tensor:
     """Causal LM loss, differentiable: the mean next-token cross-entropy
     plus ``0.01 ·`` the MoE aux loss (0 for a dense model).  The logits are
     computed one ``xent_chunk``-long sequence chunk at a time under
@@ -205,7 +238,7 @@ def loss_fn(cfg: LMConfig, params: dict, batch: dict, *,
     exists.  As in the reference, ``S // chunk`` chunks are summed and the
     sum is divided by ``B·S``."""
     tokens, targets = batch["tokens"], batch["targets"]
-    hidden, aux = _backbone(cfg, params, tokens)
+    hidden, aux = _backbone(cfg, params, tokens, mesh)
     w = _unembed(cfg, params)
     b, s, _ = hidden.shape
     c = min(xent_chunk, s)
@@ -217,10 +250,11 @@ def loss_fn(cfg: LMConfig, params: dict, batch: dict, *,
 
 
 @torch.no_grad()
-def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor) -> torch.Tensor:
+def prefill(cfg: LMConfig, params: dict, tokens: torch.Tensor, *,
+            mesh=None) -> torch.Tensor:
     """Prefill forward returning last-position logits [B, V] fp32 (the aux
     loss discarded, as the reference does)."""
-    hidden, _ = backbone(cfg, params, tokens)
+    hidden, _ = backbone(cfg, params, tokens, mesh=mesh)
     return (hidden[:, -1] @ _unembed(cfg, params)).float()
 
 
@@ -242,15 +276,19 @@ def init_cache(cfg: LMConfig, batch: int, seq: int, dtype=COMPUTE_DTYPE,
 
 @torch.no_grad()
 def decode_step(cfg: LMConfig, params: dict, cache: dict, token: torch.Tensor,
-                pos: int) -> tuple[torch.Tensor, dict]:
-    """token [B] int, pos int -> (logits [B, V] fp32, cache); the cache is
-    written in place at ring slot ``pos % C`` of every layer."""
+                pos, *, mesh=None) -> tuple[torch.Tensor, dict]:
+    """token [B] int, pos (int or 0-d integer tensor) -> (logits [B, V]
+    fp32, cache); the cache is written in place at ring slot ``pos % C`` of
+    every layer."""
     b = token.shape[0]
     x = _embed(cfg, params, token)[:, None, :]
-    positions = torch.full((b, 1), pos, dtype=torch.int32, device=token.device)
+    if not isinstance(pos, torch.Tensor):   # a fill, no host-to-device copy
+        pos = torch.full((), pos, device=token.device)
+    positions = pos.to(torch.int32).reshape(1, 1).expand(b, 1)
     for i, lp in enumerate(params["layers"]):
         x, _ = _layer_fwd(cfg, lp, x, positions,
-                          cache=(cache["k"][i], cache["v"][i]), cache_pos=pos)
+                          cache=(cache["k"][i], cache["v"][i]), cache_pos=pos,
+                          mesh=mesh)
     x = layers.norm_apply(params["final_norm"], x, cfg.norm)
     logits = (x[:, 0] @ _unembed(cfg, params)).float()
     return logits, cache

@@ -1165,3 +1165,76 @@ def test_kv_quant_on_card_equals_cpu_bitwise(cuda):
     got = kv_quant.attend_quant(q.to(cuda), {k: t.to(cuda) for k, t in layer.items()},
                                 valid.to(cuda), 8, 128)
     torch.testing.assert_close(got.cpu(), exp, rtol=1e-5, atol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# the cell plans: the expert block's mesh branches on the card, the meta
+# route beside the kernels
+# ---------------------------------------------------------------------------
+
+BRANCH_FRO = 2e-2     # tests/test_torch_specs.py's bound
+
+
+@pytest.mark.parametrize("arch_id,shape", [("mixtral-8x7b", (1, 8)),
+                                           ("mixtral-8x7b", (2, 16)),
+                                           ("llama4-scout-17b-a16e", (2, 8))])
+def test_moe_mesh_branches_on_card(cuda, arch_id, shape):
+    """mixtral-smoke's 4 experts take the model-sharded branch (within
+    ``BRANCH_FRO`` of mesh=None), llama4-smoke's 8 on a model axis of 8
+    expert parallelism (bitwise)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers
+
+    cfg = get_config(arch_id).smoke
+    gen = torch.Generator(cuda).manual_seed(0)
+    p = layers.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.moe_experts, cfg.mlp)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen, device=cuda)
+    kw = dict(n_experts=cfg.moe_experts, top_k=cfg.moe_top_k, kind=cfg.mlp)
+    y0, aux0 = layers.moe_apply(p, x, **kw)
+    y, aux = layers.moe_apply(p, x, mesh=make_test_mesh(shape, device="cuda"), **kw)
+    assert y.device.type == "cuda" and torch.equal(aux, aux0)
+    if cfg.moe_experts % shape[1] == 0:
+        assert torch.equal(y, y0)
+    else:
+        err = float((y.float() - y0.float()).norm() / y0.float().norm())
+        assert 0 < err <= BRANCH_FRO, err
+
+
+def test_meta_route_matches_the_kernels_shapes(cuda):
+    """Each kernel entry's meta route returns what the kernel returns on
+    the card, and the card's call still launches the kernel."""
+    g = torch.Generator(cuda).manual_seed(0)
+    q = torch.randn((1, 600, 4, 64), generator=g, device=cuda).to(torch.bfloat16)
+    kv = torch.randn((1, 600, 2, 64), generator=g, device=cuda).to(torch.bfloat16)
+    table = torch.randn((50, 8), generator=g, device=cuda)
+    idx = torch.randint(0, 50, (40,), generator=g, device=cuda, dtype=torch.int32)
+    ids = torch.sort(torch.randint(0, 9, (40,), generator=g, device=cuda,
+                                   dtype=torch.int32)).values
+    xk = torch.randn((5, 4, 6), generator=g, device=cuda)
+    w = torch.randn((3, 4, 4), generator=g, device=cuda)
+    bm = torch.randint(0, 2**31 - 1, (9, 4), generator=g, device=cuda,
+                       dtype=torch.int32)
+    eu = torch.randint(0, 9, (13,), generator=g, device=cuda, dtype=torch.int32)
+    alive = torch.ones((13,), dtype=torch.bool, device=cuda)
+    calls = [
+        (flash_attention, lambda t: ops.flash_attention_heads(
+            t[0], t[1], t[1], causal=True, window=None), (q, kv)),
+        (segment_matmul, lambda t: ops.segment_matmul_gathered(
+            t[0], t[1], t[2], 9, ids_sorted=True, mean=True), (table, idx, ids)),
+        (cin, lambda t: ops.cin_layer(t[0], t[0], t[1]), (xk, w)),
+        (peel_wave, lambda t: ops.peel_wave_gathered(t[0], t[1], t[1], t[2], 3),
+         (bm, eu, alive)),
+        (bitmap_support, lambda t: ops.bitmap_support_gathered(t[0], t[1], t[1]),
+         (bm, eu)),
+    ]
+    for mod, fn, inputs in calls:
+        before = mod.LAUNCHES
+        on_card = fn(inputs)
+        torch.cuda.synchronize()
+        assert mod.LAUNCHES == before + 1, mod.__name__
+        meta = fn(tuple(t.to("meta") for t in inputs))
+        assert mod.LAUNCHES == before + 1, mod.__name__   # meta launches nothing
+        outs = on_card if isinstance(on_card, tuple) else (on_card,)
+        metas = meta if isinstance(meta, tuple) else (meta,)
+        assert [(o.shape, o.dtype) for o in outs] == \
+            [(m.shape, m.dtype) for m in metas], mod.__name__
