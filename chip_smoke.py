@@ -161,7 +161,7 @@
    K5's plan (grid and k slices) is printed for each layer of the path.
 13. Drives truss-filtered GCN training (``examples/evolving_graph_training
     .py``) at ``gcn-cora``'s full width on the slashdot-like graph:
-    ``DynamicGraph(support_method="bitmap", tracked_ks=(5,))``, four
+    ``DynamicGraph(support_method="bitmap", tracked_ks=(5,))``, two
     rounds of a ``GraphUpdateStream`` chunk of 2,000 updates (K1 in every
     round's fused batch, digest body), each followed by the k = 5 truss
     community batched by ``sampler.make_gnn_batch`` (d_feat 1,433, edges
@@ -224,8 +224,9 @@
     once (smoke configs, exit 0, finite losses), ``launch.train`` in
     process on the card and the CPU from the same parameters (first loss
     within ``MOE_LAUNCH_RTOL``; the aux loss nonzero), and K3 at both MoE
-    layouts against its plain version and timed beside its bound and
-    ``scaled_dot_product_attention``.
+    prefill layouts and mixtral's training layout ``[4, 4096]`` (llama4's
+    is its prefill's) against its plain version and timed beside its bound
+    and ``scaled_dot_product_attention``.
 16. The cell plans (``launch/specs.py``, ``launch/dryrun.py``).  The
     dry-run of all 36 cells on both production meshes, started as a
     subprocess before phase 13 on a path holding ``repro_torch`` alone,
@@ -245,14 +246,38 @@
     Then one MoE layer of each MoE arch at full width on ``[1, 8192]``
     over ``make_test_mesh((1, 16))``: mixtral's model-sharded branch (16
     ``d_ff`` slices of 896) within ``BRANCH_FRO`` of ``mesh=None``,
-    llama4-scout's expert-parallel branch bitwise; both timed.
-17. Fails unless every kernel was launched by its path (K1 and K2 on the
+    llama4-scout's expert-parallel branch bitwise, and the same for the
+    layer's gradients (``x``, the router, each expert stack); forward and
+    backward timed.
+17. Trains the two MoE archs at full width (``MOE_TRAIN_RUNS``), each
+    depth cut to the deepest whose step's fp32 copies of the parameters
+    fit in ``MOE_TRAIN_FIT`` of the card (the reckoning printed), the
+    batch of ``train_4k`` cut to ``[4, 4096]``: mixtral-8x7b (1 of 32
+    layers) three AdamW steps through ``loop.run`` with
+    ``launch.train._lm_setup``'s stream, loss and initialiser (step
+    seconds, losses, peak memory, the last step under ``torch.profiler``,
+    the final checkpoint's host copy and write seconds and bytes, deleted
+    after); llama4-scout-17b-a16e (1 of 48) loss and gradients only (its
+    AdamW step holds ~8 fp32 copies, 133 GB at depth 1), profiled once.
+    The counts are set to 0 just before each arch's run and read just
+    after: K3's wgmma body twice a layer a step (each layer and its
+    recompute), its SIMT body, K4 and K5 never.  Each arch's step is then
+    held against ``use_kernels(False)`` at matched routing, keyed by layer
+    (``layer_routes``: the plain route replays the kernel route's expert
+    choices in its forward and its recompute; every kernel-route recompute
+    must choose what its forward chose): loss within
+    ``LM_STEP_LOSS_RTOL``, leaves within ``LM_STEP_GRAD_FRO`` relative
+    Frobenius, beside the plain route's own spread with its attention
+    blocks halved, each route's own choices differing only within
+    ``ROUTE_TIE_GAP`` of a tie; mixtral's once more at ``[1, 8192]``,
+    where its 4,096 window masks.
+18. Fails unless every kernel was launched by its path (K1 and K2 on the
     truss path, on the service path and on the sharded path, K1 on the
     cluster path and the training rounds, K4 on the recsys and training
     paths, K3 and K5 on the LM and recsys training paths too, K3 on the
-    MoE prefills, K3, K4 and K5 on the cell plans), prints the smoke's
-    total seconds, the kernels line, the card line, and last the device
-    line.
+    MoE prefills and the MoE training, K3, K4 and K5 on the cell plans),
+    prints the smoke's total seconds, the kernels line, the card line,
+    and last the device line.
 
 Every failed check raises, so the exit code is non-zero.  The script needs
 a CUDA device, ``nvcc`` and the rest of this checkout; it imports no JAX.
@@ -263,6 +288,7 @@ import atexit
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import shutil
@@ -321,8 +347,10 @@ P99_CALLS, BULK_CALLS, RETRIEVAL_CALLS, TOP_K = 200, 3, 10, 100
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core peak
 # Phase 13: the truss-filtered GCN loop of examples/evolving_graph_training.py
 # at gcn-cora's full width on the slashdot-like graph (the example's AdamW
-# settings), then every GNN arch at full config through the launcher
-TRAIN_ARCH, TRAIN_K, TRAIN_ROUNDS, TRAIN_STEPS = "gcn-cora", 5, 4, 5
+# settings), then every GNN arch at full config through the launcher; two
+# rounds (the example runs 6 of 8): each round repeats the same work, and
+# with four beside phase 17 the smoke took 1,042 s on an H100
+TRAIN_ARCH, TRAIN_K, TRAIN_ROUNDS, TRAIN_STEPS = "gcn-cora", 5, 2, 5
 TRAIN_CHUNK = 2_000                # updates a round (GraphUpdateStream)
 TRAIN_D_FEAT = 1_433               # full_graph_sm's d_feat (GNN_SHAPES)
 TRAIN_PAD_EDGES = 4 * N_EDGES      # directed edges padded as the example pads
@@ -367,7 +395,8 @@ ROUTE_TIE_GAP = 2e-2
 MOE_LAUNCH_RTOL = 5e-3       # the launcher's first loss, card vs CPU
 MOE_LAUNCH_TIMEOUT = 600
 MOE_K3_LAYOUTS = {"mixtral": (1, 8192, 32, 8, 128, 4096),   # b, s, hq, hkv, dh,
-                  "llama4": (4, 4096, 40, 8, 128, None)}    # window
+                  "llama4": (4, 4096, 40, 8, 128, None),    # window; llama4's
+                  "mixtral_train": (4, 4096, 32, 8, 128, 4096)}  # training too
 MOLECULE_GRAPHS = 128            # GNN_SHAPES' molecule cell: 128 x 30 nodes
 # Phase 16: the cell plans.  The dry-run of all 36 cells on both production
 # meshes as a subprocess (started before phase 13, it runs beside phases
@@ -380,8 +409,32 @@ PLAN_CELLS = (("qwen3-0.6b", "prefill_32k"), ("xdeepfm", "serve_bulk"),
 PLAN_SEED, PLAN_LM_ROWS = 0, 2
 BRANCH_SHAPE, BRANCH_MESH = (1, 8192), (1, 16)
 # the model-sharded branch's bf16 output against mesh=None: relative
-# Frobenius error, the bound tests/test_torch_specs.py sets (BRANCH_FRO)
+# Frobenius error, the bound tests/test_torch_specs.py sets (BRANCH_FRO).
+# Its gradients (x, router, expert stacks) are held to the same bound: on
+# one card the d_ff slices run as one batched call, so each expert leaf's
+# gradient is its own columns' products and x's one GEMM over every slice;
+# only the gates' gradient reads the combined bf16 partials, as the
+# forward's sum does
 BRANCH_FRO = 2e-2
+# Phase 17: MoE training at full width.  Each arch's depth is cut to the
+# deepest whose step holds in MOE_TRAIN_FIT of the card's memory: mixtral's
+# AdamW step through loop.run holds ~8 fp32 copies of its parameters
+# (params, grads, mu, nu, the clipped grads, and the new params, mu and nu
+# that adamw_update returns as fresh tensors); llama4-scout's gradient
+# against the plain route holds 3 (params and two gradient trees), and its
+# AdamW step would need 8 at any depth.  train_4k's [256, 4096] is cut to
+# [4, 4096]
+MOE_TRAIN_RUNS = (("mixtral-8x7b", "adamw", 8, 4, 4096),   # arch, step,
+                  ("llama4-scout-17b-a16e", "grad", 3, 4, 4096))  # copies, b, s
+MOE_TRAIN_FIT = 0.8
+MOE_TRAIN_STEPS = 3
+# mixtral's extra step: at 4,096 positions its 4,096 window never masks a
+# key; at 8,192 the band reaches K3's forward and attention_vjp_ref's
+# windowed query blocks
+MOE_WINDOW_STEP = (1, 8192)
+# the first loss of a run from seeded weights: the untied unembedding gives
+# logits of unit scale, ~0.5 above ln(vocab) (tests/test_torch_moe.py)
+MOE_FIRST_LOSS_GAP = 1.0
 
 
 def log(msg: str) -> None:
@@ -866,8 +919,29 @@ def work_records(prof):
     return records, len(calls), lost, min(leads, default=0) / 1e6
 
 
+def profile_open():
+    """Open ``profiled``'s session by hand, for work that a caller
+    delimits itself (a training loop's last step, between two of its
+    hooks): the warm-up launches, the gap, then ``WORK_SPAN`` and the
+    clock.  ``profile_close`` ends it."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sync("cuda")
+    warm = torch.zeros(1, device="cuda")
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    prof.__enter__()
+    end = time.perf_counter() + PROFILE_WARMUP_S
+    while time.perf_counter() < end:
+        warm.add_(1)
+        sync("cuda")
+    time.sleep(PROFILE_GAP_S)
+    span = record_function(WORK_SPAN)
+    span.__enter__()
+    return prof, span, time.perf_counter()
+
+
 def profiled(fn, forbid: str | None = None, require: str | None = None,
-             detail: tuple = ()) -> float:
+             detail: tuple = (), top: list | None = None) -> float:
     """Run ``fn`` under ``torch.profiler``; log the device's busy share of
     the wall time and the device ops that took the most time.  Busy is the
     union of the intervals in which a kernel, copy or fill of ``fn`` ran
@@ -876,24 +950,24 @@ def profiled(fn, forbid: str | None = None, require: str | None = None,
     lacks its device record (see ``PROFILE_WARMUP_S``), if a device op's
     name holds ``forbid`` or if none holds ``require`` (case ignored);
     logs the device time of the ops whose names hold each string of
-    ``detail``.  Returns the busy share."""
-    from torch.profiler import ProfilerActivity, profile, record_function
+    ``detail``; appends the top ops (name, ms, count) to ``top``.  Returns
+    the busy share."""
+    session = profile_open()
+    fn()
+    return profile_close(session, forbid, require, detail, top)
 
+
+def profile_close(session, forbid: str | None = None,
+                  require: str | None = None, detail: tuple = (),
+                  top: list | None = None) -> float:
+    """End a session of ``profile_open`` and read it as ``profiled``
+    does."""
+    prof, span, t0 = session
     sync("cuda")
-    warm = torch.zeros(1, device="cuda")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        end = time.perf_counter() + PROFILE_WARMUP_S
-        while time.perf_counter() < end:
-            warm.add_(1)
-            sync("cuda")
-        time.sleep(PROFILE_GAP_S)
-        with record_function(WORK_SPAN):
-            t0 = time.perf_counter()
-            fn()
-            sync("cuda")
-            wall = time.perf_counter() - t0
-        time.sleep(PROFILE_GAP_S)
+    wall = time.perf_counter() - t0
+    span.__exit__(None, None, None)
+    time.sleep(PROFILE_GAP_S)
+    prof.__exit__(None, None, None)
     records, issued, lost, lead = work_records(prof)
     if lost:
         raise AssertionError(
@@ -916,6 +990,8 @@ def profiled(fn, forbid: str | None = None, require: str | None = None,
         f"record over its call {lead:.3f} ms); top device time:")
     for key, (us, n) in sorted(by_name.items(), key=lambda r: -r[1][0])[:8]:
         log(f"  {us / 1e3:9.3f} ms  x{n:<6d} {key[:90]}")
+        if top is not None:
+            top.append((key[:90], us / 1e3, n))
     if detail:
         parts = []
         for part in detail:
@@ -3476,37 +3552,77 @@ def loss_error(loss_k, loss_p, what: str, rtol: float) -> float:
     return err
 
 
-def lm_step_vs_plain(ops, ref, loss_fn, params, batch, what: str) -> dict:
-    """One LM step's loss and gradients through K3 against the same step
-    under ``use_kernels(False)`` on the card: the loss within
-    ``LM_STEP_LOSS_RTOL``, each leaf within ``LM_STEP_GRAD_FRO`` relative
-    Frobenius error.  Beside it, not held, the bf16 noise floor: the plain
-    route against itself with the attention's blocks halved (1,024 -> 512
-    queries and keys), fp32 sums in another order as K3's are."""
+def lm_step_vs_plain(ops, ref, fa, loss_fn, params, batch, what: str) -> dict:
+    """One LM step's loss and gradients through K3 against the same under
+    ``use_kernels(False)`` on the card, at matched routing where the model
+    has MoE layers: the kernel route routes freely, and each MoE layer's
+    recompute in the backward must choose what its forward chose
+    (``layer_routes``: 0 differing decisions, two calls a layer); the
+    plain route replays the kernel route's forward choices, in its forward
+    and in its recompute.  The loss within ``LM_STEP_LOSS_RTOL``, each
+    leaf within ``LM_STEP_GRAD_FRO`` relative Frobenius error, each
+    route's own choices at those matched inputs differing only within
+    ``ROUTE_TIE_GAP`` of a tie.  Beside it, not held, the bf16 noise
+    floor: the plain route against itself with its attention blocks
+    halved (1,024 -> 512 queries and keys), taken after the kernel route's
+    gradients are freed, so no more than two gradient trees exist at once.
+    Returns also the kernel route's synchronised seconds, peak memory (and
+    what was allocated when it started) and K3's launches by body in it."""
+    from repro_torch.models import layers
     from repro_torch.training import optimizer as opt
 
-    loss_k, grads_k = opt.value_and_grad(loss_fn, params, batch)
-    ops.use_kernels(False)
+    before = dict(fa.LAUNCHES_BY_BODY)
+    gc.collect()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()
+    t = time.perf_counter()
+    with layer_routes(layers, params) as rk:
+        loss_k, grads_k = opt.value_and_grad(loss_fn, params, batch)
+        sync("cuda")
+    out = {"kernel_s": time.perf_counter() - t,
+           "kernel_peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "resident_gb": resident / 1e9,
+           "launches": {b: n - before[b]
+                        for b, n in fa.LAUNCHES_BY_BODY.items()},
+           "loss": float(loss_k)}
+    recompute = [int(d) for d in rk.recompute_differ]
+    out.update(calls_a_layer=rk.calls, recompute_differ=recompute)
+    if rk.calls != [2] * len(rk.calls) or any(recompute):
+        raise AssertionError(f"{what}: the kernel route's layers were called "
+                             f"{rk.calls} times (a forward and a recompute "
+                             f"each expected) and their recomputes changed "
+                             f"{recompute} routing decisions (0 expected)")
+    replay = lambda i, j: rk.routes[i][0].gate_idx  # noqa: E731
     inner = ref.chunked_attention_ref
+    ops.use_kernels(False)
     try:
-        loss_p, grads_p = opt.value_and_grad(loss_fn, params, batch)
+        with layer_routes(layers, params, replay=replay) as rp:
+            loss_p, grads_p = opt.value_and_grad(loss_fn, params, batch)
+        errs = leaf_errors(grads_k, grads_p, what, LM_STEP_GRAD_FRO, "fro")
+        del grads_k
         ref.chunked_attention_ref = functools.partial(inner, q_chunk=512,
                                                       kv_chunk=512)
-        _, grads_h = opt.value_and_grad(loss_fn, params, batch)
+        with layer_routes(layers, params, replay=replay):
+            _, grads_h = opt.value_and_grad(loss_fn, params, batch)
+        floor = [float(torch.linalg.vector_norm((a - b).float())
+                       / torch.linalg.vector_norm(b.float())) for a, b in zip(
+            opt.tree_leaves(grads_h), opt.tree_leaves(grads_p))]
+        del grads_h, grads_p
     finally:
         ref.chunked_attention_ref = inner
         ops.use_kernels(True)
-    errs = leaf_errors(grads_k, grads_p, what, LM_STEP_GRAD_FRO, "fro")
-    floor = [float(torch.linalg.vector_norm((a - b).float())
-                   / torch.linalg.vector_norm(b.float())) for a, b in zip(
-        opt.tree_leaves(grads_h), opt.tree_leaves(grads_p))]
-    return {"loss": float(loss_k), "plain_loss": float(loss_p),
-            "loss_rel_err": loss_error(loss_k, loss_p, what,
-                                       LM_STEP_LOSS_RTOL),
-            "leaves": len(errs), "leaf_fro_err_max": max(errs),
-            "leaf_fro_err_median": float(np.median(errs)),
-            "noise_floor_fro_max": max(floor),
-            "noise_floor_fro_median": float(np.median(floor))}
+    torch.cuda.empty_cache()
+    diffs = route_differences(rk.forward, rp.forward)
+    check_route_gaps(diffs, f"{what}, kernel vs plain route")
+    out.update(
+        plain_loss=float(loss_p),
+        loss_rel_err=loss_error(loss_k, loss_p, what, LM_STEP_LOSS_RTOL),
+        leaves=len(errs), leaf_fro_err_max=max(errs),
+        leaf_fro_err_median=float(np.median(errs)),
+        noise_floor_fro_max=max(floor),
+        noise_floor_fro_median=float(np.median(floor)), routing=diffs,
+        plain_recompute_differ=[int(d) for d in rp.recompute_differ])
+    return out
 
 
 @contextlib.contextmanager
@@ -3575,22 +3691,20 @@ def recsys_step_vs_plain(ops, ref, loss_fn, params, batch, what: str) -> dict:
             "leaf_max_err_own_decisions": own}
 
 
-def train_through_launcher(arch_id: str, args: list, work: str, dev,
-                           mods) -> dict:
-    """``launch.train.main(["--arch", arch_id, "--full", *args])`` on the
-    card with every kernel count set to 0 just before it and read just
-    after; the step seconds, losses, peak device memory and the final
-    checkpoint (host copy and write seconds, bytes; deleted after)."""
-    from repro_torch.launch import train
+def counted_training(name: str, run, path: str, dev, mods) -> tuple:
+    """``run()``, a training run on the card that writes its final
+    checkpoint to ``path`` and returns ``{"history": ...}``, with every
+    kernel count set to 0 just before it and read just after; the step
+    seconds, losses, peak device memory and the final checkpoint (host copy
+    and write seconds, bytes; deleted after).  Returns the record and what
+    ``run`` returned."""
     from repro_torch.training import checkpoint
 
-    path = os.path.join(work, f"{arch_id}.npz")
     reset_counts(*mods)
     torch.cuda.reset_peak_memory_stats(dev)
     with timed_checkpoints(checkpoint) as ck:
         t = time.perf_counter()
-        res = train.main(["--arch", arch_id, "--full", *args, "--device",
-                          str(dev), "--ckpt", path])
+        res = run()
         sync(dev)
         wall = time.perf_counter() - t
     rec = {"s": wall, "step_s": [h["dt"] for h in res["history"]],
@@ -3605,7 +3719,21 @@ def train_through_launcher(arch_id: str, args: list, work: str, dev,
         if os.path.exists(f):
             os.remove(f)
     if not np.all(np.isfinite(rec["loss"])) or len(ck["bytes"]) != 1:
-        raise AssertionError(f"{arch_id} --full: {json.dumps(rec)}")
+        raise AssertionError(f"{name}: {json.dumps(rec)}")
+    return rec, res
+
+
+def train_through_launcher(arch_id: str, args: list, work: str, dev,
+                           mods) -> dict:
+    """``launch.train.main(["--arch", arch_id, "--full", *args])`` through
+    ``counted_training``."""
+    from repro_torch.launch import train
+
+    path = os.path.join(work, f"{arch_id}.npz")
+    rec, res = counted_training(
+        f"{arch_id} --full", lambda: train.main(
+            ["--arch", arch_id, "--full", *args, "--device", str(dev),
+             "--ckpt", path]), path, dev, mods)
     del res
     torch.cuda.empty_cache()
     return rec
@@ -3732,7 +3860,8 @@ def drive_lm_recsys_training(dev, card: str) -> dict:
         batch = {k: torch.as_tensor(v, device=dev)
                  for k, v in s.stream.next().items()}
         out["lm_vs_plain"] = lm_step_vs_plain(
-            ops, ref, s.loss, s.init(), batch, f"{LM_ARCH} step")
+            ops, ref, flash_attention, s.loss, s.init(), batch,
+            f"{LM_ARCH} step")
         out["lm_vs_plain"]["s"] = time.perf_counter() - t
         log(f"{LM_ARCH} step vs plain ({card}; loss rtol {LM_STEP_LOSS_RTOL}"
             f", leaves {LM_STEP_GRAD_FRO} relative Frobenius): "
@@ -3780,33 +3909,6 @@ def drive_lm_recsys_training(dev, card: str) -> dict:
 # Phase 15: MoE serving on the card
 # ---------------------------------------------------------------------------
 
-@contextlib.contextmanager
-def moe_tape(layers, replay=None):
-    """Wrap ``layers.moe_apply`` (which the transformer calls through the
-    module) so that every MoE call records its own routing
-    (``layers.moe_route`` on the call's input) on the yielded list; with
-    ``replay`` (another run's list), call ``i`` takes that run's ``i``-th
-    expert choices instead of its own."""
-    orig, tape = layers.moe_apply, []
-
-    def wrapped(p, x, *, n_experts, top_k, kind, capacity_factor=1.25,
-                gate_idx=None, mesh=None):
-        tape.append(layers.moe_route(p["router"], x, n_experts=n_experts,
-                                     top_k=top_k,
-                                     capacity_factor=capacity_factor))
-        if replay is not None:
-            gate_idx = replay[len(tape) - 1].gate_idx
-        return orig(p, x, n_experts=n_experts, top_k=top_k, kind=kind,
-                    capacity_factor=capacity_factor, gate_idx=gate_idx,
-                    mesh=mesh)
-
-    layers.moe_apply = wrapped
-    try:
-        yield tape
-    finally:
-        layers.moe_apply = orig
-
-
 def route_differences(tape_a, tape_b) -> dict:
     """(token, choice) decisions that differ between two lists of routings
     of the same calls, each differing one's gap ``|p_a[e_a] - p_a[e_b]|``
@@ -3821,6 +3923,75 @@ def route_differences(tape_a, tape_b) -> dict:
     return {"decisions": n, "differ": len(gaps),
             "max_gap": max(gaps, default=0.0),
             "gaps": sorted(gaps, reverse=True)[:8]}
+
+
+class LayerRoutes:
+    """What ``layer_routes`` saw: ``routes[i][j]`` is layer ``i``'s own
+    routing at its ``j``-th call (``probs`` detached, ``gate_idx``,
+    ``keep`` and ``cap``)."""
+
+    def __init__(self, n_layers: int):
+        self.routes = [[] for _ in range(n_layers)]
+
+    @property
+    def calls(self) -> list:
+        return [len(r) for r in self.routes]
+
+    @property
+    def forward(self) -> list:
+        """Each layer's routing at its first call."""
+        return [r[0] for r in self.routes]
+
+    @property
+    def recompute_differ(self) -> list:
+        """Each layer's (token, choice) decisions of its later calls (under
+        the per-layer remat, the recompute in the backward) that differ
+        from its first call's, as 0-d device tensors."""
+        return [sum((c.gate_idx != r[0].gate_idx).sum() for c in r[1:])
+                for r in self.routes]
+
+
+@contextlib.contextmanager
+def layer_routes(layers, params, replay=None):
+    """Wrap ``layers.moe_route`` (which ``moe_apply`` calls through the
+    module) for the calls of a model whose per-layer parameters are
+    ``params["layers"]`` (``i`` counts its MoE layers; a dense model has
+    none).  Each call is keyed by its layer, found by the router leaf's
+    storage (``value_and_grad`` hands the loss detached views of the same
+    storage), and by its count within that layer, not by call order: under
+    the per-layer ``checkpoint`` a layer is called again in the backward,
+    in reverse layer order, and each decode step calls every layer once.
+    Each call's own routing is recorded on the yielded ``LayerRoutes``.
+    With ``replay`` (``replay(i, j)``: a ``gate_idx``), the ``j``-th call
+    of layer ``i`` routes by ``replay(i, j)``; its own choice at those
+    inputs is still computed (without a gradient) and recorded."""
+    orig = layers.moe_route
+    index = {lp["moe"]["router"].data_ptr(): i for i, lp in enumerate(
+        [lp for lp in params["layers"] if "moe" in lp])}
+    seen = LayerRoutes(len(index))
+
+    def wrapped(router, x, *, n_experts, top_k, capacity_factor=1.25,
+                gate_idx=None):
+        i = index[router.data_ptr()]
+        kw = dict(n_experts=n_experts, top_k=top_k,
+                  capacity_factor=capacity_factor)
+        if replay is not None:
+            gate_idx = replay(i, len(seen.routes[i]))
+        r = orig(router, x, gate_idx=gate_idx, **kw)
+        if replay is None:
+            own = r
+        else:
+            with torch.no_grad():
+                own = orig(router, x, **kw)
+        seen.routes[i].append(layers.Routing(
+            own.probs.detach(), own.gate_idx, None, own.keep, None, own.cap))
+        return r
+
+    layers.moe_route = wrapped
+    try:
+        yield seen
+    finally:
+        layers.moe_route = orig
 
 
 def check_route_gaps(diffs: dict, what: str) -> None:
@@ -3925,34 +4096,33 @@ def serve_moe(cfg, params, dev, rng) -> dict:
     # function decode computes: at one position the capacity is 1 for any
     # factor up to E / k, and a token's k experts are distinct
     ptoks = torch.from_numpy(prompts).to(dev)
-    with moe_tape(layers) as pre:
+    with layer_routes(layers, params) as pre:
         logits_p = transformer.prefill(cfg, params, ptoks)
-    drops = sum((~r.keep).sum(-1) for r in pre).tolist()        # per row
+    drops = sum((~r.keep).sum(-1) for r in pre.forward).tolist()  # per row
     wide = dataclasses.replace(cfg, moe_capacity=cfg.moe_experts / cfg.moe_top_k)
-    with moe_tape(layers) as pre_w:
+    with layer_routes(layers, params) as pre_w:
         logits_w = transformer.prefill(wide, params, ptoks)
-    if any(not bool(r.keep.all()) for r in pre_w):
+    if any(not bool(r.keep.all()) for r in pre_w.forward):
         raise AssertionError(f"{cfg.name}: the drop-free prefill dropped")
-    # decode replays the drop-free prefill's expert choices (position by
-    # position, layer by layer) and records its own at those matched inputs
-    n_l = cfg.n_layers
-    replay = [layers.Routing(None, pre_w[i].gate_idx[:, p:p + 1], None, None,
-                             None, 1)
-              for p in range(MOE_SERVE_PROMPT) for i in range(n_l)]
+    # decode replays the drop-free prefill's expert choices (step p of
+    # layer i takes position p's) and records its own at those matched
+    # inputs
     cache = transformer.init_cache(cfg, MOE_SERVE_SLOTS, MOE_SERVE_PROMPT,
                                    device=dev)
-    with moe_tape(layers, replay=replay) as dec:
+    with layer_routes(layers, params, replay=lambda i, p: pre_w.forward[
+            i].gate_idx[:, p:p + 1]) as dec:
         for pos in range(MOE_SERVE_PROMPT):
             logits_d, _ = transformer.decode_step(cfg, params, cache,
                                                   ptoks[:, pos], pos)
-    if any(not bool(r.keep.all()) or r.cap != 1 for r in dec):
-        raise AssertionError(f"{cfg.name}: a decode step dropped a token")
-    own = [layers.Routing(
-        None, torch.cat([dec[p * n_l + i].gate_idx
-                         for p in range(MOE_SERVE_PROMPT)], 1),
-        None, None, None, 1) for i in range(n_l)]
+    if dec.calls != [MOE_SERVE_PROMPT] * len(dec.calls) or any(
+            not bool(r.keep.all()) or r.cap != 1
+            for rs in dec.routes for r in rs):
+        raise AssertionError(f"{cfg.name}: a decode step dropped a token or "
+                             f"missed a layer ({dec.calls} calls a layer)")
+    own = [layers.Routing(None, torch.cat([r.gate_idx for r in rs], 1),
+                          None, None, None, 1) for rs in dec.routes]
     lmax = float(logits_w.abs().max())
-    diffs = route_differences(pre_w, own)
+    diffs = route_differences(pre_w.forward, own)
     check_route_gaps(diffs, f"{cfg.name} decode vs drop-free prefill")
     rows = []
     for b in range(MOE_SERVE_SLOTS):
@@ -4036,18 +4206,19 @@ def drive_moe_arch(ops, fa, arch_id: str, n_layers: int, batch: int,
 
     # the plain route (chunked attention) at the kernel route's routing,
     # and each route's own decisions at those matched inputs
-    with moe_tape(layers) as tape_k:
+    with layer_routes(layers, params) as tape_k:
         logits_k = transformer.prefill(cfg, params, tokens)
     ops.use_kernels(False)
     try:
-        with moe_tape(layers, replay=tape_k) as tape_p:
+        with layer_routes(layers, params, replay=lambda i, j: tape_k.routes[
+                i][j].gate_idx) as tape_p:
             logits_p = transformer.prefill(cfg, params, tokens)
     finally:
         ops.use_kernels(True)
     dmax = float((logits_k - logits_p).abs().max())
     lmax = float(logits_p.abs().max())
-    diffs = route_differences(tape_k, tape_p)
-    drops = [int((~r.keep).sum()) for r in tape_k]
+    diffs = route_differences(tape_k.forward, tape_p.forward)
+    drops = [int((~r.keep).sum()) for r in tape_k.forward]
     out.update(dlogit=dmax, largest_logit=lmax, routing=diffs,
                drops_by_layer=drops,
                slots=batch * seq * cfg.moe_top_k * n_layers)
@@ -4171,13 +4342,16 @@ def moe_launchers(dev, work: str) -> dict:
 
 
 def time_moe_attention(ops, ref, fa, dev) -> dict:
-    """K3 at the two MoE prefill layouts (mixtral's windowed GQA group of
-    4, llama4-scout's causal group of 5): held against the plain version,
+    """K3 at the MoE layouts (``MOE_K3_LAYOUTS``: mixtral's windowed GQA
+    group of 4 at its prefill's and its training's shapes, llama4-scout's
+    causal group of 5, prefill and training alike): held against the plain
+    version,
     then timed (CUDA events, median of 10; plain median of 3) beside its
     bound (the pairs inside the mask) and ``scaled_dot_product_attention``
-    for the same function (llama4: ``enable_gqa``, causal; mixtral: the K/V
-    heads expanded before the clock and an explicit boolean band mask, as
-    SDPA's GQA flag takes no mask but on its math backend)."""
+    for the same function (where the window masks no key, as in llama4's
+    layouts and mixtral's training one: ``enable_gqa``, causal; mixtral's
+    prefill: the K/V heads expanded before the clock and an explicit boolean
+    band mask, as SDPA's GQA flag takes no mask but on its math backend)."""
     import torch.nn.functional as F
 
     out, errs = {}, {}
@@ -4206,7 +4380,7 @@ def time_moe_attention(ops, ref, fa, dev) -> dict:
         finally:
             ops.use_kernels(True)
         qt = q.transpose(1, 2)
-        if window is None:
+        if window is None or window >= s:
             lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 qt, k.transpose(1, 2), v.transpose(1, 2), is_causal=True,
                 enable_gqa=True)
@@ -4246,7 +4420,7 @@ def time_moe_attention(ops, ref, fa, dev) -> dict:
 
 def drive_moe_serving(dev, card: str) -> dict:
     """Phase 15: both MoE archs (full width, labelled depth cuts), each
-    built, driven and freed in turn; the launchers; K3 at both MoE
+    built, driven and freed in turn; the launchers; K3 at the MoE
     layouts.  Returns the phase's readings; ``launches`` holds K3's launches
     by body on the two archs' prefill paths."""
     from repro_torch.kernels import flash_attention, ops, ref
@@ -4500,8 +4674,12 @@ def check_expert_branches(dev, card: str) -> dict:
     mixtral-8x7b's 8 experts take the model-sharded branch (16 ``d_ff``
     slices of 896), held to ``mesh=None`` at the same routing within
     ``BRANCH_FRO`` relative Frobenius error; llama4-scout's 16 take expert
-    parallelism, bitwise equal to ``mesh=None``.  Both timed against
-    ``mesh=None`` (host clock around a synchronised call, 3 calls)."""
+    parallelism, bitwise equal to ``mesh=None``.  Then the same layer's
+    backward: the gradients of ``sum(y · ct) + aux`` (a seeded cotangent)
+    with respect to ``x``, the router and each expert stack, each leaf
+    within ``BRANCH_FRO`` of ``mesh=None``'s (mixtral) or bitwise
+    (llama4).  Forward and forward + backward timed against ``mesh=None``
+    (host clock around a synchronised call, 3 calls)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.models import layers
@@ -4514,6 +4692,8 @@ def check_expert_branches(dev, card: str) -> dict:
         p = layers.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.moe_experts, cfg.mlp)
         x = torch.randn((*BRANCH_SHAPE, cfg.d_model), generator=gen,
                         device=dev).to(layers.COMPUTE_DTYPE)
+        ct = torch.randn((*BRANCH_SHAPE, cfg.d_model), generator=gen,
+                         device=dev)
         kw = dict(n_experts=cfg.moe_experts, top_k=cfg.moe_top_k, kind=cfg.mlp,
                   capacity_factor=cfg.moe_capacity)
         with torch.no_grad():
@@ -4537,10 +4717,34 @@ def check_expert_branches(dev, card: str) -> dict:
         if not ep and not 0 < fro <= BRANCH_FRO:
             raise AssertionError(f"{arch_id}: the model-sharded branch is "
                                  f"{fro} from mesh=None (bound {BRANCH_FRO})")
+        del y0, y1
+        names = ["x", *sorted(p)]
+        leaves = [x.detach().requires_grad_(True)] + [
+            p[k].detach().requires_grad_(True) for k in names[1:]]
+
+        def grads(m):
+            y, aux = layers.moe_apply(dict(zip(names[1:], leaves[1:])),
+                                      leaves[0], mesh=m, **kw)
+            return torch.autograd.grad((y.float() * ct).sum() + aux, leaves)
+
+        g0, g1 = grads(None), grads(mesh)
+        r["grad_rel_fro"] = {
+            k: float((a.float() - b.float()).norm() / b.float().norm())
+            for k, a, b in zip(names, g1, g0)}
+        r["grad_finite"] = all(bool(torch.isfinite(g).all()) for g in g1)
+        r["grad_equal"] = all(torch.equal(a, b) for a, b in zip(g1, g0))
+        del g0, g1
+        r["backward_mesh_none_ms"] = _time_call(lambda: grads(None))
+        r["backward_mesh_ms"] = _time_call(lambda: grads(mesh))
+        if not r["grad_finite"] or (ep and not r["grad_equal"]) or (
+                not ep and not max(r["grad_rel_fro"].values()) <= BRANCH_FRO):
+            raise AssertionError(f"{arch_id}: the {r['branch']} branch's "
+                                 f"gradients against mesh=None: {r} (bound "
+                                 f"{'bitwise' if ep else BRANCH_FRO})")
         log(f"phase 16 expert branch {arch_id} on {BRANCH_MESH} ({card}): "
             f"{json.dumps(r)}")
         out[arch_id] = r
-        del p, x, y0, y1
+        del p, x, ct, leaves
         torch.cuda.empty_cache()
     return out
 
@@ -4562,6 +4766,188 @@ def drive_plans(dev, card: str, dryrun_run: dict) -> dict:
         launches["cin"] += r["launches"]["cin"]
     out["launches"] = launches
     out["branches"] = check_expert_branches(dev, card)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 17: MoE training at full width on the card
+# ---------------------------------------------------------------------------
+
+def moe_depth_cut(arch_id: str, copies: int, dev) -> tuple:
+    """The full config of ``arch_id`` cut to the deepest depth at which
+    ``copies`` fp32 copies of its parameters fit in ``MOE_TRAIN_FIT`` of
+    the card's memory, and the reckoning: the GB those copies take at each
+    depth up to the first that does not fit, the limit and the card."""
+    from repro_torch.models import transformer
+
+    full = model_cfg(arch_id)
+    card = torch.cuda.get_device_properties(dev).total_memory
+    limit, gb, depth = MOE_TRAIN_FIT * card, {}, 0
+    for d in range(1, full.n_layers + 1):
+        need = 4 * copies * transformer.param_count(
+            dataclasses.replace(full, n_layers=d))
+        gb[d] = need / 1e9
+        if need > limit:
+            break
+        depth = d
+    if depth == 0:
+        raise AssertionError(f"{arch_id}: {copies} fp32 copies of one layer's "
+                             f"parameters take {gb[1]:.1f} GB, over "
+                             f"{limit / 1e9:.1f} GB")
+    return dataclasses.replace(full, n_layers=depth), {
+        "copies": copies, "gb_by_depth": gb, "limit_gb": limit / 1e9,
+        "card_gb": card / 1e9}
+
+
+def moe_train_loop(cfg, stream, loss_fn, init, work: str, dev, mods) -> tuple:
+    """``loop.run`` of ``MOE_TRAIN_STEPS`` AdamW steps with
+    ``launch.train.setup``'s optimizer settings through
+    ``counted_training``, the last step under ``torch.profiler`` (opened in
+    the hook after the step before it, closed in the hook after it).
+    Returns the record and the trained parameters."""
+    from repro_torch.training import loop
+    from repro_torch.training.optimizer import AdamWConfig
+
+    steps = MOE_TRAIN_STEPS
+    path = os.path.join(work, f"{cfg.name}.npz")
+    opt_cfg = AdamWConfig(total_steps=steps, warmup_steps=max(1, steps // 10))
+    prof = {"top": []}
+
+    def hook(step, stats):
+        if step == steps - 2:
+            prof["session"] = profile_open()
+        elif step == steps - 1:
+            prof["busy"] = profile_close(prof.pop("session"), top=prof["top"])
+
+    rec, res = counted_training(
+        f"{cfg.name} training", lambda: loop.run(
+            loop.LoopConfig(total_steps=steps, ckpt_path=path), opt_cfg,
+            loss_fn, init, stream, device=dev, hooks=[hook]), path, dev, mods)
+    rec.update(grad_norm=[h["grad_norm"] for h in res["history"]],
+               last_step_busy=prof["busy"], last_step_top_ops=prof["top"])
+    params = res["params"]
+    del res
+    torch.cuda.empty_cache()
+    return rec, params
+
+
+def drive_moe_training(dev, card: str) -> dict:
+    """Phase 17: the MoE archs' training at full width (``MOE_TRAIN_RUNS``,
+    depth and batch cuts labelled): mixtral-8x7b's AdamW steps through
+    ``loop.run`` with ``launch.train._lm_setup``'s stream, loss and
+    initialiser, as ``launch.train.main`` drives them; llama4-scout's loss
+    and gradients (its AdamW step holds 8 copies at any depth), profiled
+    once.  The kernel counts are set to 0 just before each arch's run and
+    read just after: K3's wgmma body twice a layer a step (each layer and
+    its recompute), its SIMT body, K4 and K5 never.  Each arch's step is
+    held against the plain route at matched routing, and mixtral's once
+    more at ``MOE_WINDOW_STEP``.  ``launches`` sums K3's by body."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.kernels import cin, flash_attention, ops, ref, segment_matmul
+    from repro_torch.launch import train
+    from repro_torch.models import layers, transformer
+    from repro_torch.training import optimizer as opt
+
+    t_phase = time.perf_counter()
+    mods = (flash_attention, segment_matmul, cin)
+    out = {"archs": {}, "launches": {"wgmma": 0, "simt": 0}}
+    work = tempfile.mkdtemp(prefix="chip_smoke_moe_train_")
+    try:
+        for arch_id, step, copies, b, s in MOE_TRAIN_RUNS:
+            t_arch = time.perf_counter()
+            cfg, cut = moe_depth_cut(arch_id, copies, dev)
+            n_full = model_cfg(arch_id).n_layers
+            adamw_gb = 32e-9 * transformer.param_count(cfg)
+            rec = {"reduced": f"depth {n_full} -> {cfg.n_layers} layers (full "
+                              f"width); train_4k [256, 4096] cut to [{b}, {s}]",
+                   "layers": cfg.n_layers, "cut": cut,
+                   "cap": layers.moe_capacity(s, cfg.moe_experts,
+                                              cfg.moe_top_k, cfg.moe_capacity),
+                   "params": transformer.param_count(cfg),
+                   "adamw_8p_gb": adamw_gb}
+            log(f"{arch_id}: DEPTH CUT {n_full} -> {cfg.n_layers} layers at "
+                f"full width (d {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv} kv "
+                f"heads of {cfg.head_dim}, {cfg.moe_experts} experts top-"
+                f"{cfg.moe_top_k} of d_ff {cfg.d_ff}, window {cfg.window}, "
+                f"vocab {cfg.vocab}): the {step} step holds ~{copies} fp32 "
+                f"copies of the {rec['params']:,} parameters; GB by depth "
+                f"{json.dumps({d: round(g, 2) for d, g in cut['gb_by_depth'].items()})}"
+                f", limit {cut['limit_gb']:.1f} of {cut['card_gb']:.1f} GB "
+                f"({card})")
+            log(f"{arch_id}: BATCH CUT train_4k [256, 4096] -> [{b}, {s}]; "
+                f"capacity {rec['cap']} slots an expert a row")
+            stream, loss_fn, init = train._lm_setup(cfg, b, s, 0, str(dev))
+            if step == "adamw":
+                rec["train"], params = moe_train_loop(cfg, stream, loss_fn,
+                                                      init, work, dev, mods)
+                got, loss0 = rec["train"], rec["train"]["loss"][0]
+                want = {"wgmma": 2 * cfg.n_layers * MOE_TRAIN_STEPS, "simt": 0}
+                log(f"phase 17 {arch_id} loop.run ({card}): "
+                    f"{json.dumps(rec['train'])}")
+            else:
+                log(f"{arch_id}: no AdamW step: adamw_update returns new "
+                    f"params, mu and nu beside the old, ~8 fp32 copies = "
+                    f"{adamw_gb:.1f} GB at depth {cfg.n_layers}, over the "
+                    f"card's {cut['card_gb']:.1f} GB; loss and gradients only")
+                params = init()
+                reset_counts(*mods)
+                got, want = None, {"wgmma": 2 * cfg.n_layers, "simt": 0}
+            batch = {k: torch.as_tensor(v, device=dev)
+                     for k, v in stream.next().items()}
+            t = time.perf_counter()
+            vs = lm_step_vs_plain(ops, ref, flash_attention, loss_fn, params,
+                                   batch, f"{arch_id} step")
+            vs["s"] = time.perf_counter() - t
+            rec["vs_plain"] = vs
+            if got is None:
+                got = {"by_body": {"flash_attention": vs["launches"]},
+                       "launches": {"segment_matmul": segment_matmul.LAUNCHES,
+                                    "cin": cin.LAUNCHES}}
+                loss0 = vs["loss"]
+                rec["grad_s"], rec["grad_peak_gb"] = \
+                    vs["kernel_s"], vs["kernel_peak_gb"]
+                prof_top = []
+                rec["grad_busy"] = profiled(
+                    lambda: opt.value_and_grad(loss_fn, params, batch),
+                    top=prof_top)
+                rec["grad_top_ops"] = prof_top
+            if got["by_body"]["flash_attention"] != want or \
+                    got["launches"]["segment_matmul"] or got["launches"]["cin"]:
+                raise AssertionError(f"{arch_id} training launched "
+                                     f"{got['launches']} by body "
+                                     f"{got['by_body']}, expected {want}")
+            if abs(loss0 - np.log(cfg.vocab)) > MOE_FIRST_LOSS_GAP:
+                raise AssertionError(f"{arch_id}: first loss {loss0}, expected "
+                                     f"within {MOE_FIRST_LOSS_GAP} of ln "
+                                     f"{cfg.vocab}")
+            rec["launches"] = got["by_body"]["flash_attention"]
+            for body, n in rec["launches"].items():
+                out["launches"][body] += n
+            log(f"{arch_id} step vs plain at matched routing [{b}, {s}] "
+                f"({card}; loss rtol {LM_STEP_LOSS_RTOL}, leaves "
+                f"{LM_STEP_GRAD_FRO} relative Frobenius): {json.dumps(vs)}")
+            del batch
+            if step == "adamw":
+                wb, ws = MOE_WINDOW_STEP
+                batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                         TokenStream(cfg.vocab, wb, ws, seed=1).next().items()}
+                loss_w = lambda p, bb: transformer.loss_fn(  # noqa: E731
+                    cfg, p, bb, xent_chunk=min(512, ws))
+                t = time.perf_counter()
+                vw = lm_step_vs_plain(ops, ref, flash_attention, loss_w,
+                                       params, batch, f"{arch_id} [{wb}, {ws}]")
+                vw["s"] = time.perf_counter() - t
+                rec["window_step"] = vw
+                log(f"{arch_id} step vs plain at matched routing [{wb}, {ws}] "
+                    f"(window {cfg.window} masks) ({card}): {json.dumps(vw)}")
+                del batch
+            del params, stream, loss_fn, init
+            torch.cuda.empty_cache()
+            rec["s"] = time.perf_counter() - t_arch
+            out["archs"][arch_id] = rec
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -4812,6 +5198,20 @@ def main() -> int:
     launches["cin_plans"] = plans["launches"]["cin"]
     log(f"cell plans ({card}): {plans['phase_s']:.1f} s; launches "
         f"{plans['launches']}")
+
+    # MoE training at full width (K3's wgmma body on mixtral's AdamW steps
+    # and llama4-scout's gradient); the counts are set to 0 inside, just
+    # before each arch's run, and read just after it
+    mt = drive_moe_training(dev, card)
+    for arch_id, r in mt["archs"].items():
+        wgmma_paths[f"{arch_id} training (depth {r['layers']})"] = \
+            r["launches"]["wgmma"]
+    launches["flash_attention_wgmma"] += mt["launches"]["wgmma"]
+    if mt["launches"]["simt"]:
+        raise AssertionError(f"MoE training launched K3's SIMT body "
+                             f"{mt['launches']['simt']} times")
+    log(f"MoE training ({card}): {mt['phase_s']:.1f} s; launches "
+        f"{mt['launches']}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -4943,7 +5343,7 @@ def main() -> int:
         f"{lt['phase_s']:.1f} s, phase 15 {moe['phase_s']:.1f} s, phase 16 "
         f"{plans['phase_s']:.1f} s (the dry-run {plans['dryrun']['wall_s']:.1f}"
         f" s beside phases 13-15, waited for {plans['dryrun']['waited_s']:.1f}"
-        f" s)")
+        f" s), phase 17 {mt['phase_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

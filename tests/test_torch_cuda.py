@@ -13,7 +13,10 @@ the LM and recsys training entries (K3, K4's gathered entry and K5 as
 autograd Functions with plain backwards) and one training step of the
 qwen3 and xDeepFM smoke configs against the plain route; the MoE layer of
 both MoE smoke configs on the card against the CPU at matched routing, and
-the int8 KV cache's values and scales on the card equal to the CPU's.
+the int8 KV cache's values and scales on the card equal to the CPU's; the
+expert block's mesh branches and their gradients against mesh=None, and
+one mixtral smoke training step on the card against the CPU at matched
+routing, keyed by layer under the remat.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -1198,6 +1201,97 @@ def test_moe_mesh_branches_on_card(cuda, arch_id, shape):
     else:
         err = float((y.float() - y0.float()).norm() / y0.float().norm())
         assert 0 < err <= BRANCH_FRO, err
+
+
+@pytest.mark.parametrize("arch_id,shape", [("mixtral-8x7b", (1, 8)),
+                                           ("mixtral-8x7b", (2, 16)),
+                                           ("llama4-scout-17b-a16e", (2, 8))])
+def test_moe_mesh_branch_backward_on_card(cuda, arch_id, shape):
+    """The gradients of ``sum(y · ct) + aux`` with respect to ``x``, the
+    router and each expert stack through the mesh branches on the card:
+    the model-sharded branch's within ``BRANCH_FRO`` relative Frobenius
+    error of mesh=None's, leaf by leaf; expert parallelism's bitwise."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import layers
+
+    cfg = get_config(arch_id).smoke
+    gen = torch.Generator(cuda).manual_seed(1)
+    p = layers.moe_init(gen, cfg.d_model, cfg.d_ff, cfg.moe_experts, cfg.mlp)
+    x = torch.randn((4, 64, cfg.d_model), generator=gen, device=cuda)
+    ct = torch.randn((4, 64, cfg.d_model), generator=gen, device=cuda)
+    kw = dict(n_experts=cfg.moe_experts, top_k=cfg.moe_top_k, kind=cfg.mlp)
+    names = sorted(p)
+    leaves = [x.requires_grad_(True)] + [p[k].requires_grad_(True) for k in names]
+
+    def grads(mesh):
+        y, aux = layers.moe_apply(dict(zip(names, leaves[1:])), leaves[0],
+                                  mesh=mesh, **kw)
+        return torch.autograd.grad((y.float() * ct).sum() + aux, leaves)
+
+    g0 = grads(None)
+    g1 = grads(make_test_mesh(shape, device="cuda"))
+    for name, a, b in zip(["x", *names], g1, g0):
+        assert a.device.type == cuda.type and bool(torch.isfinite(a).all()), name
+        if cfg.moe_experts % shape[1] == 0:
+            assert torch.equal(a, b), name
+        else:
+            err = float((a - b).float().norm() / b.float().norm())
+            assert err <= BRANCH_FRO, (name, err)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its ``main`` is not run)."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_moe_train_step_on_card_equals_cpu_at_matched_routing(cuda):
+    """mixtral's smoke config at ``[2, 512]`` (its 64-position window
+    masks): the loss and every gradient on the card (K3's SIMT body at
+    head dim 32, twice a layer: the forward, then the recompute) against
+    the CPU's plain route, the card replaying the CPU's expert choices in
+    its forward and its recompute (``chip_smoke.layer_routes``, keyed by
+    layer): the loss within 5e-3 relative, each leaf within 5e-2 relative
+    Frobenius error; each layer's recompute on the CPU routes as its
+    forward did, and the card's own choices differ from the CPU's only at
+    near-ties (``ROUTE_TIE_GAP``)."""
+    from repro_torch.models import layers
+
+    smoke = _chip_smoke()
+    cfg = get_config("mixtral-8x7b").smoke
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    card = transformer.params_from_numpy(
+        cfg, transformer.params_to_numpy(params), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 513)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    loss_fn = lambda p, b: transformer.loss_fn(cfg, p, b)
+    with smoke.layer_routes(layers, params) as cpu:
+        c_loss, c_grads = value_and_grad(loss_fn, params, batch)
+    assert cpu.calls == [2] * cfg.n_layers
+    assert [int(d) for d in cpu.recompute_differ] == [0] * cfg.n_layers
+    n = flash_attention.LAUNCHES
+    with smoke.layer_routes(layers, card, replay=lambda i, j: cpu.forward[
+            i].gate_idx.to(cuda)) as got:
+        loss, grads = value_and_grad(
+            loss_fn, card, {k: v.to(cuda) for k, v in batch.items()})
+    assert flash_attention.LAUNCHES == n + 2 * cfg.n_layers
+    assert got.calls == [2] * cfg.n_layers
+    diffs = smoke.route_differences(
+        cpu.forward, [layers.Routing(None, r.gate_idx.cpu(), None, None, None,
+                                     r.cap) for r in got.forward])
+    assert diffs["max_gap"] <= smoke.ROUTE_TIE_GAP, diffs
+    assert abs(float(loss) - float(c_loss)) <= 5e-3 * abs(float(c_loss))
+    for g, c in zip(tree_leaves(grads), tree_leaves(c_grads)):
+        assert float(torch.linalg.vector_norm((g.cpu() - c).float())) <= \
+            5e-2 * float(torch.linalg.vector_norm(c.float()))
 
 
 def test_meta_route_matches_the_kernels_shapes(cuda):
