@@ -119,16 +119,13 @@
 10. Drives the LM serving path at the full width and depth of
    ``qwen3-0.6b`` with seeded random weights: prefill of 4 x 4,096 tokens
    (K3's wgmma body 28 times a call, its SIMT body never), one more under
-   ``torch.profiler``, then
-   ``DecodeEngine`` serving four 512-token prompts with 16 new tokens each,
-   checked against prefill's argmax within a tolerance measured from a
-   ``decode_step`` replay of the prompts.  Then prefill of ``gemma-2b``
-   (head dim 256: K3's wgmma body 18 times a call, its SIMT body never) at
-   full width and depth on 1 x 4,096 tokens, its logits held against the
-   plain route; and the SIMT body's path, prefill of ``gemma-2b``'s smoke
-   config (head dim 32, bf16: the SIMT body once a layer) on 4 x 1,024
-   tokens, the kernel at that shape and the logits held against the plain
-   versions.
+   ``torch.profiler``, the logits against the plain route, then
+   ``DecodeEngine`` serving four 64-token prompts with 16 new tokens each
+   (each wave timed), checked against prefill's argmax within a tolerance
+   measured from a ``decode_step`` replay of the prompts.  Then the SIMT body's path,
+   prefill of ``gemma-2b``'s smoke config (head dim 32, bf16: the SIMT body
+   once a layer) on 4 x 1,024 tokens, the logits held against the plain
+   route (``gemma-2b`` at full width runs in phase 18).
 11. Holds the recsys kernels against their plain versions on the
    reference's sweeps: the segment sum (``segment_matmul``, fp32 and fp16,
    ids outside the range, gathered entry; on the same ids sorted, the
@@ -251,14 +248,14 @@
     backward timed.
 17. Trains the two MoE archs at full width (``MOE_TRAIN_RUNS``), each
     depth cut to the deepest whose step's fp32 copies of the parameters
-    fit in ``MOE_TRAIN_FIT`` of the card (the reckoning printed), the
-    batch of ``train_4k`` cut to ``[4, 4096]``: mixtral-8x7b (1 of 32
-    layers) three AdamW steps through ``loop.run`` with
-    ``launch.train._lm_setup``'s stream, loss and initialiser (step
-    seconds, losses, peak memory, the last step under ``torch.profiler``,
-    the final checkpoint's host copy and write seconds and bytes, deleted
-    after); llama4-scout-17b-a16e (1 of 48) loss and gradients only (its
-    AdamW step holds ~8 fp32 copies, 133 GB at depth 1), profiled once.
+    fit in ``TRAIN_FIT`` of the card (``depth_cut``, the reckoning
+    printed), the batch of ``train_4k`` cut to ``[4, 4096]``: mixtral-8x7b
+    (1 of 32 layers) three AdamW steps of ``make_train_step``
+    (``adamw_steps``) with ``launch.train._lm_setup``'s stream, loss and
+    initialiser (step seconds, losses, peak memory, the last step under
+    ``torch.profiler``; the loop and its checkpoint run in phase 14);
+    llama4-scout-17b-a16e (1 of 48) loss and gradients only (its AdamW
+    step holds ~8 fp32 copies, 133 GB at depth 1), profiled once.
     The counts are set to 0 just before each arch's run and read just
     after: K3's wgmma body twice a layer a step (each layer and its
     recompute), its SIMT body, K4 and K5 never.  Each arch's step is then
@@ -271,11 +268,37 @@
     blocks halved, each route's own choices differing only within
     ``ROUTE_TIE_GAP`` of a tie; mixtral's once more at ``[1, 8192]``,
     where its 4,096 window masks.
-18. Fails unless every kernel was launched by its path (K1 and K2 on the
+18. The dense LM family at full width (``DENSE_RUNS``), each arch from one
+    seeded initialisation on the card, built, driven and freed in turn:
+    starcoder2-7b (LayerNorm, GELU, untied embeddings, 36 q / 4 kv heads
+    of 128: a GQA group of 9) at full width and depth, 7,399,047,168
+    parameters checked, and gemma-2b (MQA at head dim 256, a 256,000-entry
+    tied vocabulary).  Two timed prefill calls (starcoder2 ``[4, 4096]``,
+    gemma ``[1, 4096]``: K3's wgmma body once a layer a call, its SIMT
+    body never) and one profiled, the logits against the plain route
+    within ``LOGIT_RTOL`` of the largest; ``DecodeEngine`` serving 4
+    requests of 64 + 16 tokens (each wave timed) with phase 10's
+    consistency gates.  Then the first layers of the same parameters at
+    the depth cut (``depth_cut``: the deepest whose AdamW step's ~8 fp32
+    copies fit in ``TRAIN_FIT`` of the card; starcoder2 7 of 32, gemma 14
+    of 18), ``train_4k`` cut to ``[4, 4096]``: the first step's loss and
+    gradients against ``use_kernels(False)`` (phase 14's gates, beside the
+    plain route's own spread with its attention blocks halved), then three
+    AdamW steps of ``make_train_step`` from the same parameters and
+    batches (step seconds, losses, peak memory, the last step profiled;
+    the first step's loss equal to the checked one).  The counts are set
+    to 0 just before each arch's prefill and serving and just before its
+    steps, and read just after: K3's wgmma body once a layer a prefill
+    call and twice a layer a step, its SIMT body, K4 and K5 never.  Then
+    K3 at starcoder2-7b's layout ``[4, 4096, 36 q / 4 kv, 128]`` against
+    its plain version, timed in turns with ``scaled_dot_product_attention``
+    (causal, ``enable_gqa``) beside its bound.
+19. Fails unless every kernel was launched by its path (K1 and K2 on the
     truss path, on the service path and on the sharded path, K1 on the
     cluster path and the training rounds, K4 on the recsys and training
     paths, K3 and K5 on the LM and recsys training paths too, K3 on the
-    MoE prefills and the MoE training, K3, K4 and K5 on the cell plans),
+    MoE prefills and the MoE training, K3, K4 and K5 on the cell plans,
+    K3 on the dense family's prefills, serving and training),
     prints the smoke's total seconds, the kernels line, the card line,
     and last the device line.
 
@@ -331,7 +354,6 @@ SIMT_BATCH, SIMT_SEQ = 4, 1024   # gemma-2b's smoke config: K3's SIMT body
 SMEM_LIMIT = 232_448          # dynamic shared memory a block may use
 PREFILL_BATCH, PREFILL_SEQ = 4, 4096
 PARAM_COUNT = 596_041_728     # transformer.param_count of qwen3-0.6b
-SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 512, 16, 640
 RECSYS_ARCH = "xdeepfm"
 RECSYS_PARAMS = 432_841_945   # table, wide weights, CIN, MLP of xdeepfm
 K4_SWEEP = ((10, 4, 3), (100, 16, 17), (1000, 64, 77), (513, 32, 128),
@@ -382,8 +404,12 @@ RESTART_STEPS, RESTART_AT = 6, 3   # 3 steps, preempted, resumed to 6
 MOE_RUNS = (("mixtral-8x7b", 8, 1, 8192),            # arch, layers, batch, seq
             ("llama4-scout-17b-a16e", 4, 4, 4096))
 MOE_ARCHS = tuple(r[0] for r in MOE_RUNS)
-MOE_SERVE_SLOTS, MOE_SERVE_PROMPT, MOE_SERVE_NEW = 4, 64, 16
-MOE_SERVE_MAX_SEQ = 640
+# phases 10, 15 and 18 serve 4 requests of 64 prompt + 16 new tokens on a
+# 640-slot cache: the engine feeds a prompt through decode_step, one wave a
+# token, and a wave attends over every slot of the cache whatever its
+# position, so more prompt waves repeat the same wave (phase 10 served 512 +
+# 16 until the smoke with phase 18 took 1,074 s on an H100)
+SERVE_SLOTS, SERVE_PROMPT, SERVE_NEW, SERVE_MAX_SEQ = 4, 64, 16, 640
 KV_QUANT_ARCH, KV_QUANT_TOL = "mixtral-8x7b", 1e-2   # the reference's bound
 # A routing decision that differs between two routes (kernel vs plain
 # attention, decode vs prefill) must be a near-tie: the two experts'
@@ -417,24 +443,44 @@ BRANCH_SHAPE, BRANCH_MESH = (1, 8192), (1, 16)
 # forward's sum does
 BRANCH_FRO = 2e-2
 # Phase 17: MoE training at full width.  Each arch's depth is cut to the
-# deepest whose step holds in MOE_TRAIN_FIT of the card's memory: mixtral's
-# AdamW step through loop.run holds ~8 fp32 copies of its parameters
+# deepest whose step holds in TRAIN_FIT of the card's memory: mixtral's
+# AdamW step (make_train_step) holds ~8 fp32 copies of its parameters
 # (params, grads, mu, nu, the clipped grads, and the new params, mu and nu
 # that adamw_update returns as fresh tensors); llama4-scout's gradient
 # against the plain route holds 3 (params and two gradient trees), and its
 # AdamW step would need 8 at any depth.  train_4k's [256, 4096] is cut to
 # [4, 4096]
-MOE_TRAIN_RUNS = (("mixtral-8x7b", "adamw", 8, 4, 4096),   # arch, step,
-                  ("llama4-scout-17b-a16e", "grad", 3, 4, 4096))  # copies, b, s
-MOE_TRAIN_FIT = 0.8
-MOE_TRAIN_STEPS = 3
+ADAMW_COPIES = 8
+MOE_TRAIN_RUNS = (("mixtral-8x7b", "adamw", ADAMW_COPIES, 4, 4096),  # arch,
+                  ("llama4-scout-17b-a16e", "grad", 3, 4, 4096))  # step,
+TRAIN_FIT = 0.8                                          # copies, b, s
+ADAMW_STEPS = 3
 # mixtral's extra step: at 4,096 positions its 4,096 window never masks a
 # key; at 8,192 the band reaches K3's forward and attention_vjp_ref's
 # windowed query blocks
 MOE_WINDOW_STEP = (1, 8192)
 # the first loss of a run from seeded weights: the untied unembedding gives
 # logits of unit scale, ~0.5 above ln(vocab) (tests/test_torch_moe.py)
-MOE_FIRST_LOSS_GAP = 1.0
+FIRST_LOSS_GAP = 1.0
+# Phase 18: the dense LM family at full width.  Each arch prefills and
+# serves at full width and depth from seeded weights, then trains at its
+# depth cut: the first layers of the same parameters, the deepest depth
+# whose AdamW step's ADAMW_COPIES fp32 copies fit in TRAIN_FIT of the card;
+# train_4k's [256, 4096] cut to [4, 4096]
+DENSE_RUNS = (("starcoder2-7b", 4, 4096),   # arch, prefill batch, seq
+              ("gemma-2b", 1, 4096))
+DENSE_PARAMS = {"starcoder2-7b": 7_399_047_168,   # transformer.param_count
+                "gemma-2b": 2_506_170_368}
+DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ = 4, 4096
+# K3 at starcoder2-7b's layout: a GQA group of 9 (b, s, hq, hkv, dh, window)
+DENSE_K3_LAYOUTS = {"starcoder2": (4, 4096, 36, 4, 128, None)}
+K3_MIN_SEQ = 512     # layers.attention_apply takes K3 from 512 positions
+# the first AdamW step's loss against the checked step's (the same function
+# of the same tensors), and how far below ln(vocab) a mean loss over
+# [4, 4096] uniform random targets may fall: no predictor's expected loss on
+# them is below ln(vocab), and the mean's spread is under 2e-2 (logits of
+# std up to ~2)
+FIRST_STEP_RTOL, FIRST_LOSS_FLOOR = 1e-5, 0.1
 
 
 def log(msg: str) -> None:
@@ -2500,91 +2546,138 @@ def time_flash_attention(ops, ref, fa, dev) -> dict:
     return out
 
 
-def drive_lm_path(fa, dev) -> dict:
-    """Prefill and serving of ``qwen3-0.6b`` at full width and depth, seeded
-    random weights on the card; returns the path's metrics."""
-    from repro_torch.configs import get_config
+def uncounted_params(cfg) -> int:
+    """Elements of an LM's parameters that ``transformer.param_count``
+    leaves out: the qk-norm scales, the final norm's scale and, with
+    LayerNorm, the bias of the final norm and of each layer's two norms
+    (``param_count`` counts each layer's two norm scales, and the untied
+    unembedding beside the embedding)."""
+    bias = cfg.norm == "layernorm"
+    return (cfg.n_layers * 2 * cfg.head_dim * cfg.qk_norm
+            + cfg.d_model * (1 + bias) + bias * cfg.n_layers * 2 * cfg.d_model)
+
+
+def check_param_count(cfg, params, expect: int | None = None) -> int:
+    """The elements of every leaf of ``params`` less ``uncounted_params``
+    must equal ``transformer.param_count(cfg)`` (and ``expect``); returns
+    the elements of every leaf."""
     from repro_torch.models import transformer
+
+    n_total = sum(x.numel() for x in _leaves(params))
+    count, uncounted = transformer.param_count(cfg), uncounted_params(cfg)
+    if n_total - uncounted != count or expect not in (None, count):
+        raise AssertionError(f"{cfg.name}: {n_total:,} parameters - "
+                             f"{uncounted:,} (qk-norm scales, the final norm,"
+                             f" LayerNorm biases) != param_count {count:,} "
+                             f"(expected {expect})")
+    return n_total
+
+
+def lm_prefill(fa, cfg, params, tokens, body: str = "wgmma") -> tuple:
+    """One synchronised prefill call: ``(logits, seconds)``.  Where the
+    prompt takes K3 (``K3_MIN_SEQ`` positions or more) its ``body`` must
+    launch once a layer and the other body never; below, neither; the
+    logits ``[B, vocab]`` and finite."""
+    from repro_torch.models import transformer
+
+    by_body = dict(fa.LAUNCHES_BY_BODY)
+    t = time.perf_counter()
+    logits = transformer.prefill(cfg, params, tokens)
+    sync(tokens.device)
+    dt = time.perf_counter() - t
+    n = cfg.n_layers if tokens.shape[1] >= K3_MIN_SEQ else 0
+    want = {b: n if b == body else 0 for b in by_body}
+    ran = {b: c - by_body[b] for b, c in fa.LAUNCHES_BY_BODY.items()}
+    if ran != want:
+        raise AssertionError(f"{cfg.name} prefill {list(tokens.shape)} "
+                             f"launched K3's bodies {ran}, expected {want}")
+    if logits.shape != (tokens.shape[0], cfg.vocab) or \
+            not bool(torch.isfinite(logits).all()):
+        raise AssertionError(f"{cfg.name} prefill logits "
+                             f"{tuple(logits.shape)} not finite or of the "
+                             f"wrong shape")
+    return logits, dt
+
+
+def prefill_vs_plain(ops, cfg, params, tokens, logits) -> dict:
+    """The same prefill through ``use_kernels(False)`` (the chunked plain
+    attention): the largest |logit difference| within ``LOGIT_RTOL`` of
+    the largest |logit|."""
+    from repro_torch.models import transformer
+
+    ops.use_kernels(False)
+    try:
+        plain = transformer.prefill(cfg, params, tokens)
+    finally:
+        ops.use_kernels(True)
+    dmax = float((logits - plain).abs().max())
+    lmax = float(plain.abs().max())
+    log(f"{cfg.name} prefill {list(tokens.shape)} vs the plain route: max "
+        f"|logit difference| {dmax:.4g} (largest |logit| {lmax:.4g}; limit "
+        f"{LOGIT_RTOL:g} x that = {LOGIT_RTOL * lmax:.4g}); argmax "
+        f"{logits.argmax(-1).tolist()} vs {plain.argmax(-1).tolist()}")
+    if not dmax <= LOGIT_RTOL * lmax:
+        raise AssertionError(f"{cfg.name} prefill differs from the plain "
+                             f"route by {dmax} > {LOGIT_RTOL} x {lmax}")
+    return {"dlogit": dmax, "largest_logit": lmax}
+
+
+def engine_waves(cfg, params, prompts: np.ndarray, new: int, max_seq: int,
+                 dev) -> tuple:
+    """``DecodeEngine`` serving ``prompts`` (``[slots, P]``) with ``new``
+    tokens each, each wave timed (one host read a wave): ``(engine, the
+    finished requests by id, wave ms)``; fails unless every request got
+    its ``new`` tokens."""
     from repro_torch.serving import DecodeEngine, Request
 
-    cfg = get_config(LM_ARCH).model
-    out = {}
-    t = time.perf_counter()
-    params = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0))
-    sync(dev)
-    n_total = sum(x.numel() for x in _leaves(params))
-    uncounted = (cfg.n_layers * 2 * cfg.head_dim * cfg.qk_norm) + cfg.d_model
-    if not n_total - uncounted == transformer.param_count(cfg) == PARAM_COUNT:
-        raise AssertionError(f"{n_total} parameters - {uncounted} (qk-norm, "
-                             f"final norm) != param_count "
-                             f"{transformer.param_count(cfg)}")
-    log(f"{LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"param_count {transformer.param_count(cfg):,} (+ {uncounted:,} "
-        f"qk-norm and final-norm scales = {n_total:,} tensors' elements), "
-        f"init {time.perf_counter() - t:.1f} s")
-
-    rng = np.random.default_rng(0)
-    tokens = torch.from_numpy(rng.integers(
-        0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ))).to(dev)
-
-    def prefill(toks):
-        n, by_body = fa.LAUNCHES, dict(fa.LAUNCHES_BY_BODY)
-        t0 = time.perf_counter()
-        logits = transformer.prefill(cfg, params, toks)
-        sync(dev)
-        dt = time.perf_counter() - t0
-        if fa.LAUNCHES - n != cfg.n_layers:
-            raise AssertionError(f"prefill launched K3 {fa.LAUNCHES - n} "
-                                 f"times, expected {cfg.n_layers}")
-        ran = {b: c - by_body[b] for b, c in fa.LAUNCHES_BY_BODY.items()}
-        if ran != {"wgmma": cfg.n_layers, "simt": 0}:
-            raise AssertionError(f"prefill launched K3's bodies {ran}, "
-                                 f"expected the wgmma body {cfg.n_layers} "
-                                 f"times and the SIMT body never")
-        if logits.shape != (toks.shape[0], cfg.vocab) or \
-                not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"prefill logits {tuple(logits.shape)} "
-                                 f"not finite or of the wrong shape")
-        return logits, dt
-
-    n_tok = PREFILL_BATCH * PREFILL_SEQ
-    for i in range(2):
-        _, dt = prefill(tokens)
-        log(f"prefill [{PREFILL_BATCH}, {PREFILL_SEQ}] call {i}: {dt:.3f} s, "
-            f"{n_tok / dt:,.0f} tokens/s, logits finite, K3's wgmma body "
-            f"launched {cfg.n_layers} times, its SIMT body never")
-    out["prefill_s"], out["prefill_tok_s"] = dt, n_tok / dt
-    out["prefill_busy"] = profiled(lambda: prefill(tokens))
-    del tokens
-    torch.cuda.empty_cache()
-
-    prompts = rng.integers(1, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT))
-    eng = DecodeEngine(cfg, params, batch_slots=SERVE_SLOTS,
-                       max_seq=SERVE_MAX_SEQ, device=dev)
-    cache_mb = sum(t.numel() * t.element_size() for t in eng.cache.values()) / 1e6
+    eng = DecodeEngine(cfg, params, batch_slots=len(prompts),
+                       max_seq=max_seq, device=dev)
     for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p.tolist(), max_new=SERVE_NEW))
-    t = time.perf_counter()
-    done = sorted(eng.run(), key=lambda r: r.rid)
-    sync(dev)
-    dt = time.perf_counter() - t
-    waves = SERVE_PROMPT - 1 + SERVE_NEW
-    if len(done) != SERVE_SLOTS or any(len(r.out) != SERVE_NEW for r in done):
-        raise AssertionError("the engine did not finish every request")
-    out["serve_s"] = dt
-    out["decode_tok_s"] = SERVE_SLOTS * SERVE_NEW / dt
-    out["wave_ms"] = 1e3 * dt / waves
-    log(f"serve: {SERVE_SLOTS} requests x ({SERVE_PROMPT} prompt + "
-        f"{SERVE_NEW} new) tokens, cache {tuple(eng.cache['k'].shape)} bf16 "
-        f"x2 = {cache_mb:.0f} MB: {dt:.2f} s, {waves} waves "
-        f"({out['wave_ms']:.2f} ms each), {out['decode_tok_s']:.1f} new "
-        f"tokens/s, {SERVE_SLOTS * waves / dt:.0f} tokens/s through "
-        f"decode_step")
+        eng.submit(Request(rid=i, prompt=p.tolist(), max_new=new))
+    wave_ms = []
+    while True:
+        t = time.perf_counter()
+        if eng.step() == 0:          # each wave reads its tokens to the host
+            break
+        wave_ms.append(1e3 * (time.perf_counter() - t))
+    done = sorted(eng.finished, key=lambda r: r.rid)
+    if len(done) != len(prompts) or any(len(r.out) != new for r in done):
+        raise AssertionError(f"{cfg.name}: the engine did not finish every "
+                             f"request")
+    return eng, done, wave_ms
 
-    # consistency: the engine's first token against prefill's argmax
+
+def serve_dense(fa, cfg, params, prompts: np.ndarray, new: int, max_seq: int,
+                dev, profile_tail: int = 0) -> dict:
+    """``DecodeEngine`` serving ``prompts`` (``[slots, P]``) with ``new``
+    tokens each, each wave timed (one host read a wave); then the
+    consistency gates: ``decode_step``'s replay of the prompts against
+    prefill's logits at ``P`` within ``LOGIT_RTOL`` of the largest |logit|
+    (the last ``profile_tail`` replay steps under the profiler), and each
+    request's first token equal to prefill's argmax unless prefill's top-2
+    margin is under twice that gap (a bf16 near-tie)."""
+    from repro_torch.models import transformer
+
+    slots, plen = prompts.shape
+    eng, done, wave_ms = engine_waves(cfg, params, prompts, new, max_seq, dev)
+    cache_mb = sum(t.numel() * t.element_size()
+                   for t in eng.cache.values()) / 1e6
+    serve_s = sum(wave_ms) / 1e3
+    out = {"waves": len(wave_ms), "serve_s": serve_s,
+           "wave_ms": 1e3 * serve_s / len(wave_ms),
+           "wave_ms_p50": float(np.median(wave_ms)),
+           "wave_ms_max": max(wave_ms), "decode_tok_s": slots * new / serve_s,
+           "cache": list(eng.cache["k"].shape), "cache_mb": cache_mb}
+    log(f"{cfg.name} serve: {slots} requests x ({plen} prompt + {new} new) "
+        f"tokens, cache {out['cache']} bf16 x2 = {cache_mb:.0f} MB: "
+        f"{serve_s:.2f} s, {len(wave_ms)} waves ({out['wave_ms']:.2f} ms "
+        f"each, p50 {out['wave_ms_p50']:.2f}), {out['decode_tok_s']:.1f} new "
+        f"tokens/s, {slots * len(wave_ms) / serve_s:.0f} tokens/s through "
+        f"decode_step")
+    del eng
     ptoks = torch.from_numpy(prompts).to(dev)
-    logits_p, _ = prefill(ptoks)                    # s = 512: K3 runs
-    cache = transformer.init_cache(cfg, SERVE_SLOTS, SERVE_PROMPT, device=dev)
+    logits_p, _ = lm_prefill(fa, cfg, params, ptoks)
+    cache = transformer.init_cache(cfg, slots, plen, device=dev)
     logits_d = None
 
     def replay(positions):
@@ -2593,9 +2686,10 @@ def drive_lm_path(fa, dev) -> dict:
             logits_d, _ = transformer.decode_step(cfg, params, cache,
                                                   ptoks[:, pos], pos)
 
-    replay(range(SERVE_PROMPT - 8))
-    out["decode_busy"] = profiled(                  # the last 8 waves
-        lambda: replay(range(SERVE_PROMPT - 8, SERVE_PROMPT)))
+    replay(range(plen - profile_tail))
+    if profile_tail:
+        out["decode_busy"] = profiled(
+            lambda: replay(range(plen - profile_tail, plen)))
     dmax = float((logits_d - logits_p).abs().max())
     lmax = float(logits_p.abs().max())
     tol = 2 * dmax
@@ -2604,89 +2698,87 @@ def drive_lm_path(fa, dev) -> dict:
     argmax_p = logits_p.argmax(-1).tolist()
     first = [r.out[0] for r in done]
     agree = sum(a == b for a, b in zip(first, argmax_p))
-    log(f"consistency: max |prefill - decode_step replay| logit = {dmax:.4g} "
-        f"(largest |logit| {lmax:.4g}; limit {LOGIT_RTOL:g} x that = "
-        f"{LOGIT_RTOL * lmax:.4g}); argmax tolerance 2x the gap = {tol:.4g}; "
-        f"prefill top-2 margins {[round(m, 4) for m in margins]}; first "
-        f"tokens {first}, prefill argmax {argmax_p}: {agree}/{SERVE_SLOTS} "
+    log(f"{cfg.name} consistency: max |prefill - decode_step replay| logit "
+        f"= {dmax:.4g} (largest |logit| {lmax:.4g}; limit {LOGIT_RTOL:g} x "
+        f"that = {LOGIT_RTOL * lmax:.4g}); argmax tolerance 2x the gap = "
+        f"{tol:.4g}; prefill top-2 margins {[round(m, 4) for m in margins]}; "
+        f"first tokens {first}, prefill argmax {argmax_p}: {agree}/{slots} "
         f"agree; replay argmax {logits_d.argmax(-1).tolist()}")
     if not dmax <= LOGIT_RTOL * lmax:
-        raise AssertionError(f"decode_step replay differs from prefill by "
-                             f"{dmax} > {LOGIT_RTOL} x {lmax}")
+        raise AssertionError(f"{cfg.name}: decode_step replay differs from "
+                             f"prefill by {dmax} > {LOGIT_RTOL} x {lmax}")
     for f, a, m in zip(first, argmax_p, margins):
         if f != a and m >= tol:
-            raise AssertionError(f"first token {f} != prefill argmax {a} at "
-                                 f"top-2 margin {m} >= {tol}")
-    out.update(dlogit=dmax, agree=agree, margins=margins)
-    del params, eng, cache
+            raise AssertionError(f"{cfg.name}: first token {f} != prefill "
+                                 f"argmax {a} at top-2 margin {m} >= {tol}")
+    out.update(dlogit=dmax, largest_logit=lmax, agree=agree, margins=margins)
+    del cache
     torch.cuda.empty_cache()
     return out
 
 
-def drive_gemma_prefill(ops, fa, dev, smoke: bool) -> dict:
-    """Prefill of ``gemma-2b`` with seeded random weights, two calls, the
-    logits held against the same call through the plain route.  At full
-    width and depth (8 query heads over one KV head of 256) on 1 x 4,096
-    tokens it is the path of K3's wgmma body at head dim 256, once a layer,
-    the SIMT body never.  With ``smoke``, gemma-2b's smoke config (4 query
-    heads over one KV head of 32, bf16) on 4 x 1,024 tokens is the path of
-    the SIMT body, once a layer, the wgmma body never."""
-    from repro_torch.configs import get_config
+def drive_lm_path(ops, fa, dev) -> dict:
+    """Prefill and serving of ``qwen3-0.6b`` at full width and depth, seeded
+    random weights on the card, the prefill's logits against the plain
+    route; returns the path's metrics."""
     from repro_torch.models import transformer
 
-    arch = get_config(GEMMA_ARCH)
-    cfg = arch.smoke if smoke else arch.model
-    batch, seq = (SIMT_BATCH, SIMT_SEQ) if smoke else (GEMMA_BATCH, GEMMA_SEQ)
-    body = "simt" if smoke else "wgmma"
-    if not smoke and (cfg.n_heads, cfg.n_kv, cfg.head_dim) != GEMMA_HEADS:
-        raise AssertionError(f"{GEMMA_ARCH}: heads {cfg.n_heads}/{cfg.n_kv} "
-                             f"of {cfg.head_dim}, expected {GEMMA_HEADS}")
-    if fa.body_for(torch.bfloat16, cfg.head_dim) != body:
-        raise AssertionError(f"{cfg.name}: bf16 at head dim {cfg.head_dim} "
-                             f"does not pick the {body} body")
-    expect = {b: cfg.n_layers if b == body else 0 for b in fa.LAUNCHES_BY_BODY}
+    cfg = model_cfg(LM_ARCH)
     t = time.perf_counter()
     params = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0))
     sync(dev)
-    log(f"{cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} q / {cfg.n_kv} kv heads of {cfg.head_dim}, "
-        f"param_count {transformer.param_count(cfg):,}, init "
-        f"{time.perf_counter() - t:.1f} s")
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (batch, seq))).to(dev)
+    n_total = check_param_count(cfg, params, PARAM_COUNT)
+    log(f"{LM_ARCH}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"param_count {PARAM_COUNT:,} (+ {uncounted_params(cfg):,} "
+        f"qk-norm and final-norm scales = {n_total:,} tensors' elements), "
+        f"init {time.perf_counter() - t:.1f} s")
+
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (PREFILL_BATCH, PREFILL_SEQ))).to(dev)
+    n_tok = PREFILL_BATCH * PREFILL_SEQ
     out = {}
     for i in range(2):
-        by_body = dict(fa.LAUNCHES_BY_BODY)
-        t0 = time.perf_counter()
-        logits = transformer.prefill(cfg, params, tokens)
-        sync(dev)
-        dt = time.perf_counter() - t0
-        ran = {b: c - by_body[b] for b, c in fa.LAUNCHES_BY_BODY.items()}
-        if ran != expect:
-            raise AssertionError(f"{cfg.name} prefill launched K3's bodies "
-                                 f"{ran}, expected {expect}")
-        if logits.shape != (batch, cfg.vocab) or \
-                not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"{cfg.name} logits not finite or of the "
-                                 f"wrong shape")
-        log(f"{cfg.name} prefill [{batch}, {seq}] call {i}: {dt:.3f} s, "
-            f"{batch * seq / dt:,.0f} tokens/s, K3's bodies launched {ran}")
-    out["prefill_s"], out["prefill_tok_s"] = dt, batch * seq / dt
-    ops.use_kernels(False)
-    try:
-        plain = transformer.prefill(cfg, params, tokens)
-    finally:
-        ops.use_kernels(True)
-    dmax = float((logits - plain).abs().max())
-    lmax = float(plain.abs().max())
-    log(f"{cfg.name} prefill vs the plain route: max |logit difference| "
-        f"{dmax:.4g} (largest |logit| {lmax:.4g}; limit {LOGIT_RTOL:g} x "
-        f"that = {LOGIT_RTOL * lmax:.4g}); argmax "
-        f"{logits.argmax(-1).tolist()} vs {plain.argmax(-1).tolist()}")
-    if not dmax <= LOGIT_RTOL * lmax:
-        raise AssertionError(f"{cfg.name} prefill differs from the plain "
-                             f"route by {dmax} > {LOGIT_RTOL} x {lmax}")
-    out["dlogit"] = dmax
+        logits, dt = lm_prefill(fa, cfg, params, tokens)
+        log(f"prefill [{PREFILL_BATCH}, {PREFILL_SEQ}] call {i}: {dt:.3f} s, "
+            f"{n_tok / dt:,.0f} tokens/s, logits finite, K3's wgmma body "
+            f"launched {cfg.n_layers} times, its SIMT body never")
+    out["prefill_s"], out["prefill_tok_s"] = dt, n_tok / dt
+    out["prefill_busy"] = profiled(lambda: lm_prefill(fa, cfg, params, tokens))
+    out["vs_plain"] = prefill_vs_plain(ops, cfg, params, tokens, logits)
+    del tokens, logits
+    torch.cuda.empty_cache()
+
+    prompts = rng.integers(1, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT))
+    out.update(serve_dense(fa, cfg, params, prompts, SERVE_NEW,
+                           SERVE_MAX_SEQ, dev, profile_tail=8))
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_simt_prefill(ops, fa, dev) -> dict:
+    """The SIMT body's model path: prefill of ``gemma-2b``'s smoke config
+    (4 query heads over one KV head of 32, bf16) on 4 x 1,024 tokens, two
+    calls (K3's SIMT body once a layer, the wgmma body never), the logits
+    against the plain route."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer
+
+    cfg = get_config(GEMMA_ARCH).smoke
+    if fa.body_for(torch.bfloat16, cfg.head_dim) != "simt":
+        raise AssertionError(f"{cfg.name}: bf16 at head dim {cfg.head_dim} "
+                             f"does not pick the SIMT body")
+    params = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (SIMT_BATCH, SIMT_SEQ))).to(dev)
+    for i in range(2):
+        logits, dt = lm_prefill(fa, cfg, params, tokens, body="simt")
+        log(f"{cfg.name} prefill [{SIMT_BATCH}, {SIMT_SEQ}] call {i}: "
+            f"{dt:.3f} s, K3's SIMT body launched {cfg.n_layers} times, its "
+            f"wgmma body never")
+    out = {"prefill_s": dt, "prefill_tok_s": SIMT_BATCH * SIMT_SEQ / dt}
+    out.update(prefill_vs_plain(ops, cfg, params, tokens, logits))
     del params, tokens
     torch.cuda.empty_cache()
     return out
@@ -4056,9 +4148,9 @@ def check_kv_quant(cfg, cache: dict, pos: int, dev) -> dict:
 
 
 def serve_moe(cfg, params, dev, rng) -> dict:
-    """``DecodeEngine``: ``MOE_SERVE_SLOTS`` requests of ``MOE_SERVE_PROMPT``
-    prompt and ``MOE_SERVE_NEW`` new tokens, each wave timed; then
-    ``decode_step``'s replay of the prompts against prefill's logits at the
+    """``DecodeEngine``: ``SERVE_SLOTS`` requests of ``SERVE_PROMPT`` prompt
+    and ``SERVE_NEW`` new tokens, each wave timed; then ``decode_step``'s
+    replay of the prompts against prefill's logits at the
     prompt length, row by row (a request's prompt routes per row; decode
     never drops, its capacity is 1).  The replay takes the expert choices
     of a prefill at the drop-free capacity (``cap = s``), the function
@@ -4067,28 +4159,14 @@ def serve_moe(cfg, params, dev, rng) -> dict:
     it is held to the configured prefill (capacity factor 1.25) on the
     rows where that dropped no token, and each row's drops are logged."""
     from repro_torch.models import layers, transformer
-    from repro_torch.serving import DecodeEngine, Request
 
-    prompts = rng.integers(1, cfg.vocab, (MOE_SERVE_SLOTS, MOE_SERVE_PROMPT))
-    eng = DecodeEngine(cfg, params, batch_slots=MOE_SERVE_SLOTS,
-                       max_seq=MOE_SERVE_MAX_SEQ, device=dev)
-    for i, p in enumerate(prompts):
-        eng.submit(Request(rid=i, prompt=p.tolist(), max_new=MOE_SERVE_NEW))
-    wave_ms = []
-    while True:
-        t = time.perf_counter()
-        if eng.step() == 0:          # each wave reads its tokens to the host
-            break
-        wave_ms.append(1e3 * (time.perf_counter() - t))
-    done = eng.finished
-    if len(done) != MOE_SERVE_SLOTS or any(len(r.out) != MOE_SERVE_NEW
-                                           for r in done):
-        raise AssertionError(f"{cfg.name}: the engine did not finish every "
-                             f"request")
+    prompts = rng.integers(1, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT))
+    eng, _, wave_ms = engine_waves(cfg, params, prompts, SERVE_NEW,
+                                   SERVE_MAX_SEQ, dev)
     out = {"waves": len(wave_ms), "wave_ms_p50": float(np.median(wave_ms)),
            "wave_ms_max": max(wave_ms), "wave_ms_first": wave_ms[0],
            "serve_s": sum(wave_ms) / 1e3,
-           "new_tok_s": MOE_SERVE_SLOTS * MOE_SERVE_NEW / (sum(wave_ms) / 1e3),
+           "new_tok_s": SERVE_SLOTS * SERVE_NEW / (sum(wave_ms) / 1e3),
            "cache": list(eng.cache["k"].shape)}
 
     # prefill of the prompts as configured (capacity factor 1.25: a row may
@@ -4107,14 +4185,14 @@ def serve_moe(cfg, params, dev, rng) -> dict:
     # decode replays the drop-free prefill's expert choices (step p of
     # layer i takes position p's) and records its own at those matched
     # inputs
-    cache = transformer.init_cache(cfg, MOE_SERVE_SLOTS, MOE_SERVE_PROMPT,
+    cache = transformer.init_cache(cfg, SERVE_SLOTS, SERVE_PROMPT,
                                    device=dev)
     with layer_routes(layers, params, replay=lambda i, p: pre_w.forward[
             i].gate_idx[:, p:p + 1]) as dec:
-        for pos in range(MOE_SERVE_PROMPT):
+        for pos in range(SERVE_PROMPT):
             logits_d, _ = transformer.decode_step(cfg, params, cache,
                                                   ptoks[:, pos], pos)
-    if dec.calls != [MOE_SERVE_PROMPT] * len(dec.calls) or any(
+    if dec.calls != [SERVE_PROMPT] * len(dec.calls) or any(
             not bool(r.keep.all()) or r.cap != 1
             for rs in dec.routes for r in rs):
         raise AssertionError(f"{cfg.name}: a decode step dropped a token or "
@@ -4125,7 +4203,7 @@ def serve_moe(cfg, params, dev, rng) -> dict:
     diffs = route_differences(pre_w.forward, own)
     check_route_gaps(diffs, f"{cfg.name} decode vs drop-free prefill")
     rows = []
-    for b in range(MOE_SERVE_SLOTS):
+    for b in range(SERVE_SLOTS):
         gap_w = float((logits_d[b] - logits_w[b]).abs().max())
         gap = float((logits_d[b] - logits_p[b]).abs().max())
         rows.append({"dropped": drops[b], "dlogit_drop_free": gap_w,
@@ -4161,10 +4239,7 @@ def drive_moe_arch(ops, fa, arch_id: str, n_layers: int, batch: int,
     t = time.perf_counter()
     params = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0))
     sync(dev)
-    n_total = sum(x.numel() for x in _leaves(params))
-    if n_total - cfg.d_model != transformer.param_count(cfg):
-        raise AssertionError(f"{arch_id}: {n_total} parameters - final norm "
-                             f"!= param_count {transformer.param_count(cfg)}")
+    n_total = check_param_count(cfg, params)
     out["params"] = transformer.param_count(cfg)
     out["active_params"] = transformer.active_param_count(cfg)
     out["cap"] = layers.moe_capacity(seq, cfg.moe_experts, cfg.moe_top_k,
@@ -4182,22 +4257,10 @@ def drive_moe_arch(ops, fa, arch_id: str, n_layers: int, batch: int,
 
     reset_counts(fa)
     for i in range(2):
-        by_body = dict(fa.LAUNCHES_BY_BODY)
-        t0 = time.perf_counter()
-        logits = transformer.prefill(cfg, params, tokens)
-        sync(dev)
-        dt = time.perf_counter() - t0
-        ran = {b: c - by_body[b] for b, c in fa.LAUNCHES_BY_BODY.items()}
-        if ran != {"wgmma": n_layers, "simt": 0}:
-            raise AssertionError(f"{arch_id} prefill launched K3's bodies "
-                                 f"{ran}, expected the wgmma body {n_layers} "
-                                 f"times and the SIMT body never")
-        if logits.shape != (batch, cfg.vocab) or \
-                not bool(torch.isfinite(logits).all()):
-            raise AssertionError(f"{arch_id} prefill logits not finite or of "
-                                 f"the wrong shape")
+        _, dt = lm_prefill(fa, cfg, params, tokens)
         log(f"{arch_id} prefill [{batch}, {seq}] call {i}: {dt:.3f} s, "
-            f"{batch * seq / dt:,.0f} tokens/s, K3's bodies launched {ran}")
+            f"{batch * seq / dt:,.0f} tokens/s, K3's wgmma body launched "
+            f"{n_layers} times, its SIMT body never")
         out.setdefault("prefill_s", []).append(dt)
     out["launches"] = dict(fa.LAUNCHES_BY_BODY)
     out["prefill_tok_s"] = batch * seq / min(out["prefill_s"])
@@ -4241,8 +4304,8 @@ def drive_moe_arch(ops, fa, arch_id: str, n_layers: int, batch: int,
     sv = serve_moe(cfg, params, dev, np.random.default_rng(2))
     cache, pos = sv.pop("cache_obj"), sv.pop("pos")
     sv["s"] = time.perf_counter() - t
-    log(f"{arch_id} serve ({card}): {MOE_SERVE_SLOTS} requests x "
-        f"({MOE_SERVE_PROMPT} prompt + {MOE_SERVE_NEW} new), cache "
+    log(f"{arch_id} serve ({card}): {SERVE_SLOTS} requests x "
+        f"({SERVE_PROMPT} prompt + {SERVE_NEW} new), cache "
         f"{sv['cache']} bf16 x2: {json.dumps(sv)}")
     out["serve"] = sv
     if arch_id == KV_QUANT_ARCH:
@@ -4341,22 +4404,23 @@ def moe_launchers(dev, work: str) -> dict:
     return out
 
 
-def time_moe_attention(ops, ref, fa, dev) -> dict:
-    """K3 at the MoE layouts (``MOE_K3_LAYOUTS``: mixtral's windowed GQA
-    group of 4 at its prefill's and its training's shapes, llama4-scout's
-    causal group of 5, prefill and training alike): held against the plain
-    version,
-    then timed (CUDA events, median of 10; plain median of 3) beside its
+def time_k3_layouts(ops, ref, fa, dev, layouts: dict) -> dict:
+    """K3 at model layouts (``{key: (b, s, hq, hkv, dh, window)}``: phase
+    15's ``MOE_K3_LAYOUTS``, mixtral's windowed GQA group of 4 at its
+    prefill's and its training's shapes and llama4-scout's causal group of
+    5; phase 18's ``DENSE_K3_LAYOUTS``, starcoder2-7b's causal group of 9):
+    held against the plain version, then timed in turns (kernel, SDPA,
+    SDPA, kernel; CUDA events, median of 10; plain median of 3) beside its
     bound (the pairs inside the mask) and ``scaled_dot_product_attention``
-    for the same function (where the window masks no key, as in llama4's
-    layouts and mixtral's training one: ``enable_gqa``, causal; mixtral's
-    prefill: the K/V heads expanded before the clock and an explicit boolean
-    band mask, as SDPA's GQA flag takes no mask but on its math backend)."""
+    for the same function (where the window masks no key: one causal
+    ``enable_gqa`` call; mixtral's prefill: the K/V heads expanded before
+    the clock and an explicit boolean band mask, as SDPA's GQA flag takes
+    no mask but on its math backend)."""
     import torch.nn.functional as F
 
     out, errs = {}, {}
     rng = np.random.default_rng(4)
-    for key, (b, s, hq, hkv, dh, window) in MOE_K3_LAYOUTS.items():
+    for key, (b, s, hq, hkv, dh, window) in layouts.items():
         q = _normal(rng, (b, s, hq, dh), torch.bfloat16, dev)
         k, v = (_normal(rng, (b, s, hkv, dh), torch.bfloat16, dev)
                 for _ in range(2))
@@ -4446,7 +4510,8 @@ def drive_moe_serving(dev, card: str) -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
     log(f"phase 15 launchers ({card}): {json.dumps(out['launchers'])}")
-    out["k3"] = time_moe_attention(ops, ref, flash_attention, dev)
+    out["k3"] = time_k3_layouts(ops, ref, flash_attention, dev,
+                                MOE_K3_LAYOUTS)
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -4774,16 +4839,16 @@ def drive_plans(dev, card: str, dryrun_run: dict) -> dict:
 # Phase 17: MoE training at full width on the card
 # ---------------------------------------------------------------------------
 
-def moe_depth_cut(arch_id: str, copies: int, dev) -> tuple:
-    """The full config of ``arch_id`` cut to the deepest depth at which
-    ``copies`` fp32 copies of its parameters fit in ``MOE_TRAIN_FIT`` of
-    the card's memory, and the reckoning: the GB those copies take at each
-    depth up to the first that does not fit, the limit and the card."""
+def depth_cut(arch_id: str, copies: int, card_bytes: int) -> tuple:
+    """The full config of the LM arch ``arch_id`` cut to the deepest depth
+    at which ``copies`` fp32 copies of its parameters fit in ``TRAIN_FIT``
+    of ``card_bytes``, and the reckoning: the GB those copies take at each
+    depth up to the first that does not fit (or the full depth), the limit
+    and the card."""
     from repro_torch.models import transformer
 
     full = model_cfg(arch_id)
-    card = torch.cuda.get_device_properties(dev).total_memory
-    limit, gb, depth = MOE_TRAIN_FIT * card, {}, 0
+    limit, gb, depth = TRAIN_FIT * card_bytes, {}, 0
     for d in range(1, full.n_layers + 1):
         need = 4 * copies * transformer.param_count(
             dataclasses.replace(full, n_layers=d))
@@ -4797,52 +4862,84 @@ def moe_depth_cut(arch_id: str, copies: int, dev) -> tuple:
                              f"{limit / 1e9:.1f} GB")
     return dataclasses.replace(full, n_layers=depth), {
         "copies": copies, "gb_by_depth": gb, "limit_gb": limit / 1e9,
-        "card_gb": card / 1e9}
+        "card_gb": card_bytes / 1e9}
 
 
-def moe_train_loop(cfg, stream, loss_fn, init, work: str, dev, mods) -> tuple:
-    """``loop.run`` of ``MOE_TRAIN_STEPS`` AdamW steps with
-    ``launch.train.setup``'s optimizer settings through
-    ``counted_training``, the last step under ``torch.profiler`` (opened in
-    the hook after the step before it, closed in the hook after it).
-    Returns the record and the trained parameters."""
-    from repro_torch.training import loop
-    from repro_torch.training.optimizer import AdamWConfig
+def log_depth_cut(arch_id: str, cfg, cut: dict, step: str, card: str) -> None:
+    from repro_torch.models import transformer
 
-    steps = MOE_TRAIN_STEPS
-    path = os.path.join(work, f"{cfg.name}.npz")
-    opt_cfg = AdamWConfig(total_steps=steps, warmup_steps=max(1, steps // 10))
-    prof = {"top": []}
+    full = model_cfg(arch_id)
+    gb = {d: round(g, 2) for d, g in cut["gb_by_depth"].items()}
+    log(f"{arch_id}: DEPTH CUT {full.n_layers} -> {cfg.n_layers} layers at "
+        f"full width (d {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv} kv heads "
+        f"of {cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.moe_experts} experts, "
+        f"window {cfg.window}, vocab {cfg.vocab}): the {step} step holds "
+        f"~{cut['copies']} fp32 copies of the "
+        f"{transformer.param_count(cfg):,} parameters; GB by depth "
+        f"{json.dumps(gb)}, limit {cut['limit_gb']:.1f} of "
+        f"{cut['card_gb']:.1f} GB ({card})")
 
-    def hook(step, stats):
-        if step == steps - 2:
-            prof["session"] = profile_open()
-        elif step == steps - 1:
-            prof["busy"] = profile_close(prof.pop("session"), top=prof["top"])
 
-    rec, res = counted_training(
-        f"{cfg.name} training", lambda: loop.run(
-            loop.LoopConfig(total_steps=steps, ckpt_path=path), opt_cfg,
-            loss_fn, init, stream, device=dev, hooks=[hook]), path, dev, mods)
-    rec.update(grad_norm=[h["grad_norm"] for h in res["history"]],
-               last_step_busy=prof["busy"], last_step_top_ops=prof["top"])
-    params = res["params"]
-    del res
+def adamw_steps(cfg, loss_fn, init, stream, dev, mods) -> tuple:
+    """``ADAMW_STEPS`` AdamW steps of ``make_train_step`` with
+    ``launch.train.setup``'s optimizer settings, from ``init()``'s
+    parameters (held here alone, so each step frees what it replaces), one
+    batch of ``stream`` a step.  The kernel counts are set to 0 just
+    before the first step and read just after the last; each step is
+    synchronised and timed with its loss read back, the last one under
+    ``torch.profiler``; the peak device memory is read.  Returns the record
+    and the trained parameters."""
+    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
+                                                make_train_step)
+
+    steps = ADAMW_STEPS
+    train_step = make_train_step(loss_fn, AdamWConfig(
+        total_steps=steps, warmup_steps=max(1, steps // 10)))
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in stream.next().items()} for _ in range(steps)]
+    params = init()
+    opt_state = adamw_init(params)
+    gc.collect()
+    reset_counts(*mods)
+    torch.cuda.reset_peak_memory_stats(dev)
+    rec = {"step_s": [], "loss": [], "grad_norm": [], "last_step_top_ops": []}
+    t0 = time.perf_counter()
+    for i, batch in enumerate(batches):
+        session = profile_open() if i == steps - 1 else None
+        t = time.perf_counter()
+        params, opt_state, stats = train_step(params, opt_state, batch)
+        rec["loss"].append(float(stats["loss"]))
+        sync(dev)
+        rec["step_s"].append(time.perf_counter() - t)
+        rec["grad_norm"].append(float(stats["grad_norm"]))
+        if session is not None:
+            rec["last_step_busy"] = profile_close(
+                session, top=rec["last_step_top_ops"])
+    rec.update(s=time.perf_counter() - t0,
+               peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               launches={m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES
+                         for m in mods},
+               by_body={m.__name__.rsplit(".", 1)[-1]: dict(m.LAUNCHES_BY_BODY)
+                        for m in mods if hasattr(m, "LAUNCHES_BY_BODY")})
+    del opt_state, batches
     torch.cuda.empty_cache()
+    if not np.all(np.isfinite(rec["loss"])):
+        raise AssertionError(f"{cfg.name} AdamW steps: {json.dumps(rec)}")
     return rec, params
 
 
 def drive_moe_training(dev, card: str) -> dict:
     """Phase 17: the MoE archs' training at full width (``MOE_TRAIN_RUNS``,
-    depth and batch cuts labelled): mixtral-8x7b's AdamW steps through
-    ``loop.run`` with ``launch.train._lm_setup``'s stream, loss and
-    initialiser, as ``launch.train.main`` drives them; llama4-scout's loss
-    and gradients (its AdamW step holds 8 copies at any depth), profiled
-    once.  The kernel counts are set to 0 just before each arch's run and
-    read just after: K3's wgmma body twice a layer a step (each layer and
-    its recompute), its SIMT body, K4 and K5 never.  Each arch's step is
-    held against the plain route at matched routing, and mixtral's once
-    more at ``MOE_WINDOW_STEP``.  ``launches`` sums K3's by body."""
+    depth and batch cuts labelled): mixtral-8x7b's AdamW steps
+    (``adamw_steps``) with ``launch.train._lm_setup``'s stream, loss and
+    initialiser, as ``launch.train.main`` builds them (the loop and its
+    checkpoint run in phase 14); llama4-scout's loss and gradients (its
+    AdamW step holds 8 copies at any depth), profiled once.  The kernel
+    counts are set to 0 just before each arch's run and read just after:
+    K3's wgmma body twice a layer a step (each layer and its recompute),
+    its SIMT body, K4 and K5 never.  Each arch's step is held against the
+    plain route at matched routing, and mixtral's once more at
+    ``MOE_WINDOW_STEP``.  ``launches`` sums K3's by body."""
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import cin, flash_attention, ops, ref, segment_matmul
     from repro_torch.launch import train
@@ -4852,102 +4949,232 @@ def drive_moe_training(dev, card: str) -> dict:
     t_phase = time.perf_counter()
     mods = (flash_attention, segment_matmul, cin)
     out = {"archs": {}, "launches": {"wgmma": 0, "simt": 0}}
-    work = tempfile.mkdtemp(prefix="chip_smoke_moe_train_")
-    try:
-        for arch_id, step, copies, b, s in MOE_TRAIN_RUNS:
-            t_arch = time.perf_counter()
-            cfg, cut = moe_depth_cut(arch_id, copies, dev)
-            n_full = model_cfg(arch_id).n_layers
-            adamw_gb = 32e-9 * transformer.param_count(cfg)
-            rec = {"reduced": f"depth {n_full} -> {cfg.n_layers} layers (full "
-                              f"width); train_4k [256, 4096] cut to [{b}, {s}]",
-                   "layers": cfg.n_layers, "cut": cut,
-                   "cap": layers.moe_capacity(s, cfg.moe_experts,
-                                              cfg.moe_top_k, cfg.moe_capacity),
-                   "params": transformer.param_count(cfg),
-                   "adamw_8p_gb": adamw_gb}
-            log(f"{arch_id}: DEPTH CUT {n_full} -> {cfg.n_layers} layers at "
-                f"full width (d {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv} kv "
-                f"heads of {cfg.head_dim}, {cfg.moe_experts} experts top-"
-                f"{cfg.moe_top_k} of d_ff {cfg.d_ff}, window {cfg.window}, "
-                f"vocab {cfg.vocab}): the {step} step holds ~{copies} fp32 "
-                f"copies of the {rec['params']:,} parameters; GB by depth "
-                f"{json.dumps({d: round(g, 2) for d, g in cut['gb_by_depth'].items()})}"
-                f", limit {cut['limit_gb']:.1f} of {cut['card_gb']:.1f} GB "
-                f"({card})")
-            log(f"{arch_id}: BATCH CUT train_4k [256, 4096] -> [{b}, {s}]; "
-                f"capacity {rec['cap']} slots an expert a row")
-            stream, loss_fn, init = train._lm_setup(cfg, b, s, 0, str(dev))
-            if step == "adamw":
-                rec["train"], params = moe_train_loop(cfg, stream, loss_fn,
-                                                      init, work, dev, mods)
-                got, loss0 = rec["train"], rec["train"]["loss"][0]
-                want = {"wgmma": 2 * cfg.n_layers * MOE_TRAIN_STEPS, "simt": 0}
-                log(f"phase 17 {arch_id} loop.run ({card}): "
-                    f"{json.dumps(rec['train'])}")
-            else:
-                log(f"{arch_id}: no AdamW step: adamw_update returns new "
-                    f"params, mu and nu beside the old, ~8 fp32 copies = "
-                    f"{adamw_gb:.1f} GB at depth {cfg.n_layers}, over the "
-                    f"card's {cut['card_gb']:.1f} GB; loss and gradients only")
-                params = init()
-                reset_counts(*mods)
-                got, want = None, {"wgmma": 2 * cfg.n_layers, "simt": 0}
-            batch = {k: torch.as_tensor(v, device=dev)
-                     for k, v in stream.next().items()}
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    for arch_id, step, copies, b, s in MOE_TRAIN_RUNS:
+        t_arch = time.perf_counter()
+        cfg, cut = depth_cut(arch_id, copies, card_bytes)
+        n_full = model_cfg(arch_id).n_layers
+        adamw_gb = 4e-9 * ADAMW_COPIES * transformer.param_count(cfg)
+        rec = {"reduced": f"depth {n_full} -> {cfg.n_layers} layers (full "
+                          f"width); train_4k [256, 4096] cut to [{b}, {s}]",
+               "layers": cfg.n_layers, "cut": cut,
+               "cap": layers.moe_capacity(s, cfg.moe_experts,
+                                          cfg.moe_top_k, cfg.moe_capacity),
+               "params": transformer.param_count(cfg),
+               "adamw_8p_gb": adamw_gb}
+        log_depth_cut(arch_id, cfg, cut, step, card)
+        log(f"{arch_id}: BATCH CUT train_4k [256, 4096] -> [{b}, {s}]; "
+            f"capacity {rec['cap']} slots an expert a row")
+        stream, loss_fn, init = train._lm_setup(cfg, b, s, 0, str(dev))
+        if step == "adamw":
+            rec["train"], params = adamw_steps(cfg, loss_fn, init, stream,
+                                               dev, mods)
+            got, loss0 = rec["train"], rec["train"]["loss"][0]
+            want = {"wgmma": 2 * cfg.n_layers * ADAMW_STEPS, "simt": 0}
+            log(f"phase 17 {arch_id} AdamW steps ({card}): "
+                f"{json.dumps(rec['train'])}")
+        else:
+            log(f"{arch_id}: no AdamW step: adamw_update returns new "
+                f"params, mu and nu beside the old, ~{ADAMW_COPIES} fp32 "
+                f"copies = {adamw_gb:.1f} GB at depth {cfg.n_layers}, over "
+                f"the card's {cut['card_gb']:.1f} GB; loss and gradients only")
+            params = init()
+            reset_counts(*mods)
+            got, want = None, {"wgmma": 2 * cfg.n_layers, "simt": 0}
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in stream.next().items()}
+        t = time.perf_counter()
+        vs = lm_step_vs_plain(ops, ref, flash_attention, loss_fn, params,
+                               batch, f"{arch_id} step")
+        vs["s"] = time.perf_counter() - t
+        rec["vs_plain"] = vs
+        if got is None:
+            got = {"by_body": {"flash_attention": vs["launches"]},
+                   "launches": {"segment_matmul": segment_matmul.LAUNCHES,
+                                "cin": cin.LAUNCHES}}
+            loss0 = vs["loss"]
+            rec["grad_s"], rec["grad_peak_gb"] = \
+                vs["kernel_s"], vs["kernel_peak_gb"]
+            prof_top = []
+            rec["grad_busy"] = profiled(
+                lambda: opt.value_and_grad(loss_fn, params, batch),
+                top=prof_top)
+            rec["grad_top_ops"] = prof_top
+        if got["by_body"]["flash_attention"] != want or \
+                got["launches"]["segment_matmul"] or got["launches"]["cin"]:
+            raise AssertionError(f"{arch_id} training launched "
+                                 f"{got['launches']} by body "
+                                 f"{got['by_body']}, expected {want}")
+        if abs(loss0 - np.log(cfg.vocab)) > FIRST_LOSS_GAP:
+            raise AssertionError(f"{arch_id}: first loss {loss0}, expected "
+                                 f"within {FIRST_LOSS_GAP} of ln "
+                                 f"{cfg.vocab}")
+        rec["launches"] = got["by_body"]["flash_attention"]
+        for body, n in rec["launches"].items():
+            out["launches"][body] += n
+        log(f"{arch_id} step vs plain at matched routing [{b}, {s}] "
+            f"({card}; loss rtol {LM_STEP_LOSS_RTOL}, leaves "
+            f"{LM_STEP_GRAD_FRO} relative Frobenius): {json.dumps(vs)}")
+        del batch
+        if step == "adamw":
+            wb, ws = MOE_WINDOW_STEP
+            batch = {k: torch.as_tensor(v, device=dev) for k, v in
+                     TokenStream(cfg.vocab, wb, ws, seed=1).next().items()}
+            loss_w = lambda p, bb: transformer.loss_fn(  # noqa: E731
+                cfg, p, bb, xent_chunk=min(512, ws))
             t = time.perf_counter()
-            vs = lm_step_vs_plain(ops, ref, flash_attention, loss_fn, params,
-                                   batch, f"{arch_id} step")
-            vs["s"] = time.perf_counter() - t
-            rec["vs_plain"] = vs
-            if got is None:
-                got = {"by_body": {"flash_attention": vs["launches"]},
-                       "launches": {"segment_matmul": segment_matmul.LAUNCHES,
-                                    "cin": cin.LAUNCHES}}
-                loss0 = vs["loss"]
-                rec["grad_s"], rec["grad_peak_gb"] = \
-                    vs["kernel_s"], vs["kernel_peak_gb"]
-                prof_top = []
-                rec["grad_busy"] = profiled(
-                    lambda: opt.value_and_grad(loss_fn, params, batch),
-                    top=prof_top)
-                rec["grad_top_ops"] = prof_top
-            if got["by_body"]["flash_attention"] != want or \
-                    got["launches"]["segment_matmul"] or got["launches"]["cin"]:
-                raise AssertionError(f"{arch_id} training launched "
-                                     f"{got['launches']} by body "
-                                     f"{got['by_body']}, expected {want}")
-            if abs(loss0 - np.log(cfg.vocab)) > MOE_FIRST_LOSS_GAP:
-                raise AssertionError(f"{arch_id}: first loss {loss0}, expected "
-                                     f"within {MOE_FIRST_LOSS_GAP} of ln "
-                                     f"{cfg.vocab}")
-            rec["launches"] = got["by_body"]["flash_attention"]
-            for body, n in rec["launches"].items():
-                out["launches"][body] += n
-            log(f"{arch_id} step vs plain at matched routing [{b}, {s}] "
-                f"({card}; loss rtol {LM_STEP_LOSS_RTOL}, leaves "
-                f"{LM_STEP_GRAD_FRO} relative Frobenius): {json.dumps(vs)}")
+            vw = lm_step_vs_plain(ops, ref, flash_attention, loss_w,
+                                   params, batch, f"{arch_id} [{wb}, {ws}]")
+            vw["s"] = time.perf_counter() - t
+            rec["window_step"] = vw
+            log(f"{arch_id} step vs plain at matched routing [{wb}, {ws}] "
+                f"(window {cfg.window} masks) ({card}): {json.dumps(vw)}")
             del batch
-            if step == "adamw":
-                wb, ws = MOE_WINDOW_STEP
-                batch = {k: torch.as_tensor(v, device=dev) for k, v in
-                         TokenStream(cfg.vocab, wb, ws, seed=1).next().items()}
-                loss_w = lambda p, bb: transformer.loss_fn(  # noqa: E731
-                    cfg, p, bb, xent_chunk=min(512, ws))
-                t = time.perf_counter()
-                vw = lm_step_vs_plain(ops, ref, flash_attention, loss_w,
-                                       params, batch, f"{arch_id} [{wb}, {ws}]")
-                vw["s"] = time.perf_counter() - t
-                rec["window_step"] = vw
-                log(f"{arch_id} step vs plain at matched routing [{wb}, {ws}] "
-                    f"(window {cfg.window} masks) ({card}): {json.dumps(vw)}")
-                del batch
-            del params, stream, loss_fn, init
-            torch.cuda.empty_cache()
-            rec["s"] = time.perf_counter() - t_arch
-            out["archs"][arch_id] = rec
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+        del params, stream, loss_fn, init
+        torch.cuda.empty_cache()
+        rec["s"] = time.perf_counter() - t_arch
+        out["archs"][arch_id] = rec
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 18: the dense LM family at full width on the card
+# ---------------------------------------------------------------------------
+
+def drive_dense_arch(ops, ref, fa, arch_id: str, batch: int, seq: int, dev,
+                     card: str, mods) -> dict:
+    """One dense arch from one seeded initialisation on the card.  At full
+    width and depth (the parameter count checked): two timed prefill calls
+    of ``[batch, seq]`` and one profiled (K3's wgmma body once a layer a
+    call, its SIMT body never), the logits against the plain route, and
+    ``DecodeEngine`` serving ``SERVE_SLOTS`` requests of ``SERVE_PROMPT +
+    SERVE_NEW`` tokens with phase 10's consistency gates; the kernel counts set to 0 just before and read just
+    after (``launches["serving"]``).  Then the first layers of the same
+    parameters at the depth cut (``depth_cut``, ``ADAMW_COPIES``): the
+    first step's loss and gradients on ``[DENSE_TRAIN_BATCH,
+    DENSE_TRAIN_SEQ]`` against the plain route (``lm_step_vs_plain``),
+    then ``adamw_steps`` from the same parameters and batches
+    (``launches["training"]``: K3's wgmma body twice a layer a step)."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.models import transformer
+
+    cfg = model_cfg(arch_id)
+    out = {"launches": {}}
+    t = time.perf_counter()
+    params = transformer.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    sync(dev)
+    n_total = check_param_count(cfg, params, DENSE_PARAMS[arch_id])
+    out["params"] = transformer.param_count(cfg)
+    log(f"{arch_id}: full width and depth, {cfg.n_layers} layers, d "
+        f"{cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv} kv heads of "
+        f"{cfg.head_dim} (a group of {cfg.n_heads // cfg.n_kv}), {cfg.norm}, "
+        f"{cfg.mlp} d_ff {cfg.d_ff}, vocab {cfg.vocab}, tied embeddings "
+        f"{cfg.tie_embeddings}: param_count {out['params']:,} (+ "
+        f"{uncounted_params(cfg):,} norm elements it leaves out = "
+        f"{n_total:,}; {4e-9 * n_total:.1f} GB fp32), init "
+        f"{time.perf_counter() - t:.1f} s ({card})")
+    tokens = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (batch, seq))).to(dev)
+
+    reset_counts(*mods)
+    for i in range(2):
+        logits, dt = lm_prefill(fa, cfg, params, tokens)
+        log(f"{arch_id} prefill [{batch}, {seq}] call {i}: {dt:.3f} s, "
+            f"{batch * seq / dt:,.0f} tokens/s, K3's wgmma body launched "
+            f"{cfg.n_layers} times, its SIMT body never")
+        out.setdefault("prefill_s", []).append(dt)
+    out["prefill_tok_s"] = batch * seq / min(out["prefill_s"])
+    top = []
+    out["prefill_busy"] = profiled(
+        lambda: lm_prefill(fa, cfg, params, tokens), top=top)
+    out["prefill_top_ops"] = top
+    out["vs_plain"] = prefill_vs_plain(ops, cfg, params, tokens, logits)
+    del tokens, logits
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    prompts = np.random.default_rng(2).integers(
+        1, cfg.vocab, (SERVE_SLOTS, SERVE_PROMPT))
+    out["serve"] = serve_dense(fa, cfg, params, prompts, SERVE_NEW,
+                               SERVE_MAX_SEQ, dev)
+    out["serve"]["s"] = time.perf_counter() - t
+    out["launches"]["serving"] = dict(fa.LAUNCHES_BY_BODY)
+    if any(m.LAUNCHES for m in mods if m is not fa):
+        raise AssertionError(f"{arch_id} serving launched "
+                             f"{[(m.__name__, m.LAUNCHES) for m in mods]}")
+
+    t = time.perf_counter()
+    cut_cfg, cut = depth_cut(arch_id, ADAMW_COPIES,
+                             torch.cuda.get_device_properties(dev).total_memory)
+    b, s = DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ
+    out["train"] = {"reduced": f"depth {cfg.n_layers} -> {cut_cfg.n_layers} "
+                               f"layers (full width); train_4k [256, 4096] "
+                               f"cut to [{b}, {s}]",
+                    "layers": cut_cfg.n_layers, "cut": cut,
+                    "params": transformer.param_count(cut_cfg)}
+    log_depth_cut(arch_id, cut_cfg, cut, "AdamW", card)
+    held = {"params": dict(params, layers=params["layers"][:cut_cfg.n_layers])}
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    loss_fn = lambda p, bb: transformer.loss_fn(  # noqa: E731
+        cut_cfg, p, bb, xent_chunk=min(512, s))
+    first = {k: torch.as_tensor(v, device=dev)
+             for k, v in TokenStream(cfg.vocab, b, s, seed=0).next().items()}
+    vs = lm_step_vs_plain(ops, ref, fa, loss_fn, held["params"], first,
+                          f"{arch_id} step")
+    out["train"]["vs_plain"] = vs
+    log(f"{arch_id} first step vs plain [{b}, {s}] ({card}; loss rtol "
+        f"{LM_STEP_LOSS_RTOL}, leaves {LM_STEP_GRAD_FRO} relative Frobenius): "
+        f"{json.dumps(vs)}")
+    del first
+    rec, params = adamw_steps(cut_cfg, loss_fn, lambda: held.pop("params"),
+                              TokenStream(cfg.vocab, b, s, seed=0), dev, mods)
+    out["train"]["steps"] = rec
+    want = {"wgmma": 2 * cut_cfg.n_layers * ADAMW_STEPS, "simt": 0}
+    if rec["by_body"]["flash_attention"] != want or \
+            any(n for name, n in rec["launches"].items()
+                if name != "flash_attention"):
+        raise AssertionError(f"{arch_id} AdamW steps launched "
+                             f"{rec['launches']} by body {rec['by_body']}, "
+                             f"expected {want}")
+    # the first step's loss is the checked one (same parameters and batch),
+    # and on uniform random targets no model's expected loss is below
+    # ln(vocab) (Jensen); the batch mean's spread is ~1e-2
+    if abs(rec["loss"][0] - vs["loss"]) > FIRST_STEP_RTOL * vs["loss"] or \
+            rec["loss"][0] < np.log(cfg.vocab) - FIRST_LOSS_FLOOR:
+        raise AssertionError(f"{arch_id}: first step's loss {rec['loss'][0]},"
+                             f" the checked step's {vs['loss']}, ln "
+                             f"{cfg.vocab} = {np.log(cfg.vocab)}")
+    out["launches"]["training"] = rec["by_body"]["flash_attention"]
+    out["train"]["s"] = time.perf_counter() - t
+    log(f"phase 18 {arch_id} AdamW steps at depth {cut_cfg.n_layers} "
+        f"({card}): {json.dumps(rec)}; the first step's loss "
+        f"{rec['loss'][0]} against {vs['loss']} in the check before it")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def drive_dense_family(dev, card: str) -> dict:
+    """Phase 18: each arch of ``DENSE_RUNS`` through ``drive_dense_arch``,
+    built, driven and freed in turn, then K3 at starcoder2-7b's layout
+    (``DENSE_K3_LAYOUTS``) against its plain version and timed beside its
+    bound and ``scaled_dot_product_attention``."""
+    from repro_torch.kernels import cin, flash_attention, ops, ref, segment_matmul
+
+    t_phase = time.perf_counter()
+    mods = (flash_attention, segment_matmul, cin)
+    out = {"archs": {}}
+    for arch_id, batch, seq in DENSE_RUNS:
+        t = time.perf_counter()
+        res = drive_dense_arch(ops, ref, flash_attention, arch_id, batch,
+                               seq, dev, card, mods)
+        res["s"] = time.perf_counter() - t
+        out["archs"][arch_id] = res
+        log(f"phase 18 {arch_id} ({card}): {json.dumps(res)}")
+    out["k3"] = time_k3_layouts(ops, ref, flash_attention, dev,
+                                DENSE_K3_LAYOUTS)
     out["phase_s"] = time.perf_counter() - t_phase
     return out
 
@@ -5079,24 +5306,22 @@ def main() -> int:
 
     reset_counts(peel_wave, bitmap_support, flash_attention)
     t = time.perf_counter()
-    lm = drive_lm_path(flash_attention, dev)
+    lm = drive_lm_path(ops, flash_attention, dev)
     wgmma_paths = {f"{LM_ARCH} prefill":
                    flash_attention.LAUNCHES_BY_BODY["wgmma"]}
     log(f"LM path: {time.perf_counter() - t:.1f} s, launches "
         f"{flash_attention.LAUNCHES_BY_BODY}; {json.dumps(lm)}")
 
-    # gemma-2b's prefill (the wgmma body at head dim 256), then its smoke
-    # config's (the SIMT body), each path with the counts set to 0 first
-    simt_paths = {}
-    for smoke, paths in ((False, wgmma_paths), (True, simt_paths)):
-        reset_counts(peel_wave, bitmap_support, flash_attention)
-        t = time.perf_counter()
-        res = drive_gemma_prefill(ops, flash_attention, dev, smoke)
-        name = GEMMA_ARCH + (" smoke config" if smoke else "") + " prefill"
-        paths[name] = flash_attention.LAUNCHES_BY_BODY[
-            "simt" if smoke else "wgmma"]
-        log(f"{name} path: {time.perf_counter() - t:.1f} s, launches "
-            f"{flash_attention.LAUNCHES_BY_BODY}; {json.dumps(res)}")
+    # the SIMT body's path: gemma-2b's smoke config (gemma-2b at full width
+    # runs in phase 18), with the counts set to 0 first
+    reset_counts(peel_wave, bitmap_support, flash_attention)
+    t = time.perf_counter()
+    res = drive_simt_prefill(ops, flash_attention, dev)
+    simt_paths = {f"{GEMMA_ARCH} smoke config prefill":
+                  flash_attention.LAUNCHES_BY_BODY["simt"]}
+    log(f"{GEMMA_ARCH} smoke config prefill path: "
+        f"{time.perf_counter() - t:.1f} s, launches "
+        f"{flash_attention.LAUNCHES_BY_BODY}; {json.dumps(res)}")
     launches["flash_attention_wgmma"] = sum(wgmma_paths.values())
     launches["flash_attention_simt"] = sum(simt_paths.values())
     gm = k3_time["gemma"]
@@ -5212,6 +5437,26 @@ def main() -> int:
                              f"{mt['launches']['simt']} times")
     log(f"MoE training ({card}): {mt['phase_s']:.1f} s; launches "
         f"{mt['launches']}")
+
+    # the dense LM family at full width (K3's wgmma body on starcoder2-7b's
+    # and gemma-2b's prefills and AdamW steps); the counts are set to 0
+    # inside, just before each arch's serving and its steps, and read just
+    # after them
+    dn = drive_dense_family(dev, card)
+    dense_paths = {}
+    for arch_id, r in dn["archs"].items():
+        for path, by in r["launches"].items():
+            name = f"{arch_id} {path}" + (
+                f" (depth {r['train']['layers']})" if path == "training"
+                else "")
+            if by["simt"]:
+                raise AssertionError(f"{name} launched K3's SIMT body "
+                                     f"{by['simt']} times")
+            dense_paths[name] = by["wgmma"]
+    wgmma_paths.update(dense_paths)
+    launches["flash_attention_wgmma"] += sum(dense_paths.values())
+    log(f"dense LM family ({card}): {dn['phase_s']:.1f} s; K3's wgmma body "
+        f"launched {dense_paths}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -5278,13 +5523,14 @@ def main() -> int:
                 "bound_by": k3_time[key]["bound"][1],
                 "library_ms": k3_time[key]["sdpa"]}
                 for key in ("flat", "gqa", "gemma")}})
-    for key, r in moe["k3"]["layouts"].items():      # the MoE layouts
-        kernels[2]["layouts"][r["layout"]] = {
-            "ms": r["ms"], "plain_ms": r["plain_ms"],
-            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "library_ms": r["sdpa_ms"]}
-    kernels[2]["max_abs_err"] = max([kernels[2]["max_abs_err"]] + [
-        e for name, e in moe["k3"]["errs"].items() if "SDPA" not in name])
+    for k3 in (moe["k3"], dn["k3"]):       # the MoE and dense model layouts
+        for key, r in k3["layouts"].items():
+            kernels[2]["layouts"][r["layout"]] = {
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": r["sdpa_ms"]}
+        kernels[2]["max_abs_err"] = max([kernels[2]["max_abs_err"]] + [
+            e for name, e in k3["errs"].items() if "SDPA" not in name])
     # K4: the recsys path's entry (declared sorted, the mean fused) at
     # bulk; the sum and sorting entries and the p99 shape under "entries";
     # the training path's rows entry under "training_rows_entry"
@@ -5343,7 +5589,8 @@ def main() -> int:
         f"{lt['phase_s']:.1f} s, phase 15 {moe['phase_s']:.1f} s, phase 16 "
         f"{plans['phase_s']:.1f} s (the dry-run {plans['dryrun']['wall_s']:.1f}"
         f" s beside phases 13-15, waited for {plans['dryrun']['waited_s']:.1f}"
-        f" s), phase 17 {mt['phase_s']:.1f} s")
+        f" s), phase 17 {mt['phase_s']:.1f} s, phase 18 "
+        f"{dn['phase_s']:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

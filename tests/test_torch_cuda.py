@@ -11,8 +11,10 @@ family's differentiable segment sum (K4 forward, a plain gather backward)
 and one training step of each GNN smoke config against the plain route;
 the LM and recsys training entries (K3, K4's gathered entry and K5 as
 autograd Functions with plain backwards) and one training step of the
-qwen3 and xDeepFM smoke configs against the plain route; the MoE layer of
-both MoE smoke configs on the card against the CPU at matched routing, and
+qwen3 and xDeepFM smoke configs against the plain route, and one of the
+starcoder2 smoke config against the CPU; K3 at starcoder2-7b's GQA group
+of 9; the MoE layer of both MoE smoke configs on the card against the CPU
+at matched routing, and
 the int8 KV cache's values and scales on the card equal to the CPU's; the
 expert block's mesh branches and their gradients against mesh=None, and
 one mixtral smoke training step on the card against the CPU at matched
@@ -576,6 +578,26 @@ def test_wgmma_body_reads_kv_heads_in_place(cuda, hq, hkv, dh):
                                atol=1e-3)
 
 
+@pytest.mark.parametrize("s", [300, 4096])
+def test_wgmma_body_at_a_gqa_group_of_9(cuda, s):
+    """starcoder2-7b's heads, 36 q over 4 KV heads of 128 (query head ``h``
+    reads KV head ``h // 9``), bf16 causal: the wgmma body against the
+    plain version, at a ragged length and at the prefill's 4,096."""
+    rng = np.random.default_rng(s)
+    q = _heads(rng, (1, s, 36, 128), torch.bfloat16, cuda)
+    k = _heads(rng, (1, s, 4, 128), torch.bfloat16, cuda)
+    v = _asym_v(rng, (1, s, 4, 128), cuda)
+    n = dict(flash_attention.LAUNCHES_BY_BODY)
+    got = ops.flash_attention_heads(q, k, v)
+    exp = ref.chunked_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+        window=None).transpose(1, 2)
+    assert flash_attention.LAUNCHES_BY_BODY == {
+        "wgmma": n["wgmma"] + 1, "simt": n["simt"]}
+    torch.testing.assert_close(got.float(), exp.float(), rtol=1.6e-2,
+                               atol=1e-3)
+
+
 @pytest.mark.parametrize("dh,window", [(64, None), (128, 100), (256, None)])
 def test_the_two_bodies_agree_on_bf16(cuda, dh, window):
     """The same bf16 input through the wgmma body and, asked for by name,
@@ -1093,6 +1115,47 @@ def test_lm_train_step_on_card_equals_plain_route(cuda):
     for g, p in zip(tree_leaves(grads), tree_leaves(p_grads)):
         assert float(torch.linalg.vector_norm(g - p)) <= \
             5e-2 * float(torch.linalg.vector_norm(p))
+
+
+def test_untied_layernorm_train_step_on_card_equals_cpu(cuda):
+    """starcoder2's smoke config (LayerNorm biases, GELU, untied
+    embeddings) at ``[2, 512]``, the same parameters on the card and the
+    CPU: the loss and every gradient leaf on the card (K3, the SIMT body at
+    head dim 16, twice a layer) within 5e-3 relative and 5e-2 relative
+    Frobenius error of the CPU's plain route; then one ``make_train_step``
+    on each device: its loss within 5e-3 of the CPU's, and each new
+    parameter within twice the step's learning rate of the CPU's (AdamW's
+    first step moves an element by ``lr · g / (|g| + eps)`` plus the same
+    decay on both, so a gradient of another sign moves it at most 2 lr)."""
+    cfg = get_config("starcoder2-7b").smoke
+    params = transformer.init_params(cfg, torch.Generator().manual_seed(0))
+    card = transformer.params_from_numpy(
+        cfg, transformer.params_to_numpy(params), device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 513)).astype(np.int32))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    card_batch = {k: v.to(cuda) for k, v in batch.items()}
+    loss_fn = lambda p, b: transformer.loss_fn(cfg, p, b)
+    c_loss, c_grads = value_and_grad(loss_fn, params, batch)
+    n = flash_attention.LAUNCHES
+    loss, grads = value_and_grad(loss_fn, card, card_batch)
+    assert flash_attention.LAUNCHES == n + 2 * cfg.n_layers
+    assert abs(float(loss) - float(c_loss)) <= 5e-3 * abs(float(c_loss))
+    assert len(tree_leaves(grads)) == len(tree_leaves(c_grads))
+    for g, c in zip(tree_leaves(grads), tree_leaves(c_grads)):
+        assert float(torch.linalg.vector_norm(g.cpu() - c)) <= \
+            5e-2 * float(torch.linalg.vector_norm(c))
+    step = make_train_step(loss_fn, AdamWConfig(total_steps=3,
+                                                warmup_steps=1))
+    new_c, _, st_c = step(params, adamw_init(params), batch)
+    new, _, st = step(card, adamw_init(card), card_batch)
+    assert abs(float(st["loss"]) - float(st_c["loss"])) <= \
+        5e-3 * abs(float(st_c["loss"]))
+    lr = float(st_c["lr"])
+    assert lr > 0 and float(st["lr"]) == lr
+    for a, c in zip(tree_leaves(new), tree_leaves(new_c)):
+        assert bool(torch.isfinite(a).all())
+        assert float((a.cpu() - c).abs().max()) <= 2 * lr * (1 + 1e-3)
 
 
 def test_recsys_train_step_on_card_equals_plain_route(cuda):

@@ -137,10 +137,10 @@ def test_swa_ring_buffer_engine():
     assert all(0 <= t < cfg.vocab for t in done[0].out)
 
 
-def test_greedy_tokens_equal_reference_engine():
+def _engines_agree(arch):
     """Both engines, the same carried parameters and requests (two
     generations over two slots), greedy at seed 0: identical tokens."""
-    cfg = jget("qwen3-0.6b").smoke
+    cfg = jget(arch).smoke
     jp, tp = _carried(cfg, seed=0)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(1, cfg.vocab, rng.integers(2, 6)).tolist()
@@ -153,6 +153,66 @@ def test_greedy_tokens_equal_reference_engine():
     jout = {r.rid: r.out for r in jeng.run()}
     tout = {r.rid: r.out for r in teng.run()}
     assert len(tout) == 4 and tout == jout
+
+
+def test_greedy_tokens_equal_reference_engine():
+    """qwen3-smoke's engine against the reference's (``_engines_agree``)."""
+    _engines_agree("qwen3-0.6b")
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "gemma-2b"])
+def test_dense_engine_tokens_equal_reference_engine(arch):
+    """The same for starcoder2-smoke (LayerNorm, GELU, untied, a GQA group
+    of 3) and gemma-smoke (MQA, GeGLU, tied): identical greedy tokens."""
+    _engines_agree(arch)
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its ``main`` is not run)."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("arch", DENSE + MOE)
+def test_chip_smoke_param_check_counts_every_leaf(arch):
+    """``chip_smoke.check_param_count`` on each smoke config: every leaf's
+    elements less ``uncounted_params`` (qk-norm scales, the final norm,
+    LayerNorm biases) equal the reference's ``param_count``; starcoder2's
+    2 x 2 layer norms and final norm leave 6 x 96 elements out."""
+    smoke = _chip_smoke()
+    cfg = get_config(arch).smoke
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0))
+    n = smoke.check_param_count(cfg, params, jt.param_count(jget(arch).smoke))
+    assert n - smoke.uncounted_params(cfg) == tt.param_count(cfg)
+    if arch == "starcoder2-7b":
+        assert smoke.uncounted_params(cfg) == 6 * cfg.d_model == 576
+    with pytest.raises(AssertionError):
+        smoke.check_param_count(cfg, params, tt.param_count(cfg) + 1)
+
+
+@pytest.mark.parametrize("arch,copies,depth", [
+    ("mixtral-8x7b", 8, 1), ("llama4-scout-17b-a16e", 3, 1),
+    ("starcoder2-7b", 8, 7), ("gemma-2b", 8, 14)])
+def test_chip_smoke_depth_cut(arch, copies, depth):
+    """``chip_smoke.depth_cut`` at an H100's 85.0 GB: the deepest depth whose
+    ``copies`` fp32 copies of the parameters fit in 80% of it, the full
+    width kept, and the reckoning up to the first depth that does not."""
+    smoke = _chip_smoke()
+    cfg, cut = smoke.depth_cut(arch, copies, 85_000_000_000)
+    full = get_config(arch).model
+    assert cfg.n_layers == depth
+    assert dataclasses.replace(cfg, n_layers=full.n_layers) == full
+    assert cut["gb_by_depth"][depth] <= cut["limit_gb"] == 68.0
+    assert cut["gb_by_depth"][depth + 1] > 68.0
+    assert cut["gb_by_depth"][depth] == pytest.approx(
+        4e-9 * copies * tt.param_count(cfg))
 
 
 def test_sampling_draws_from_the_generator():
