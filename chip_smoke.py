@@ -172,11 +172,13 @@
     ``main`` (bitwise), and gcn-cora once more as a subprocess whose path
     holds ``repro_torch`` alone.  The launch counts are read there.  Then
     a step's loss and gradients through K4 against ``use_kernels(False)``
-    (loss within 1e-5 of itself, each gradient leaf within 1e-4 of its
-    largest magnitude), with K4's rows entry against its plain version on
-    every input the step handed it: each arch at full config on the
-    launcher's first batch, gin-tu's graph readout on the molecule cell,
-    and the truss-filtered step on the last round's batch, whose K4
+    (``step_vs_plain``: loss within 1e-5 of itself, each gradient leaf
+    within 1e-4 of its largest magnitude, the plain route replaying the
+    card route's relu decisions, each decision taken apart within
+    ``RELU_TIE`` of a tie), with K4's rows entry against its plain version
+    on the CPU, which sums in K4's order, on every input the step handed
+    it: each arch at full config on the launcher's first batch, and the
+    truss-filtered step on the last round's batch, whose K4
     inputs ([3,922,456, 1], [.., 16], [.., 7]) are then timed in turns
     with the plain version and ``index_add_`` beside the byte bound, and
     on the community's own rows alone.
@@ -235,8 +237,8 @@
     layer, rows 0-1 against a direct ``prefill`` of those rows within
     ``LOGIT_RTOL`` of the largest |logit|), ``xdeepfm/serve_bulk`` (K4
     once, K5 three times) and ``gcn-cora/full_graph_sm``'s train step (K4
-    three times; the batch from ``make_gnn_batch``, padded to the plan's
-    edge count), those two bitwise against the model's own entry point on
+    three times; the batch from ``gnn_cell_batch``, as in phase 19),
+    those two bitwise against the model's own entry point on
     the same tensors; each plan's arguments equal to its meta trace's
     shapes, dtypes and ``argument_size_in_bytes``, its outputs to the
     trace's shapes and dtypes, finite; seconds and peak memory logged.
@@ -293,12 +295,29 @@
     K3 at starcoder2-7b's layout ``[4, 4096, 36 q / 4 kv, 128]`` against
     its plain version, timed in turns with ``scaled_dot_product_attention``
     (causal, ``enable_gqa``) beside its bound.
-19. Fails unless every kernel was launched by its path (K1 and K2 on the
+19. The GNN family at its cells' global shapes (``GNN_CELLS``): all four
+    archs on ``full_graph_sm`` (gcn-cora's is phase 16's), ``molecule``
+    and ``minibatch_lg``, and gcn-cora on ``ogb_products`` (the other
+    three cut there, ``OGB_CUT``), each through ``run_plan_on_card``.
+    Each cell's batch comes from ``gnn_cell_batch``: a full graph of
+    exactly the cell's edges (``full_graph_edges``: the smallest
+    ``m_per_node`` that has them), a fanout sample placed with its
+    directed edges as they are (``minibatch_sample``,
+    ``directed_batch``), or ``make_batched_graphs``.  The two big cells'
+    graphs and batches are built by a host process started once the
+    kernels are built (``start_host_cells``) and waited for here
+    (``HOST_TIMEOUT``; a failure fails the smoke).  Each step: arguments equal to the meta
+    trace's bytes, K4 launched ``k4_per_step`` times and K3, K5 never,
+    outputs bitwise equal to the model's own step, then ``step_vs_plain``
+    with its peak memory; ``PROFILED_CELL``'s step is also profiled and
+    K4 timed on its inputs beside ``index_add_`` and the byte bound.
+20. Fails unless every kernel was launched by its path (K1 and K2 on the
     truss path, on the service path and on the sharded path, K1 on the
     cluster path and the training rounds, K4 on the recsys and training
     paths, K3 and K5 on the LM and recsys training paths too, K3 on the
     MoE prefills and the MoE training, K3, K4 and K5 on the cell plans,
-    K3 on the dense family's prefills, serving and training),
+    K3 on the dense family's prefills, serving and training, K4 on the
+    GNN cells),
     prints the smoke's total seconds, the kernels line, the card line,
     and last the device line.
 
@@ -381,6 +400,13 @@ TRAIN_OPT = {"lr": 1e-2, "total_steps": 60, "warmup_steps": 5}
 # 1e-5 of itself, each gradient leaf within 1e-4 of the leaf's largest
 # magnitude (fp32 sums in another order, over runs of up to ~2M rows)
 TRAIN_LOSS_RTOL, TRAIN_GRAD_RTOL = 1e-5, 1e-4
+# the plain route replays the card route's relu decisions (relu_tape); a
+# decision the routes take apart must be a near-tie: its pre-activation
+# within 1e-4 of its layer's largest.  K4 sums in index order and the plain
+# route in the order index_add_'s atomics land, which moves a pre-activation
+# by ~1e-6 of its layer's scale; one flipped unit of meshgraphnet's 15 blocks
+# moved a gradient leaf by 1.2e-4 of its largest on full_graph_sm (H100)
+RELU_TIE = 1e-4
 GNN_ARCHS = ("gcn-cora", "gin-tu", "meshgraphnet", "dimenet")
 # Phase 14: qwen3-0.6b and xDeepFM training through the launcher.  qwen3 at
 # full width and depth on train_4k's [256, 4096] with only the batch cut,
@@ -423,7 +449,6 @@ MOE_LAUNCH_TIMEOUT = 600
 MOE_K3_LAYOUTS = {"mixtral": (1, 8192, 32, 8, 128, 4096),   # b, s, hq, hkv, dh,
                   "llama4": (4, 4096, 40, 8, 128, None),    # window; llama4's
                   "mixtral_train": (4, 4096, 32, 8, 128, 4096)}  # training too
-MOLECULE_GRAPHS = 128            # GNN_SHAPES' molecule cell: 128 x 30 nodes
 # Phase 16: the cell plans.  The dry-run of all 36 cells on both production
 # meshes as a subprocess (started before phase 13, it runs beside phases
 # 13-15), then three plans on the card at each cell's global shape and full
@@ -474,6 +499,29 @@ DENSE_PARAMS = {"starcoder2-7b": 7_399_047_168,   # transformer.param_count
 DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ = 4, 4096
 # K3 at starcoder2-7b's layout: a GQA group of 9 (b, s, hq, hkv, dh, window)
 DENSE_K3_LAYOUTS = {"starcoder2": (4, 4096, 36, 4, 128, None)}
+# Phase 19: the GNN family at its cells' global shapes (GNN_SHAPES), each
+# cell through its plan at make_test_mesh((1, 1)) and full config: all four
+# archs on full_graph_sm (gcn-cora's runs in phase 16), molecule and
+# minibatch_lg, and gcn-cora on ogb_products.  The other three archs are cut
+# from ogb_products: gin-tu's first layer gathers [E, 100] raw features
+# (49.5 GB, twice), meshgraphnet's edge latents are [E, 128] (63.3 GB each)
+# and DimeNet needs ~990M triplets; none fits one H100 without chunking the
+# edges, which the reference does not do
+GNN_CELLS = tuple((a, c) for c in ("full_graph_sm", "molecule", "minibatch_lg")
+                  for a in GNN_ARCHS if (a, c) != ("gcn-cora", "full_graph_sm")
+                  ) + (("gcn-cora", "ogb_products"),)
+OGB_CUT = {"gin-tu": "its first layer gathers [E, 100] raw features: 49.5 GB, "
+                     "twice",
+           "meshgraphnet": "its edge latents are [E, 128]: 63.3 GB each",
+           "dimenet": "~990M triplets beside [E, 128] edge latents"}
+# the cells whose graphs a host process builds from the smoke's start (a
+# 232,965-node source graph of ~114.6M draws for minibatch_lg's sample, a
+# 2,449,029-node graph of 61,859,140 edges for ogb_products), and how long
+# after its start phase 19 waits for it
+HOST_CELLS, HOST_TIMEOUT = ("minibatch_lg", "ogb_products"), 900
+PROFILED_CELL = ("gcn-cora", "ogb_products")   # profiled, K4 timed on its inputs
+TRIANGLE_P = 0.7       # powerlaw_graph's share of new nodes closing a triangle
+TRIPLET_FANOUT = 8     # DimeNet's triplet slots an edge (the plans' 8 x E)
 K3_MIN_SEQ = 512     # layers.attention_apply takes K3 from 512 positions
 # the first AdamW step's loss against the checked step's (the same function
 # of the same tensors), and how far below ln(vocab) a mean loss over
@@ -3281,42 +3329,111 @@ def step_vs_plain(ops, ref, loss_fn, params, batch, what: str):
     ``use_kernels(False)``: the loss within ``TRAIN_LOSS_RTOL`` of itself,
     each gradient leaf within ``TRAIN_GRAD_RTOL`` of its largest magnitude.
     Then K4's rows entry against its plain version on every input the
-    step handed it.  Returns the errors and those inputs."""
+    step handed it (``plain_in_index_order``), within ``K4_TOL``; the
+    elements that differ at all are counted.  Returns the errors and those
+    inputs."""
     from repro_torch.training import optimizer as opt
 
-    with k4_inputs(ops) as seen:
+    with k4_inputs(ops) as seen, relu_tape() as tape:
         loss_k, grads_k = opt.value_and_grad(loss_fn, params, batch)
     if not seen:
         raise AssertionError(f"{what}: the step handed K4 nothing")
     ops.use_kernels(False)
     try:
-        loss_p, grads_p = opt.value_and_grad(loss_fn, params, batch)
+        with relu_tape(tape) as replayed:
+            loss_p, grads_p = opt.value_and_grad(loss_fn, params, batch)
     finally:
         ops.use_kernels(True)
+    if replayed["tie"] > RELU_TIE:
+        raise AssertionError(f"{what}: the routes take {replayed['apart']} "
+                             f"relu decisions apart, one at "
+                             f"{replayed['tie']} of its layer's largest "
+                             f"pre-activation (near-ties: {RELU_TIE})")
     loss_err = abs(float(loss_k) - float(loss_p))
     loss_error(loss_k, loss_p, what, TRAIN_LOSS_RTOL)
     grad_errs = leaf_errors(grads_k, grads_p, what, TRAIN_GRAD_RTOL, "max")
-    k4_errs = {}
+    k4_errs, unequal = {}, 0
     with torch.no_grad():
-        for msgs, ids, n in seen:
+        for (msgs, ids, n), plain in zip(seen, plain_in_index_order(ref, seen)):
             shape = f"[{msgs.shape[0]}, {msgs.shape[1]}] -> {n}"
             tol = K4_TOL[msgs.dtype]
-            err = check_close(ops.segment_matmul(msgs, ids, n),
-                              ref.segment_matmul_ref(msgs, ids, n), tol,
+            got, plain = ops.segment_matmul(msgs, ids, n), plain.to(msgs.device)
+            err = check_close(got, plain, tol,
                               f"{what}: K4 rows entry {shape}", rtol=tol)
             k4_errs[shape] = max(err, k4_errs.get(shape, 0.0))
-    return {"loss_abs_err": loss_err, "grad_rel_err": grad_errs,
-            "k4_max_abs_err": k4_errs}, seen
+            unequal += int((got != plain).sum())
+    return {"loss": float(loss_k), "plain_loss": float(loss_p),
+            "loss_abs_err": loss_err, "grad_rel_err": grad_errs,
+            "k4_max_abs_err": k4_errs, "k4_unequal_elements": unequal,
+            "relu_apart": replayed["apart"], "relu_tie": replayed["tie"]}, seen
+
+
+@contextlib.contextmanager
+def relu_tape(replay: dict | None = None):
+    """The relu decisions of the GNN models' MLPs (``gnn._mlp_apply``), in
+    call order: recorded, or, given a recorded tape, replayed: each relu
+    takes the recorded decision (``where(mask, z, 0)``, whose gradient is
+    the mask, as relu's is), and the decisions that differ from ``z``'s own
+    are counted (``apart``) with the largest ``|z|`` among them over its
+    layer's largest (``tie``).  A replay must make as many relu calls as
+    the recording."""
+    from repro_torch.models import gnn
+
+    inner = gnn._mlp_apply
+    tape = {"masks": [], "apart": 0, "tie": 0.0}
+    recorded = None if replay is None else iter(replay["masks"])
+
+    def relu(z):
+        if recorded is None:
+            tape["masks"].append((z > 0).detach())
+            return torch.relu(z)
+        mask = next(recorded)
+        apart = (z > 0) != mask
+        if bool(apart.any()):
+            zd = z.detach().abs()
+            tape["apart"] += int(apart.sum())
+            tape["tie"] = max(tape["tie"], float(zd[apart].max() / zd.max()))
+        return torch.where(mask, z, torch.zeros((), dtype=z.dtype,
+                                                device=z.device))
+
+    def mlp(p, x, act=torch.relu, final_act=False):
+        if act is not torch.relu:
+            raise AssertionError("relu_tape: an MLP with another activation")
+        return inner(p, x, act=relu, final_act=final_act)
+
+    gnn._mlp_apply = mlp
+    try:
+        yield tape
+    finally:
+        gnn._mlp_apply = inner
+    if recorded is not None and next(recorded, None) is not None:
+        raise AssertionError("relu_tape: the replay made fewer relu calls "
+                             "than the recording")
+
+
+def plain_in_index_order(ref, seen) -> list:
+    """The plain version of K4's rows entry on each input of ``seen``,
+    computed on the CPU, whose ``index_add_`` sums each segment's rows in
+    index order in fp32: the order K4 sums them in.  The card's
+    ``index_add_`` adds them in the order its atomics land, which on a
+    long run of unit-scale rows that cancel moves a sum by more than
+    ``K4_TOL`` (1.6e-5 over node 0's ~300 rows of 1,433 raw features on
+    an H100).  One host thread an input, one intra-op thread each."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with ThreadPoolExecutor(len(seen)) as pool:
+            return list(pool.map(lambda s: ref.segment_matmul_ref(
+                s[0].cpu(), s[1].cpu(), s[2]), seen))
+    finally:
+        torch.set_num_threads(threads)
 
 
 def check_arch_steps(ops, ref, dev) -> dict:
     """``step_vs_plain`` for each GNN arch at full config on the launcher's
-    first batch (``train.setup``), and gin-tu once more on its graph
-    readout over the molecule cell (128 graphs of 30 nodes and 64 edges)."""
-    from repro_torch.configs import get_config
-    from repro_torch.data import sampler
+    first batch (``train.setup``).  The graph readouts run in phase 19, on
+    the molecule cell's plan."""
     from repro_torch.launch import train
-    from repro_torch.models import gnn
 
     out = {}
     for arch_id in GNN_ARCHS:
@@ -3326,15 +3443,6 @@ def check_arch_steps(ops, ref, dev) -> dict:
                  for k, v in s.stream.next().items()}
         out[arch_id], _ = step_vs_plain(ops, ref, s.loss, s.init(), batch,
                                         f"{arch_id} --full")
-    cfg = get_config("gin-tu").model
-    mb = sampler.make_batched_graphs(MOLECULE_GRAPHS, 30, 64, 16,
-                                     n_classes=cfg.n_classes, seed=0)
-    batch = {k: torch.as_tensor(v, device=dev) for k, v in mb.items()}
-    params = gnn.init_params(cfg, torch.Generator(dev).manual_seed(0), 16)
-    out["gin-tu graph readout"], _ = step_vs_plain(
-        ops, ref,
-        lambda p, b: gnn.loss_fn(cfg, p, b, n_graphs=MOLECULE_GRAPHS),
-        params, batch, "gin-tu graph readout")
     return out
 
 
@@ -3386,13 +3494,14 @@ def check_restart(arch_id: str, work: str, dev, full: bool = True) -> dict:
     return {"bitwise": True, "losses": losses}
 
 
-def _k4_training_shapes(ops, ref, seen, errs: dict, n_real: int, dev) -> dict:
-    """K4's rows entry on the inputs one training step handed it (the
-    degree count and the two layers' messages, on the last round's
-    batch), timed in turns with its plain version and ``index_add_``
-    (CUDA events, median), beside its byte bound from these inputs; and
-    on the community's own rows alone (the first ``n_real``, the padding
-    being a suffix), beside theirs."""
+def _k4_training_shapes(ops, ref, seen, errs: dict, n_real: int | None,
+                        dev) -> dict:
+    """K4's rows entry on the inputs one training step handed it (GCN's
+    degree count and the two layers' messages), timed in turns with its
+    plain version and ``index_add_`` (CUDA events, median), beside its
+    byte bound from these inputs, with the longest run of one id; and,
+    unless ``n_real`` is None, on the community's own rows alone (the
+    first ``n_real``, the padding being a suffix), beside theirs."""
     def bound(e, d, n):
         t_bytes = (4 * e * d + 4 * e + 4 * n * d) / HBM_BYTES_PER_S
         t_ops = e * d / CUDA_CORE_OPS_PER_S
@@ -3409,17 +3518,18 @@ def _k4_training_shapes(ops, ref, seen, errs: dict, n_real: int, dev) -> dict:
             "plain": lambda: ref.segment_matmul_ref(msgs, ids, n),
             "index_add_": lambda: torch.zeros(
                 (n, d), device=dev).index_add_(0, ids, msgs)}, reps=3)
-        real_m, real_ids = msgs[:n_real].contiguous(), ids[:n_real]
-        real_ms = in_turns({"kernel": lambda: ops.segment_matmul(
-            real_m, real_ids, n)}, reps=10)["kernel"]
         b_ms, by = bound(e, d, n)
         out[shape] = {"ms": ms["kernel"], "plain_ms": ms["plain"],
                       "library_ms": ms["index_add_"], "bound_ms": b_ms,
                       "bound_by": by,
                       "max_abs_err": errs[f"{shape} -> {n}"],
-                      "largest_run": hub,
-                      "community_rows": n_real, "community_ms": real_ms,
-                      "community_bound_ms": bound(n_real, d, n)[0]}
+                      "largest_run": hub}
+        if n_real is not None:
+            real_m, real_ids = msgs[:n_real].contiguous(), ids[:n_real]
+            out[shape].update(
+                community_rows=n_real, community_bound_ms=bound(n_real, d, n)[0],
+                community_ms=in_turns({"kernel": lambda: ops.segment_matmul(
+                    real_m, real_ids, n)}, reps=10)["kernel"])
     return out
 
 
@@ -4586,10 +4696,202 @@ def _tree_sig(tree):
     return [(p, tuple(t.shape), t.dtype) for p, t in tree_paths(tree)]
 
 
-def _plan_args(arch, cell, plan, dev) -> tuple:
+def full_graph_edges(n: int, n_edges: int, seed: int = PLAN_SEED) -> tuple:
+    """A graph of ``n`` nodes and exactly ``n_edges`` undirected edges:
+    ``powerlaw_graph(n, m, seed)`` at the smallest ``m`` (``m_per_node``)
+    whose graph has at least ``n_edges`` edges, truncated to ``n_edges``.
+    The search starts at the ``m`` reckoned from ``m`` draws and
+    ``TRIANGLE_P`` closed triangles a node, and builds ``m - 1`` too, so
+    the ``m`` it returns is the smallest.  Returns the edges and the
+    reckoning: each ``m`` tried with its edge count and seconds."""
+    from repro_torch.data.synthetic import powerlaw_graph
+
+    tried = {}
+
+    def draw(m):
+        t = time.perf_counter()
+        e = powerlaw_graph(n, m, seed=seed)
+        tried[m] = {"edges": len(e), "s": time.perf_counter() - t}
+        return e
+
+    m = max(1, int((n_edges - TRIANGLE_P * n) // n))
+    edges = draw(m)
+    if len(edges) >= n_edges:
+        while m > 1:
+            fewer = draw(m - 1)
+            if len(fewer) < n_edges:
+                break
+            m, edges = m - 1, fewer
+    else:
+        while len(edges) < n_edges:
+            m += 1
+            edges = draw(m)
+    edges = edges[:n_edges]
+    if len(edges) != n_edges:
+        raise AssertionError(f"{len(edges)} edges, the cell has {n_edges}")
+    return edges, {"m_per_node": m, "edges": n_edges, "tried": tried}
+
+
+def minibatch_sample(cell, seed: int = PLAN_SEED) -> tuple:
+    """A ``minibatch`` cell's sample: a source graph of the cell's
+    ``n_nodes`` (``powerlaw_graph`` at ``round(n_edges / n_nodes)`` draws a
+    node, so its draws number the cell's edges before duplicates are
+    dropped), its ``CSRGraph``, ``batch_nodes`` seeds drawn without
+    replacement, then ``fanout_sample``.  Every node of the source has at
+    least the largest fanout's neighbours (asserted), so no node's draw
+    comes up short and the sample holds exactly ``batch_nodes · (f1 + f1 ·
+    f2 + ...)`` directed edges (asserted).  Returns ``(nodes, src, dst,
+    info)``."""
+    from repro_torch.data import sampler
+    from repro_torch.data.synthetic import powerlaw_graph
+
+    p = cell.params
+    n, fan, seeds_n = p["n_nodes"], tuple(p["fanout"]), p["batch_nodes"]
+    m = max(1, round(p["n_edges"] / n))
+    t = time.perf_counter()
+    edges = powerlaw_graph(n, m, seed=seed)
+    info = {"source_nodes": n, "source_m_per_node": m,
+            "source_edges": len(edges), "cell_edges": p["n_edges"],
+            "source_s": time.perf_counter() - t}
+    t = time.perf_counter()
+    csr = sampler.CSRGraph(n, edges)
+    del edges
+    deg = np.diff(csr.indptr)
+    info.update(csr_s=time.perf_counter() - t, min_degree=int(deg.min()),
+                max_degree=int(deg.max()))
+    if info["min_degree"] < max(fan):
+        raise AssertionError(f"{cell.name}: a source node of degree "
+                             f"{info['min_degree']} under the fanout {fan}")
+    t = time.perf_counter()
+    seeds = np.random.default_rng(seed).choice(n, seeds_n, replace=False)
+    nodes, src, dst = sampler.fanout_sample(csr, seeds, fan, seed=seed)
+    want = sum(seeds_n * int(np.prod(fan[:i + 1])) for i in range(len(fan)))
+    info.update(sample_s=time.perf_counter() - t, sampled_nodes=len(nodes),
+                sampled_edges=len(src))
+    if len(src) != want:
+        raise AssertionError(f"{cell.name}: the sample has {len(src)} edges, "
+                             f"expected {want}: a draw came up short")
+    return nodes, src, dst, info
+
+
+def directed_batch(nodes, src, dst, d_feat: int, n_classes: int, *,
+                   with_pos: bool, with_triplets: bool, pad_nodes: int,
+                   pad_edges: int, seed: int = PLAN_SEED) -> dict:
+    """A fanout sample's padded batch.  Its directed ``(src, dst)`` pairs
+    go into the edge arrays as they are (``make_gnn_batch`` takes
+    undirected edges and adds each one's reverse, and ``pad_to`` cuts what
+    passes the pad without a word).  The rest is ``make_gnn_batch``'s on
+    the sampled nodes: their features, labels, targets and positions drawn
+    from ``seed`` in its order, ``node_mask`` true on them, padding edges
+    on node ``pad_nodes - 1`` with a false mask, and DimeNet's fixed-fanout
+    triplets (``build_triplets_fixed`` on the directed edges) padded to
+    ``TRIPLET_FANOUT`` slots a padded edge."""
+    from repro_torch.data import sampler
+
+    n, e = len(nodes), len(src)
+    if n > pad_nodes or e > pad_edges:
+        raise AssertionError(f"{n} nodes and {e} edges over the pads "
+                             f"{pad_nodes} and {pad_edges}")
+    nb = sampler.make_gnn_batch(np.zeros((0, 2), np.int64), n, d_feat,
+                                n_classes=n_classes, with_pos=with_pos,
+                                pad_nodes=pad_nodes, pad_edges=pad_edges,
+                                seed=seed)
+    nb["edge_src"] = sampler.pad_to(src.astype(np.int32), pad_edges,
+                                    fill=pad_nodes - 1)
+    nb["edge_dst"] = sampler.pad_to(dst.astype(np.int32), pad_edges,
+                                    fill=pad_nodes - 1)
+    nb["edge_mask"] = sampler.pad_to(np.ones(e, bool), pad_edges, fill=False)
+    if with_triplets:
+        t_kj, t_ji, tmask = sampler.build_triplets_fixed(
+            src, dst, n, fanout=TRIPLET_FANOUT, seed=seed)
+        pt = pad_edges * TRIPLET_FANOUT
+        nb["triplet_kj"] = sampler.pad_to(t_kj.astype(np.int32), pt, fill=0)
+        nb["triplet_ji"] = sampler.pad_to(t_ji.astype(np.int32), pt, fill=0)
+        nb["triplet_mask"] = sampler.pad_to(tmask, pt, fill=False)
+        nb["energy_target"] = np.float32(0.0)
+    return nb
+
+
+def gnn_cell_batch(arch, cell, source=None) -> tuple:
+    """The numpy batch of the GNN arch ``arch`` on ``cell``: the plan's
+    keys at the plan's padded shapes (``specs._gnn_batch_structs``), from
+    ``PLAN_SEED``; with the plan's ``n_graphs`` and a record of what was
+    built.  By kind: a graph of exactly the cell's edges
+    (``full_graph_edges``) through ``make_gnn_batch``, padded only to
+    ``_round_up``'s quantum; a fanout sample (``minibatch_sample``) placed
+    by ``directed_batch``; or ``make_batched_graphs`` (the cell's graphs
+    of its nodes and edges).  ``source``: the cell's graph or sample, if
+    already built (``full_graph_edges`` / ``minibatch_sample``'s result).
+    Positions go to the geometric models and triplets to DimeNet, as the
+    plan's keys ask."""
+    from repro_torch.data import sampler
+    from repro_torch.launch import specs
+
+    want, n_graphs, d_feat = specs._gnn_batch_structs(arch, cell)
+    p, n_classes = cell.params, arch.model.n_classes
+    pn, pe = want["node_feat"].shape[0], want["edge_src"].shape[0]
+    flags = {"with_pos": "pos" in want, "with_triplets": "triplet_kj" in want}
+    if cell.kind == "full_graph":
+        edges, info = source or full_graph_edges(p["n_nodes"], p["n_edges"])
+        nb = sampler.make_gnn_batch(edges, p["n_nodes"], d_feat,
+                                    n_classes=n_classes, pad_nodes=pn,
+                                    pad_edges=pe, seed=PLAN_SEED, **flags)
+        real = 2 * len(edges)
+        if pe != specs._round_up(real):
+            raise AssertionError(f"{cell.name}: {pe} edge slots for {real} "
+                                 f"directed edges")
+    elif cell.kind == "minibatch":
+        nodes, src, dst, info = source or minibatch_sample(cell)
+        nb = directed_batch(nodes, src, dst, d_feat, n_classes, pad_nodes=pn,
+                            pad_edges=pe, **flags)
+        real = len(src)
+    else:
+        nb = sampler.make_batched_graphs(p["batch"], p["n_nodes"],
+                                         p["n_edges"], d_feat,
+                                         n_classes=n_classes, seed=PLAN_SEED)
+        info, real = {"graphs": p["batch"]}, 2 * p["batch"] * p["n_edges"]
+        if nb["labels"].max() >= n_classes:
+            # make_batched_graphs hands n_classes to the graph labels only:
+            # its node labels span make_gnn_batch's default 16 classes, past
+            # the logits of a model of fewer (gcn-cora's 7), where the loss
+            # reads NaN (jnp.take_along_axis's fill, which gnn._gold
+            # follows).  The node labels taken modulo the model's classes
+            nb["labels"] = nb["labels"] % np.int32(n_classes)
+            info["node_labels"] = f"modulo {n_classes} classes"
+    mask = np.asarray(nb["edge_mask"])
+    if int(mask.sum()) != real or not mask[:real].all():
+        raise AssertionError(f"{cell.name}: {int(mask.sum())} real edge "
+                             f"slots, expected {real} ahead of the padding")
+    missing = sorted(set(want) - set(nb))
+    if missing:
+        raise AssertionError(f"{cell.name}: the batch lacks {missing}")
+    batch = {k: np.asarray(nb[k]) for k in want}
+    for k, s in want.items():
+        x = torch.from_numpy(batch[k])
+        if tuple(x.shape) != tuple(s.shape) or x.dtype != s.dtype:
+            raise AssertionError(f"{cell.name}: {k} is {x.dtype} "
+                                 f"{tuple(x.shape)}, the plan's {s.dtype} "
+                                 f"{tuple(s.shape)}")
+    return batch, n_graphs, dict(
+        info, nodes=pn, real_nodes=int(batch["node_mask"].sum()),
+        edge_slots=pe, real_edge_slots=real, padding_edge_slots=pe - real)
+
+
+def k4_per_step(cfg, n_graphs: int) -> int:
+    """K4's launches in one step of ``gnn.loss_fn``, one a call of
+    ``gnn._segment_sum``: one a layer (``gcn_forward``, ``gin_forward``,
+    ``mgn_forward``, ``dimenet_forward``), GCN's degree count, and the
+    graph readout of GIN and DimeNet on a cell of graphs.  DimeNet's
+    fixed-fanout triplet reduce is a reshape and a sum, no segment sum."""
+    return (cfg.n_layers + (cfg.model == "gcn")
+            + (bool(n_graphs) and cfg.model in ("gin", "dimenet")))
+
+
+def _plan_args(arch, cell, plan, dev, batch: dict | None = None) -> tuple:
     """The plan's arguments on the card: the port's own init from a seeded
-    generator, the batch from ``PLAN_SEED``."""
-    from repro_torch.data import sampler, synthetic
+    generator, the batch from ``PLAN_SEED`` (a GNN cell's numpy batch from
+    ``gnn_cell_batch``, built here unless ``batch`` gives it)."""
+    from repro_torch.data import synthetic
     from repro_torch.models import gnn, recsys, transformer
     from repro_torch.training.optimizer import adamw_init
 
@@ -4607,40 +4909,44 @@ def _plan_args(arch, cell, plan, dev) -> tuple:
         nb = synthetic.ClickStream(arch.model, cell.params["batch"],
                                    seed=PLAN_SEED).next()
         return params, recsys.batch_to_torch(nb, dev)
-    n, d_feat = cell.params["n_nodes"], cell.params["d_feat"]
-    edges = synthetic.powerlaw_graph(n, 4, seed=PLAN_SEED)[:cell.params["n_edges"]]
-    want = plan.args[2]
-    nb = sampler.make_gnn_batch(edges, n, d_feat, n_classes=arch.model.n_classes,
-                                pad_edges=want["edge_src"].shape[0],
-                                seed=PLAN_SEED)
-    batch = gnn.batch_to_torch({k: nb[k] for k in want}, dev)
-    params = gnn.init_params(arch.model, gen, d_feat)
+    if batch is None:
+        batch = gnn_cell_batch(arch, cell)[0]
+    batch = gnn.batch_to_torch(batch, dev)
+    params = gnn.init_params(arch.model, gen, cell.params["d_feat"])
     return params, adamw_init(params), batch
 
 
-def _direct(arch, args):
+def _direct(arch, args, n_graphs: int = 0):
     """The model's own entry point on the plan's tensors (xDeepFM and the
-    GNN family): ``recsys.serve``, or a train step of ``gnn.loss_fn``."""
+    GNN family): ``recsys.serve``, or a train step of ``gnn.loss_fn`` with
+    the cell's ``n_graphs``."""
     from repro_torch.models import gnn, recsys
     from repro_torch.training import optimizer
 
     if arch.family == "recsys":
         return recsys.serve(arch.model, *args)
     step = optimizer.make_train_step(
-        lambda p, b: gnn.loss_fn(arch.model, p, b, n_graphs=0),
+        lambda p, b: gnn.loss_fn(arch.model, p, b, n_graphs=n_graphs),
         optimizer.AdamWConfig())
     return step(*args)
 
 
-def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str) -> dict:
+def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
+                     phase: int = 16, host_dir: str | None = None) -> dict:
     """One cell's plan run on the card at ``make_test_mesh((1, 1))``: the
     cell's global shape at full config.  The plan is first traced on
     ``meta`` at the same mesh (``dryrun.run_cell``); the card's arguments
     must match its tree and its ``argument_size_in_bytes`` exactly, the
     outputs its shapes and dtypes; outputs finite; launches counted (set
-    to 0 just before the call, read just after)."""
+    to 0 just before the call, read just after).  A GNN cell's batch comes
+    from ``gnn_cell_batch`` (from ``host_dir`` when the host process built
+    it); its step must launch K4 ``k4_per_step`` times, K3 and K5 never,
+    and equal the model's own step bitwise.  In phase 19 the step is also
+    held against ``use_kernels(False)`` (``step_vs_plain``), and
+    ``PROFILED_CELL``'s step is profiled and K4 timed on its inputs."""
     from repro_torch.configs import get_config
-    from repro_torch.kernels import cin, flash_attention, segment_matmul
+    from repro_torch.kernels import (cin, flash_attention, ops, ref,
+                                     segment_matmul)
     from repro_torch.launch import dryrun, mesh as lmesh, specs
     from repro_torch.launch.specs import tree_paths
     from repro_torch.models import transformer
@@ -4652,8 +4958,18 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str) -> dict:
     if not rec["ok"]:
         raise AssertionError(f"{arch_id}/{cell_name} on meta: {rec['error']}")
     plan = specs.build_cell(arch, cell, lmesh.make_test_mesh((1, 1), device=dev))
+    batch, built, host_s, n_graphs = None, None, None, 0
+    if arch.family == "gnn":
+        n_graphs = specs._gnn_batch_structs(arch, cell)[1]
+        t = time.perf_counter()
+        if host_dir is None:
+            batch, _, built = gnn_cell_batch(arch, cell)
+        else:
+            batch = load_host_batch(host_dir, arch_id, cell_name, plan.args[2])
+        host_s = time.perf_counter() - t
     t = time.perf_counter()
-    args = _plan_args(arch, cell, plan, dev)
+    args = _plan_args(arch, cell, plan, dev, batch)
+    del batch
     sync(dev)
     init_s = time.perf_counter() - t
     if _tree_sig(args) != _tree_sig(plan.args):
@@ -4680,6 +4996,8 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str) -> dict:
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
            "peak_above_args_gb": (torch.cuda.max_memory_allocated() - base) / 1e9,
            "launches": launches}
+    if host_s is not None:
+        res.update(batch_host_s=host_s, built=built)
     got = dryrun._shape_tree(out)
     if got != rec["outputs"]:
         raise AssertionError(f"{arch_id}/{cell_name}: outputs {got}, the meta "
@@ -4706,21 +5024,64 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str) -> dict:
                                  f" > {LOGIT_RTOL} x {scale}")
     else:
         want = ({"segment_matmul": 1, "cin": 3} if arch.family == "recsys"
-                else {"segment_matmul": 3, "cin": 0})
+                else {"segment_matmul": k4_per_step(arch.model, n_graphs),
+                      "cin": 0, "flash_attention": {"wgmma": 0, "simt": 0}})
         if {k: launches[k] for k in want} != want:
             raise AssertionError(f"{arch_id}/{cell_name} launched {launches}, "
                                  f"expected {want}")
-        direct = _direct(arch, args)
+        direct = _direct(arch, args, n_graphs)
         for (p, x), (_, y) in zip(tree_paths(out), tree_paths(direct)):
             if not torch.equal(x, y):
                 raise AssertionError(f"{arch_id}/{cell_name}: {p} differs from "
                                      f"the model's own entry point")
         res["bitwise_vs_direct"] = True
-    log(f"phase 16 plan {arch_id}/{cell_name} on the card ({card}): "
+        if arch.family == "gnn":
+            res["loss"] = float(out[2]["loss"])
+            if not np.isfinite(res["loss"]):
+                raise AssertionError(f"{arch_id}/{cell_name}: loss {res['loss']}")
+        del direct
+    del out
+    if phase == 19:
+        res.update(gnn_cell_checks(ops, ref, arch, cell, plan, args, n_graphs,
+                                   dev))
+    log(f"phase {phase} plan {arch_id}/{cell_name} on the card ({card}): "
         f"{json.dumps(res)}")
-    del out, args
+    del args
     torch.cuda.empty_cache()
     return res
+
+
+def gnn_cell_checks(ops, ref, arch, cell, plan, args, n_graphs: int,
+                    dev) -> dict:
+    """Phase 19's checks of a GNN cell past its plan's call: the step held
+    against ``use_kernels(False)`` at phase 13's gates, K4's rows entry
+    against its plain version on every input the step handed it (as many
+    as ``k4_per_step``), the peak memory of the two steps; on
+    ``PROFILED_CELL``, one plan step profiled (busy share, top ops) and K4
+    timed on the step's inputs beside ``index_add_`` and its byte bound."""
+    from repro_torch.models import gnn
+
+    cfg, what = arch.model, f"{arch.arch_id}/{cell.name}"
+    out = {}
+    if (arch.arch_id, cell.name) == PROFILED_CELL:
+        top = []
+        out["profiled_busy"] = profiled(lambda: plan.fn(*args),
+                                        require="segment_sum", top=top)
+        out["top_ops"] = top
+    torch.cuda.reset_peak_memory_stats()
+    vs, seen = step_vs_plain(
+        ops, ref, lambda p, b: gnn.loss_fn(cfg, p, b, n_graphs=n_graphs),
+        args[0], args[2], what)
+    out["vs_plain"] = vs
+    out["vs_plain_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if len(seen) != k4_per_step(cfg, n_graphs):
+        raise AssertionError(f"{what}: the step handed K4 {len(seen)} "
+                             f"inputs, expected {k4_per_step(cfg, n_graphs)}")
+    if (arch.arch_id, cell.name) == PROFILED_CELL:
+        out["k4_shapes"] = _k4_training_shapes(
+            ops, ref, seen, vs["k4_max_abs_err"], None, dev)
+    del seen
+    return out
 
 
 def _time_call(fn, reps: int = 3) -> list:
@@ -5179,6 +5540,127 @@ def drive_dense_family(dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 19: the GNN family at its cells' global shapes
+# ---------------------------------------------------------------------------
+
+def build_host_cells(work: str) -> None:
+    """Phase 19's host work, run in a process of its own: for each cell of
+    ``HOST_CELLS`` its graph or sample once (``minibatch_sample``,
+    ``full_graph_edges``), then each of its archs' batches
+    (``gnn_cell_batch``), one ``.npy`` a key under
+    ``<work>/<arch>-<cell>/``; last ``<work>/host.json``, what was built
+    and the seconds of each part."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch.configs import get_config
+
+    t_all = time.perf_counter()
+    summary = {"cpu_count": os.cpu_count()}
+    for cell_name in HOST_CELLS:
+        source = None
+        for arch_id in [a for a, c in GNN_CELLS if c == cell_name]:
+            arch = get_config(arch_id)
+            cell = next(c for c in arch.cells() if c.name == cell_name)
+            if source is None:
+                t = time.perf_counter()
+                source = (minibatch_sample(cell) if cell.kind == "minibatch"
+                          else full_graph_edges(cell.params["n_nodes"],
+                                                cell.params["n_edges"]))
+                summary[cell_name] = {"source_s": time.perf_counter() - t}
+            t = time.perf_counter()
+            batch, n_graphs, info = gnn_cell_batch(arch, cell, source)
+            build_s = time.perf_counter() - t
+            t = time.perf_counter()
+            d = os.path.join(work, f"{arch_id}-{cell_name}")
+            os.makedirs(d)
+            for k, v in batch.items():
+                np.save(os.path.join(d, f"{k}.npy"), v)
+            summary[f"{arch_id}/{cell_name}"] = dict(
+                info, n_graphs=n_graphs, batch_s=build_s,
+                save_s=time.perf_counter() - t,
+                bytes=sum(v.nbytes for v in batch.values()))
+            del batch
+        del source
+    summary["s"] = time.perf_counter() - t_all
+    with open(os.path.join(work, "host.json.tmp"), "w") as f:
+        json.dump(summary, f)
+    os.replace(os.path.join(work, "host.json.tmp"),
+               os.path.join(work, "host.json"))
+
+
+def start_host_cells(work: str) -> dict:
+    """``build_host_cells(work)`` in a process of its own with no card
+    visible, output to a file; it runs beside the phases that follow its
+    start."""
+    code = (f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke; "
+            f"chip_smoke.build_host_cells({work!r})")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    log_path = os.path.join(work, "host.log")
+    with open(log_path, "w") as f:
+        proc = subprocess.Popen([sys.executable, "-c", code], env=env,
+                                cwd=work, stdout=f, stderr=subprocess.STDOUT)
+    return {"proc": proc, "t0": time.perf_counter(), "log": log_path,
+            "work": work}
+
+
+def finish_host_cells(run: dict, card: str) -> dict:
+    """Wait for the host process (``HOST_TIMEOUT`` after its start) and
+    require exit 0: a failure or a timeout fails the smoke, nothing falls
+    back to a smaller graph.  Logs the wait and what was built."""
+    proc, t = run["proc"], time.perf_counter()
+    try:
+        rc = proc.wait(timeout=max(1.0, HOST_TIMEOUT
+                                   - (time.perf_counter() - run["t0"])))
+    except subprocess.TimeoutExpired:
+        rc = None
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    waited = time.perf_counter() - t
+    if rc != 0:
+        with open(run["log"]) as f:
+            raise AssertionError(f"the host build exited {rc} (None: still "
+                                 f"running at {HOST_TIMEOUT} s):\n"
+                                 f"{f.read()[-4000:]}")
+    with open(os.path.join(run["work"], "host.json")) as f:
+        summary = json.load(f)
+    summary["waited_s"] = waited
+    log(f"phase 19 host build ({card}; {summary['cpu_count']} host cores): "
+        f"{summary['s']:.1f} s from its start, phase 19 waited {waited:.1f} "
+        f"s for it; {json.dumps(summary)}")
+    return summary
+
+
+def load_host_batch(work: str, arch_id: str, cell_name: str, want: dict):
+    """The host process's numpy batch of ``arch_id`` on ``cell_name``, the
+    keys of ``want``."""
+    d = os.path.join(work, f"{arch_id}-{cell_name}")
+    return {k: np.load(os.path.join(d, f"{k}.npy")) for k in want}
+
+
+def drive_gnn_cells(dev, card: str, host_run: dict) -> dict:
+    """Phase 19: each of ``GNN_CELLS`` through ``run_plan_on_card`` (the
+    host process's batches for ``HOST_CELLS``, waited for at the first
+    such cell).  ``launches`` sums K4's launches in the plans' calls."""
+    t_phase = time.perf_counter()
+    out = {"cells": {}, "launches": 0, "cut": {
+        f"{a}/ogb_products": why for a, why in OGB_CUT.items()}}
+    log(f"phase 19 ({card}): ogb_products is cut for {json.dumps(OGB_CUT)}")
+    for arch_id, cell_name in GNN_CELLS:
+        host_dir = None
+        if cell_name in HOST_CELLS:
+            if "host" not in out:
+                out["host"] = finish_host_cells(host_run, card)
+            host_dir = host_run["work"]
+        r = run_plan_on_card(arch_id, cell_name, dev, card, phase=19,
+                             host_dir=host_dir)
+        out["cells"][f"{arch_id}/{cell_name}"] = r
+        out["launches"] += r["launches"]["segment_matmul"]
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def model_cfg(arch_id: str):
     """The full model config of ``arch_id``."""
     from repro_torch.configs import get_config
@@ -5212,6 +5694,20 @@ def main() -> int:
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     build_all(_build)
+    # phase 19's host work (minibatch_lg's sample, ogb_products's graph and
+    # batches: ~340 s on the card's host, more than phases 13-18 take)
+    # starts here, a process of its own with no card visible, on a core the
+    # host-bound phases leave free
+    host_work = tempfile.mkdtemp(prefix="chip_smoke_gnn_")
+    host = start_host_cells(host_work)
+
+    def stop_host():
+        if host["proc"].poll() is None:
+            host["proc"].kill()
+            host["proc"].wait()
+        shutil.rmtree(host_work, ignore_errors=True)
+
+    atexit.register(stop_host)
     k3_compile_report(_build, flash_attention)
     k5_compile = cin_compile_report(_build)
 
@@ -5457,6 +5953,15 @@ def main() -> int:
     launches["flash_attention_wgmma"] += sum(dense_paths.values())
     log(f"dense LM family ({card}): {dn['phase_s']:.1f} s; K3's wgmma body "
         f"launched {dense_paths}")
+
+    # the GNN family at its cells' global shapes (K4's rows entry); the
+    # counts are set to 0 inside, just before each plan's call, and read
+    # just after it
+    gnn_cells = drive_gnn_cells(dev, card, host)
+    stop_host()
+    launches["segment_matmul_cells"] = gnn_cells["launches"]
+    log(f"GNN cells ({card}): {gnn_cells['phase_s']:.1f} s; K4 launched "
+        f"{gnn_cells['launches']} times in {len(gnn_cells['cells'])} plan steps")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -5539,7 +6044,8 @@ def main() -> int:
                  k4["ms"]["embedding_bag_mean"], k4["bound_ms"], k4["bound_by"])
     extra_errs = {"segment_matmul": [v["max_abs_err"] for v in
                                      tr["k4_shapes"].values()] + [
-        e for a in tr["arch_vs_plain"].values()
+        e for a in list(tr["arch_vs_plain"].values())
+        + [c["vs_plain"] for c in gnn_cells["cells"].values()]
         for e in a["k4_max_abs_err"].values()], "cin": []}
     for name, source, replaces, timing in (
             ("segment_matmul", "segment_sum.cu",
@@ -5550,7 +6056,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{source}", "replaces": replaces,
             "launches": launches[name] + launches.get(f"{name}_training", 0)
-            + launches[f"{name}_plans"],
+            + launches[f"{name}_plans"] + launches.get(f"{name}_cells", 0),
             "max_abs_err": max([e for k, e in k45_errs.items()
                                 if k.startswith(name)] + extra_errs[name]),
             "ms": ms, "plain_ms": pms, "bound_ms": bms, "bound_by": by,
@@ -5558,7 +6064,10 @@ def main() -> int:
     kernels[-2]["path"] = {"recsys": launches["segment_matmul"],
                            "training": tr_launches["segment_matmul"],
                            "recsys training": rs_tr["segment_matmul"],
-                           "cell plans": launches["segment_matmul_plans"]}
+                           "cell plans": launches["segment_matmul_plans"],
+                           "gnn cells": launches["segment_matmul_cells"]}
+    kernels[-2]["gnn_cells_rows_entry"] = gnn_cells["cells"][
+        "/".join(PROFILED_CELL)]["k4_shapes"]
     kernels[-2]["training_rows_entry"] = tr["k4_shapes"]
     kernels[-2]["gathered_plain_backward_ms"] = \
         lt["cin_backward"]["k4_plain_backward_ms"]
@@ -5590,7 +6099,8 @@ def main() -> int:
         f"{plans['phase_s']:.1f} s (the dry-run {plans['dryrun']['wall_s']:.1f}"
         f" s beside phases 13-15, waited for {plans['dryrun']['waited_s']:.1f}"
         f" s), phase 17 {mt['phase_s']:.1f} s, phase 18 "
-        f"{dn['phase_s']:.1f} s")
+        f"{dn['phase_s']:.1f} s, phase 19 {gnn_cells['phase_s']:.1f} s "
+        f"({os.cpu_count()} host cores)")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -340,7 +340,16 @@ def loss_fn(cfg: GNNConfig, params: dict, batch: dict, *,
 
 
 def _gold(logits, labels):
-    return torch.gather(logits, -1, labels.long()[:, None])[:, 0]
+    """``jnp.take_along_axis(logits, labels[:, None], -1)[:, 0]``: a
+    negative label counts from the end; a label outside ``[-C, C)`` reads
+    NaN (jax's fill mode) and passes no gradient, where ``torch.gather``
+    would raise on the CPU and fault on the card."""
+    c = logits.shape[-1]
+    idx = labels.long()
+    idx = torch.where(idx < 0, idx + c, idx)
+    ok = (idx >= 0) & (idx < c)
+    gold = torch.gather(logits, -1, torch.where(ok, idx, 0)[:, None])[:, 0]
+    return torch.where(ok, gold, _const(gold, math.nan))
 
 
 def _xent(logits, labels):

@@ -8,7 +8,9 @@ snapshots restoring bitwise; a replica on the card tailing such a
 primary (K1 in its applies, bitwise equal at every generation), its
 promotion, and a profiled flush with every device record; the GNN
 family's differentiable segment sum (K4 forward, a plain gather backward)
-and one training step of each GNN smoke config against the plain route;
+and one training step of each GNN smoke config against the plain route,
+and of each GNN full config on the molecule cell's batch and on a small
+directed minibatch;
 the LM and recsys training entries (K3, K4's gathered entry and K5 as
 autograd Functions with plain backwards) and one training step of the
 qwen3 and xDeepFM smoke configs against the plain route, and one of the
@@ -24,6 +26,7 @@ These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 They import neither JAX nor ``repro``.
 """
+import dataclasses
 import json
 
 import numpy as np
@@ -32,6 +35,7 @@ import torch
 
 from repro_torch import core
 from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
 from repro_torch.data.synthetic import powerlaw_graph
 from repro_torch.data.synthetic import ClickStream
 from repro_torch.kernels import (bitmap_support, cin, flash_attention, ops,
@@ -975,6 +979,69 @@ def test_gnn_train_step_on_card_equals_plain_route(cuda, arch_id):
     assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(new))
     assert any(not torch.equal(a, b) for a, b in
                zip(tree_leaves(new), tree_leaves(card)))
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` as a module (its ``main`` is not run)."""
+    import importlib.util
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# a small directed fanout minibatch, built as chip_smoke builds minibatch_lg's
+SMALL_MINIBATCH = ShapeCell("minibatch_lg", "minibatch",
+                            {"n_nodes": 2000, "n_edges": 40000,
+                             "batch_nodes": 32, "fanout": (15, 10),
+                             "d_feat": 602})
+
+
+@pytest.mark.parametrize("kind", ["molecule", "minibatch"])
+@pytest.mark.parametrize("arch_id", ["gcn-cora", "gin-tu", "meshgraphnet",
+                                     "dimenet"])
+def test_gnn_full_config_step_on_card_equals_plain_route(cuda, arch_id, kind):
+    """One AdamW step of each GNN arch at full config on the card through
+    K4, on the molecule cell's batch (128 graphs of 30 nodes, the graph
+    readouts of GIN and DimeNet) and on a small directed minibatch
+    (``chip_smoke.gnn_cell_batch``: 32 seeds of a 2,000-node graph,
+    fanout (15, 10)), against the same step under ``use_kernels(False)``
+    through ``chip_smoke.step_vs_plain`` (phase 13's gates: the loss within
+    1e-5 of itself, each gradient leaf within 1e-4 of its largest
+    magnitude, at matched relu decisions, each decision taken apart a
+    near-tie; K4 equal to the in-order sum in every element); K4 launched
+    ``chip_smoke.k4_per_step`` times; the step's parameters finite and
+    moved."""
+    cs = _chip_smoke()
+    arch = get_config(arch_id)
+    if kind == "molecule":
+        cell = next(c for c in arch.cells() if c.name == "molecule")
+    else:
+        cell = SMALL_MINIBATCH
+        arch = dataclasses.replace(arch, shapes=(cell,))
+    nb, n_graphs, _ = cs.gnn_cell_batch(arch, cell)
+    batch = gnn.batch_to_torch(nb, cuda)
+    params = gnn.init_params(arch.model, torch.Generator(cuda).manual_seed(0),
+                             cell.params["d_feat"])
+    loss_fn = lambda p, b: gnn.loss_fn(arch.model, p, b, n_graphs=n_graphs)
+    launches = segment_matmul.LAUNCHES
+    value_and_grad(loss_fn, params, batch)
+    assert segment_matmul.LAUNCHES - launches == cs.k4_per_step(arch.model,
+                                                                n_graphs)
+    errs, seen = cs.step_vs_plain(ops, ref, loss_fn, params, batch,
+                                  f"{arch_id}/{kind}")
+    assert len(seen) == cs.k4_per_step(arch.model, n_graphs)
+    assert errs["k4_unequal_elements"] == 0 and errs["relu_tie"] <= cs.RELU_TIE
+    step = make_train_step(loss_fn, AdamWConfig())
+    new, state, stats = step(params, adamw_init(params), batch)
+    assert bool(torch.isfinite(stats["loss"]))
+    assert all(bool(torch.isfinite(a).all()) for a in tree_leaves(new))
+    assert any(not torch.equal(a, b) for a, b in
+               zip(tree_leaves(new), tree_leaves(params)))
 
 
 # ---------------------------------------------------------------------------
