@@ -128,13 +128,32 @@ def norm_apply(p: Params, x: torch.Tensor, kind: str,
 # rotary position embeddings
 # ---------------------------------------------------------------------------
 
+_ROPE_FREQS: dict = {}
+
+
+def rope_freqs(half: int, theta: float, device) -> torch.Tensor:
+    """RoPE's frequency table ``theta ** (-i / half)``, ``i < half``, in
+    fp32: computed in float64 on the host and rounded once, which gives the
+    reference's fp32 ``pow`` in every entry (torch's fp32 ``pow`` misses it
+    by one ulp in a few entries at head dims 128 and 256, and the angle's
+    error grows with the position).  Cached per ``(half, theta, device)``,
+    so a decode wave makes no copy to the device."""
+    device = torch.device(device)
+    key = (half, float(theta), device)
+    freqs = _ROPE_FREQS.get(key)
+    if freqs is None:
+        exps = -torch.arange(0, half, dtype=torch.float64) / half
+        freqs = (float(theta) ** exps).float().to(device)
+        _ROPE_FREQS[key] = freqs
+    return freqs
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float = 1e6) -> torch.Tensor:
     """x: [..., S, H, Dh]; positions: [..., S] (broadcastable)."""
     dh = x.shape[-1]
     half = dh // 2
-    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
-                                    device=x.device) / half)
+    freqs = rope_freqs(half, theta, x.device)
     ang = positions[..., None].float() * freqs                  # [..., S, half]
     cos = torch.cos(ang)[..., None, :]                           # [..., S, 1, half]
     sin = torch.sin(ang)[..., None, :]

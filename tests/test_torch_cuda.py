@@ -20,7 +20,9 @@ at matched routing, and
 the int8 KV cache's values and scales on the card equal to the CPU's; the
 expert block's mesh branches and their gradients against mesh=None, and
 one mixtral smoke training step on the card against the CPU at matched
-routing, keyed by layer under the remat.
+routing, keyed by layer under the remat; RoPE's frequency table on the
+card equal to the CPU's for the five LM configs, and a decode wave at a
+32,768-slot cache against float64 attention over its valid slots.
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -1462,3 +1464,82 @@ def test_meta_route_matches_the_kernels_shapes(cuda):
         metas = meta if isinstance(meta, tuple) else (meta,)
         assert [(o.shape, o.dtype) for o in outs] == \
             [(m.shape, m.dtype) for m in metas], mod.__name__
+
+
+LM_ARCHS = ["qwen3-0.6b", "gemma-2b", "starcoder2-7b", "mixtral-8x7b",
+            "llama4-scout-17b-a16e"]
+
+
+@pytest.mark.parametrize("end", [32767, 524287])
+@pytest.mark.parametrize("arch_id", LM_ARCHS)
+def test_rope_on_card_equals_cpu(cuda, arch_id, end):
+    """``rope`` on the card at each LM config's head dim and theta, full
+    and smoke, on unit-normal fp32 input at the 64 positions ending at
+    ``end`` (``decode_32k``'s and ``long_500k``'s last): within 2e-6 of the
+    CPU's, which ``tests/test_torch_layers.py`` holds to the reference at
+    the same bound.  The angles are the same fp32 products on both; the
+    card computes cos/sin of angles up to ~5e5 rad in its own way."""
+    from repro_torch.models import layers
+
+    for cfg in (get_config(arch_id).model, get_config(arch_id).smoke):
+        rng = np.random.default_rng(cfg.head_dim + end)
+        x = torch.from_numpy(rng.normal(size=(64, 2, cfg.head_dim)).astype(
+            np.float32))
+        pos = torch.arange(end - 63, end + 1, dtype=torch.int32)
+        exp = layers.rope(x, pos, cfg.rope_theta)
+        got = layers.rope(x.to(cuda), pos.to(cuda), cfg.rope_theta)
+        assert got.device.type == "cuda"
+        err = float((got.cpu() - exp).abs().max())
+        assert err <= 2e-6, (cfg.name, err)
+
+
+@pytest.mark.parametrize("cache_len,window,pos", [(32768, None, 32767),
+                                                  (32768, None, 20000),
+                                                  (4096, 4096, 32767)])
+def test_decode_wave_at_a_32k_cache_against_float64(cuda, monkeypatch,
+                                                    cache_len, window, pos):
+    """One decode wave of ``attention_apply`` on the card at a small width
+    (head dim 128, ``rope_theta`` 1e6) over a cache of ``cache_len`` slots
+    holding seeded bf16 values, in fp32 compute: the output within 1e-4 of
+    its largest against float64 attention over the valid slots alone (the
+    fp32 RoPE angle, the cache as the wave left it).  At 20,000 of 32,768
+    slots the 12,767 slots past the position hold values that a missing
+    mask would average in; at a 4,096-slot ring every slot is valid."""
+    from repro_torch.models import layers
+
+    monkeypatch.setattr(layers, "COMPUTE_DTYPE", torch.float32)
+    b, d, hq, hkv, dh, theta = 2, 64, 4, 2, 128, 1e6
+    g = torch.Generator().manual_seed(0)
+    p = layers.attention_init(g, d, hq, hkv, dh)
+    x = torch.randn((b, 1, d), generator=g)
+    kc = torch.randn((b, cache_len, hkv, dh), generator=g).to(torch.bfloat16)
+    vc = torch.randn((b, cache_len, hkv, dh), generator=g).to(torch.bfloat16)
+    cache = (kc.to(cuda), vc.to(cuda))
+    out, (k_card, v_card) = layers.attention_apply(
+        {k: v.to(cuda) for k, v in p.items()}, x.to(cuda),
+        torch.full((b, 1), pos, dtype=torch.int32, device=cuda),
+        n_heads=hq, n_kv=hkv, head_dim=dh, window=window, rope_theta=theta,
+        cache=cache, cache_pos=pos)
+    out = out.float().cpu().double()
+    # float64 from here: q with the wave's fp32 angle, the cache as written
+    half = dh // 2
+    ang = (torch.tensor(float(pos), dtype=torch.float32)
+           * layers.rope_freqs(half, theta, "cpu")).double()
+    q = (x.double() @ p["wq"].double()).reshape(b, hq, dh)
+    q = torch.cat([q[..., :half] * ang.cos() - q[..., half:] * ang.sin(),
+                   q[..., :half] * ang.sin() + q[..., half:] * ang.cos()], -1)
+    k64, v64 = k_card.cpu().double(), v_card.cpu().double()
+    slot = pos % cache_len
+    ring = np.arange(cache_len)
+    abs_pos = pos - (slot - ring) % cache_len
+    valid = (abs_pos >= 0) & (abs_pos <= pos)
+    if window is not None:
+        valid &= pos - abs_pos < window
+    idx = torch.from_numpy(np.nonzero(valid)[0])
+    qg = q.reshape(b, hkv, hq // hkv, dh)
+    scores = torch.einsum("bkgd,bckd->bkgc", qg, k64[:, idx]) * dh ** -0.5
+    att = torch.einsum("bkgc,bckd->bkgd", torch.softmax(scores, -1), v64[:, idx])
+    exp = att.reshape(b, 1, hq * dh) @ p["wo"].double()
+    assert int(valid.sum()) == min(pos + 1, cache_len)
+    err = float((out - exp).abs().max())
+    assert err <= 1e-4 * float(exp.abs().max()), err

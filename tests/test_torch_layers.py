@@ -15,10 +15,14 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+from repro.configs import get_config as jget
 from repro.models import layers as jl
+from repro_torch.configs import get_config
 from repro_torch.models import layers as tl
 
 BF16_RTOL, BF16_ATOL = 2.0 ** -7, 2e-2
+LM_ARCHS = ["qwen3-0.6b", "gemma-2b", "starcoder2-7b", "mixtral-8x7b",
+            "llama4-scout-17b-a16e"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -80,6 +84,41 @@ def test_rope_matches_reference(theta):
     # sin/cos of angles up to 130 rad: the libraries' range reductions
     # differ in the last bits
     np.testing.assert_allclose(_np(got), _np(exp), rtol=1e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("end", [4096, 32767, 524287])
+@pytest.mark.parametrize("head_dim,theta", [(128, 1e6), (256, 1e4),
+                                            (128, 1e5), (128, 5e5)])
+def test_rope_at_long_positions_matches_reference(head_dim, theta, end):
+    """RoPE at the LM configs' (head dim, theta) on 64 positions ending at
+    ``end`` (``decode_32k``'s last position, ``long_500k``'s), unit-normal
+    fp32 input: within 2e-6 of the reference.  The angle is the position
+    times the frequency, so a frequency one ulp off moves the output by up
+    to ~1e-2 at 524,287; the two libraries' cos/sin of one fp32 angle agree
+    within ~6e-8."""
+    rng = np.random.default_rng(head_dim + end)
+    x = rng.normal(size=(64, 2, head_dim)).astype(np.float32)
+    pos = np.arange(end - 63, end + 1, dtype=np.int32)
+    exp = jl.rope(_j(x), jnp.asarray(pos), theta)
+    got = tl.rope(_t(x), torch.from_numpy(pos), theta)
+    np.testing.assert_allclose(_np(got), _np(exp), rtol=0, atol=2e-6)
+
+
+@pytest.mark.parametrize("smoke", [False, True])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_rope_frequency_table_equals_reference_bitwise(arch, smoke):
+    """``rope_freqs`` at each LM config's head dim and theta, full and smoke,
+    equals the reference's fp32 table ``theta ** (-arange(half) / half)``
+    bit for bit, and is cached: a second call returns the same tensor."""
+    cfg = get_config(arch).smoke if smoke else get_config(arch).model
+    jcfg = jget(arch).smoke if smoke else jget(arch).model
+    assert (cfg.head_dim, cfg.rope_theta) == (jcfg.head_dim, jcfg.rope_theta)
+    half = cfg.head_dim // 2
+    exp = np.asarray(jcfg.rope_theta ** (
+        -jnp.arange(0, half, dtype=jnp.float32) / half))
+    got = tl.rope_freqs(half, cfg.rope_theta, "cpu")
+    assert got.dtype == torch.float32 and np.array_equal(got.numpy(), exp)
+    assert tl.rope_freqs(half, cfg.rope_theta, torch.device("cpu")) is got
 
 
 @pytest.mark.parametrize("kind", ["swiglu", "geglu", "gelu"])

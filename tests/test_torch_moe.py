@@ -19,6 +19,8 @@ Tolerances:
   largest |logit|, greedy tokens identical.
 """
 import dataclasses
+import importlib.util
+import os
 
 import numpy as np
 import jax
@@ -31,10 +33,14 @@ import repro.models.transformer as jt
 import repro_torch.models.layers as tl
 import repro_torch.models.transformer as tt
 from repro.configs import get_config as jget
+from repro_torch.configs import get_config
+from repro_torch.configs.base import ShapeCell
 from repro.launch import serve as jserve
 from repro.launch import train as jtrain
 from repro.serving import DecodeEngine as JEngine, Request as JRequest
+from repro_torch.launch import dryrun, specs
 from repro_torch.launch import serve as tserve
+from repro_torch.launch.mesh import make_test_mesh
 from repro_torch.launch import train as ttrain
 from repro_torch.serving import DecodeEngine, Request
 from repro_torch.training.optimizer import value_and_grad
@@ -386,6 +392,30 @@ def test_decode_past_the_window_matches_reference(fp32_compute):
         _close(got, exp, rtol=FP32_RTOL)
 
 
+def test_decode_past_2_19_at_head_dim_128_matches_reference(fp32_compute):
+    """mixtral-smoke at head dim 128 (``dataclasses.replace`` in both
+    packages: RoPE's table at ``(128, 1e6)``, as mixtral-8x7b's) decoding
+    80 positions from 524,224 into a 64-slot ring, as ``long_500k``'s waves
+    do near 2**19: every position's logits within 1e-5 of the largest
+    |logit| of the reference's ``decode_step``."""
+    jcfg = dataclasses.replace(jget("mixtral-8x7b").smoke, head_dim=128)
+    cfg = dataclasses.replace(get_config("mixtral-8x7b").smoke, head_dim=128)
+    jp = jt.init_params(jcfg, jax.random.PRNGKey(0))
+    tp = tt.params_from_numpy(cfg, jax.tree.map(np.asarray, jp), device="cpu")
+    start, n = 524_224, cfg.window + 16
+    toks = np.random.default_rng(6).integers(0, cfg.vocab, (1, n)).astype(np.int32)
+    jc = jt.init_cache(jcfg, 1, 3 * cfg.window, dtype=jnp.float32)
+    tc = tt.init_cache(cfg, 1, 3 * cfg.window, dtype=torch.float32,
+                       device="cpu")
+    assert tc["k"].shape[2:] == (cfg.window, cfg.n_kv, 128)
+    step = jax.jit(lambda p, c, t, pos: jt.decode_step(jcfg, p, c, t, pos))
+    for i in range(n):
+        exp, jc = step(jp, jc, jnp.asarray(toks[:, i]), jnp.int32(start + i))
+        got, tc = tt.decode_step(cfg, tp, tc,
+                                 torch.from_numpy(toks[:, i]).long(), start + i)
+        _close(got, exp, rtol=FP32_RTOL)
+
+
 def test_engine_serves_past_the_window():
     """The reference's ``test_swa_ring_buffer_engine`` on the port:
     mixtral-smoke's engine generates ``window + 8`` tokens on a 64-slot
@@ -466,3 +496,151 @@ def test_train_launcher_matches_reference(fp32_compute, arch, tmp_path,
     assert line.startswith(ref_line.split(" loss=")[0]) and line.endswith("on cpu")
     assert dataclasses.asdict(cfg) == dataclasses.asdict(
         ttrain.get_config(arch).smoke)
+
+
+# ---------------------------------------------------------------------------
+# chip_smoke.py's decode cells (phase 20) on the CPU at the smoke configs
+# ---------------------------------------------------------------------------
+
+H100_BYTES = 85_017_493_504      # an H100 80GB HBM3's total_memory
+
+
+@pytest.fixture(scope="module")
+def cs():
+    """``chip_smoke.py`` as a module (its ``main`` is not run)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _smoke_decode(arch_id):
+    """The arch at its smoke config with ``decode_32k`` cut to ``[3, 256]``
+    (``long_500k`` keeps its length and batch 1)."""
+    a = get_config(arch_id)
+    cells = (ShapeCell("decode_32k", "decode", {"seq": 256, "batch": 3}),
+             ShapeCell("long_500k", "long_decode", {"seq": 524288, "batch": 1}))
+    return dataclasses.replace(a, model=a.smoke, shapes=cells)
+
+
+@pytest.mark.parametrize("arch,cell", [
+    ("qwen3-0.6b", "decode_32k"), ("gemma-2b", "decode_32k"),
+    ("starcoder2-7b", "decode_32k"), ("mixtral-8x7b", "decode_32k"),
+    ("mixtral-8x7b", "long_500k"), ("llama4-scout-17b-a16e", "decode_32k")])
+def test_decode_cut_is_the_largest_batch_that_fits(cs, arch, cell):
+    """``decode_cut`` at each phase-20 cell's full width on an H100's
+    memory: the reckoned need at the cut batch fits in ``TRAIN_FIT`` of the
+    card and one sequence more does not (or the batch is the cell's), and
+    the cut plan's meta trace holds exactly the fp32 parameters, the bf16
+    cache of the cut batch, its tokens and the position."""
+    from repro_torch.models import transformer
+
+    n_layers = dict(cs.DECODE_RUNS)[arch]
+    cut_arch, cut = cs.decode_cut(get_config(arch), cell, n_layers, H100_BYTES)
+    b, gb = cut["batch"], cut["gb_by_batch"]
+    assert 1 <= b <= cut["full_batch"] and gb[b] <= cut["limit_gb"]
+    assert b == cut["full_batch"] or gb[b + 1] > cut["limit_gb"]
+    cfg = cut_arch.model
+    assert cfg.n_layers == (n_layers or get_config(arch).model.n_layers)
+    assert cfg.d_model == get_config(arch).model.d_model
+    rec = dryrun.run_cell(cut_arch, cell, make_test_mesh((1, 1), device="meta"),
+                          "1x1")
+    assert rec["ok"], rec.get("error")
+    c = transformer.cache_len(cfg, cut_arch.shapes[0].params["seq"])
+    cache = 2 * 2 * cfg.n_layers * b * c * cfg.n_kv * cfg.head_dim
+    params = 4 * (transformer.param_count(cfg) + cs.uncounted_params(cfg))
+    assert rec["argument_size_in_bytes"] == params + cache + 4 * b + 4
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "llama4-scout-17b-a16e"])
+def test_decode_plan_mask_check_on_the_cpu(cs, arch):
+    """Phase 20's mask gate at a smoke config on the CPU: the ``decode_32k``
+    plan cut to ``[3, 256]`` with the cache filled from the plan's seed; a
+    wave 64 positions before the last, then every slot past it refilled
+    from another seed and the wave again: bitwise equal logits.  Refilling
+    the slots before it moves them, so the check reads the cache."""
+    from repro_torch.models import transformer
+
+    cut_arch, cut = cs.decode_cut(_smoke_decode(arch), "decode_32k", None,
+                                  10 ** 9)
+    assert cut["batch"] == 3
+    plan = specs.build_cell(cut_arch, cut_arch.shapes[0],
+                            make_test_mesh((1, 1), device="cpu"))
+    args, _ = cs.decode_plan_args(
+        cut_arch, cs.stacked_params(cut_arch.model, "cpu"), 1, "cpu")
+    assert cs._tree_sig(args) == cs._tree_sig(plan.args)
+    pos = int(args[3]) - 64
+    rec = cs.decode_mask_check(plan, args, pos)
+    assert rec == {"pos": pos, "refilled_slots": 64, "bitwise": True}
+    p = torch.tensor(pos, dtype=torch.int32)
+    before, _ = plan.fn(args[0], args[1], args[2], p)
+    cs.fill_cache(args[1], 7, start=0)
+    after, _ = transformer.decode_step(
+        cut_arch.model, transformer.unstack_layers(args[0]), args[1], args[2], p)
+    assert not torch.equal(before, after)
+
+
+def test_decode_card_vs_cpu_glue_at_the_ring(cs):
+    """Phase 20's card-against-CPU gate at mixtral-smoke's ``long_500k``
+    (``[1, 524288]``, a 64-slot ring), run with the CPU on both sides: the
+    8 waves at the last positions (slots 56-63) equal, the host copy's
+    waves replaying the first side's expert choices, none apart."""
+    cut_arch, _ = cs.decode_cut(_smoke_decode("mixtral-8x7b"), "long_500k",
+                                None, 10 ** 9)
+    args, tokens = cs.decode_plan_args(
+        cut_arch, cs.stacked_params(cut_arch.model, "cpu"), cs.LONG_WAVES,
+        "cpu")
+    last = int(args[3])
+    positions = list(range(last - cs.LONG_WAVES + 1, last + 1))
+    assert [p % cut_arch.model.window for p in positions] == list(range(56, 64))
+    res = cs.decode_card_vs_cpu(cut_arch.model, args[0], args[1], tokens,
+                                positions, "cpu")
+    assert res["layers"] == 1 and res["rows"] == 1
+    assert [w["pos"] for w in res["waves"]] == positions
+    assert all(w["max_abs_diff"] == 0.0 for w in res["waves"])
+    assert res["routing"]["differ"] == 0
+    assert res["routing"]["decisions"] == cs.LONG_WAVES * cut_arch.model.moe_top_k
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "starcoder2-7b",
+                                  "mixtral-8x7b", "llama4-scout-17b-a16e"])
+def test_decode_wave_bytes_counts_what_a_wave_reads(cs, arch):
+    """Phase 20's byte bound at a smoke config on the CPU, a wave of one
+    row (one token): the bf16 cache, its written slot and the fp32 logits,
+    every fp32 weight once, except that an untied embedding table gives one
+    row and each MoE layer its ``moe_top_k`` chosen experts (one row routes
+    to ``top_k`` distinct experts), recorded by ``layer_routes``."""
+    from repro_torch.models import transformer
+
+    cfg = get_config(arch).smoke
+    params = cs.stacked_params(cfg, "cpu")
+    cache = transformer.init_cache(cfg, 1, 256, device="cpu")
+    token = torch.tensor([5], dtype=torch.int32)
+    per = transformer.unstack_layers(params)
+    with cs.layer_routes(tl, per) as tape:
+        transformer.decode_step(cfg, per, cache, token, 255)
+    got = cs.decode_wave_bytes(cfg, params, cache, token,
+                               tape if cfg.moe_experts else None)
+    c = cache["k"].shape[2]
+    cache_bytes = 2 * 2 * cfg.n_layers * c * cfg.n_kv * cfg.head_dim
+    exp = cache_bytes + cache_bytes // c + 4 * cfg.vocab
+    for path, x in specs.tree_paths(params):
+        n = x.numel()
+        if path == "['embed']" and not cfg.tie_embeddings:
+            n = cfg.d_model
+        elif "['moe']" in path and "router" not in path:
+            n = n // cfg.moe_experts * cfg.moe_top_k
+        exp += 4 * n
+    assert got == exp
+    assert all(r[0].gate_idx.unique().numel() == cfg.moe_top_k
+               for r in tape.routes)
+
+
+def test_rope_card_vs_cpu_glue_on_the_cpu(cs):
+    """Phase 20's RoPE gate run with the CPU on both sides: every arch's
+    head dim and theta at ``ROPE_ENDS``, each difference 0."""
+    for arch in dict(cs.DECODE_RUNS):
+        res = cs.rope_card_vs_cpu(get_config(arch).model, "cpu")
+        assert res == {end: 0.0 for end in cs.ROPE_ENDS}
