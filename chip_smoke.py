@@ -89,12 +89,14 @@
    path holds ``repro_torch`` alone, at 20,000 nodes (``LAUNCHER_REDUCED``
    says why): a primary with ``--store``, ``--metrics-port 0`` (scraped
    and parsed with ``expo.parse`` while it lingers), ``--trace-out``,
-   ``--trace-jsonl`` and ``--profile-dir``; then ``--restore``, which must
-   continue from the generation it stopped at; then ``--router
-   --replicas 2 --pipeline``.  Every exit code must be 0, every profiled
-   region's trace must hold each launch's and copy's device record, and
-   the merged trace (``python -m repro_torch.obs.merge``) must join the
-   replicas' applies to the router's writes.
+   ``--trace-jsonl`` and ``--profile-dir``; then ``--router --replicas 2
+   --pipeline`` (the ``--restore`` run went to pay for phases 17 and 18's
+   deeper steps: phase 5 holds the restore at full width, and
+   ``tests/test_torch_serve_truss.py`` the launcher's ``--restore``).
+   Every exit code must be 0, every profiled region's trace must hold
+   each launch's and copy's device record, and the merged trace (``python
+   -m repro_torch.obs.merge``) must join the replicas' applies to the
+   router's writes.
 8. Drives the sharded substrate at full width on ``make_shard_mesh(S)``
    (every shard on the one card) for S = 2 and 4: ``DynamicGraph(...,
    mesh=..., partition=...)`` with ``partition="replicated"`` (K1 on each
@@ -233,15 +235,19 @@
     subprocess before phase 13 on a path holding ``repro_torch`` alone,
     with no card visible: exit 0 with 72/72 cells traced, each cell's
     per-device argument GB on both meshes (computed from shapes), matmul
-    flops and trace seconds logged.  Three plans run on the card at
+    flops and trace seconds logged.  Four plans run on the card at
     ``make_test_mesh((1, 1))``, each cell's global shape and full config
     (``PLAN_CELLS``): ``qwen3-0.6b/prefill_32k`` (K3's wgmma body once a
     layer, rows 0-1 against a direct ``prefill`` of those rows within
     ``LOGIT_RTOL`` of the largest |logit|), ``xdeepfm/serve_bulk`` (K4
-    once, K5 three times) and ``gcn-cora/full_graph_sm``'s train step (K4
-    three times; the batch from ``gnn_cell_batch``, as in phase 19),
-    those two bitwise against the model's own entry point on
-    the same tensors; each plan's arguments equal to its meta trace's
+    once, K5 three times), ``xdeepfm/train_batch``'s donated step at
+    65,536 rows (K4 once, K5 three times forward; its peak beside phase
+    14's launcher run) and ``gcn-cora/full_graph_sm``'s (K4 three times;
+    the batch from ``gnn_cell_batch``, as in phase 19), those three
+    bitwise against the model's own entry point on the same tensors (a
+    train plan steps on a clone of its parameters and optimizer state,
+    each leaf of which must keep its storage, against the returning step
+    from the originals); each plan's arguments equal to its meta trace's
     shapes, dtypes and ``argument_size_in_bytes``, its outputs to the
     trace's shapes and dtypes, finite; seconds and peak memory logged.
     Then one MoE layer of each MoE arch at full width on ``[1, 8192]``
@@ -251,16 +257,21 @@
     layer's gradients (``x``, the router, each expert stack); forward and
     backward timed.
 17. Trains the two MoE archs at full width (``MOE_TRAIN_RUNS``), each
-    depth cut to the deepest whose step's fp32 copies of the parameters
-    fit in ``TRAIN_FIT`` of the card (``depth_cut``, the reckoning
-    printed), the batch of ``train_4k`` cut to ``[4, 4096]``: mixtral-8x7b
-    (1 of 32 layers) three AdamW steps of ``make_train_step``
-    (``adamw_steps``) with ``launch.train._lm_setup``'s stream, loss and
-    initialiser (step seconds, losses, peak memory, the last step under
-    ``torch.profiler``; the loop and its checkpoint run in phase 14);
-    llama4-scout-17b-a16e (1 of 48) loss and gradients only (its AdamW
-    step holds ~8 fp32 copies, 133 GB at depth 1), profiled once.
-    The counts are set to 0 just before each arch's run and read just
+    through the donated step of its cut ``train_4k`` plan
+    (``specs.build_cell`` at ``make_test_mesh((1, 1))``, the stacked
+    parameters from ``PLAN_SEED``), its depth cut to the deepest whose
+    donated step's 4 fp32 copies of the parameters (params, grads, mu, nu)
+    and the update's slices fit in ``TRAIN_FIT`` of the card
+    (``depth_cut``, the reckoning printed), the batch of ``train_4k`` cut
+    to ``[4, 4096]``: mixtral-8x7b (2 of 32 layers) and
+    llama4-scout-17b-a16e (1 of 48) three AdamW steps each (``adamw_steps``:
+    step seconds, losses, peak memory, the last step under
+    ``torch.profiler``; the loop and its checkpoint run in phase 14).
+    After every step each leaf of params, ``mu`` and ``nu`` must keep its
+    storage; the peak must stay within the reckoning, the largest stacked
+    leaf and the transient the donated steps measured on the card
+    (``check_step_peak``; what the process held beside is subtracted).
+    The counts are set to 0 just before each arch's steps and read just
     after: K3's wgmma body twice a layer a step (each layer and its
     recompute), its SIMT body, K4 and K5 never.  Each arch's step is then
     held against ``use_kernels(False)`` at matched routing, keyed by layer
@@ -271,7 +282,10 @@
     Frobenius, beside the plain route's own spread with its attention
     blocks halved, each route's own choices differing only within
     ``ROUTE_TIE_GAP`` of a tie; mixtral's once more at ``[1, 8192]``,
-    where its 4,096 window masks.
+    where its 4,096 window masks.  Last, mixtral's same-bits gate at 1
+    layer (``same_bits_at_cut``): three donated steps equal three
+    returning steps from the same seeded start (two inits bitwise equal),
+    bitwise.
 18. The dense LM family at full width (``DENSE_RUNS``), each arch from one
     seeded initialisation on the card, built, driven and freed in turn:
     starcoder2-7b (LayerNorm, GELU, untied embeddings, 36 q / 4 kv heads
@@ -283,17 +297,18 @@
     within ``LOGIT_RTOL`` of the largest; ``DecodeEngine`` serving 4
     requests of 64 + 16 tokens (each wave timed) with phase 10's
     consistency gates.  Then the first layers of the same parameters at
-    the depth cut (``depth_cut``: the deepest whose AdamW step's ~8 fp32
-    copies fit in ``TRAIN_FIT`` of the card; starcoder2 7 of 32, gemma 14
-    of 18), ``train_4k`` cut to ``[4, 4096]``: the first step's loss and
-    gradients against ``use_kernels(False)`` (phase 14's gates, beside the
-    plain route's own spread with its attention blocks halved), then three
-    AdamW steps of ``make_train_step`` from the same parameters and
-    batches (step seconds, losses, peak memory, the last step profiled;
-    the first step's loss equal to the checked one).  The counts are set
-    to 0 just before each arch's prefill and serving and just before its
-    steps, and read just after: K3's wgmma body once a layer a prefill
-    call and twice a layer a step, its SIMT body, K4 and K5 never.  Then
+    the depth cut (``depth_cut``, as in phase 17: starcoder2 17 of 32,
+    gemma 18 of 18), stacked, ``train_4k`` cut to ``[4, 4096]``: the first
+    step's loss and gradients against ``use_kernels(False)`` (phase 14's
+    gates, beside the plain route's own spread with its attention blocks
+    halved), then three donated AdamW steps of the cut plan from the same
+    parameters and batches (step seconds, losses, peak memory, the last
+    step profiled; the first step's loss equal to the checked one; the
+    storage and peak gates).  The counts are set to 0 just before each
+    arch's prefill and serving and just before its steps, and read just
+    after: K3's wgmma body once a layer a prefill call and twice a layer a
+    step, its SIMT body, K4 and K5 never.  Then the same-bits gate at 2
+    layers of qwen3-0.6b, gemma-2b and starcoder2-7b.  Then
     K3 at starcoder2-7b's layout ``[4, 4096, 36 q / 4 kv, 128]`` against
     its plain version, timed in turns with ``scaled_dot_product_attention``
     (causal, ``enable_gqa``) beside its bound.
@@ -473,12 +488,12 @@ MOE_K3_LAYOUTS = {"mixtral": (1, 8192, 32, 8, 128, 4096),   # b, s, hq, hkv, dh,
                   "mixtral_train": (4, 4096, 32, 8, 128, 4096)}  # training too
 # Phase 16: the cell plans.  The dry-run of all 36 cells on both production
 # meshes as a subprocess (started before phase 13, it runs beside phases
-# 13-15), then three plans on the card at each cell's global shape and full
+# 13-15), then four plans on the card at each cell's global shape and full
 # config, at make_test_mesh((1, 1)), and one MoE layer of each MoE arch at
 # full width on phase 15's mixtral shape over a model axis of 16
 DRYRUN_CELLS, DRYRUN_TIMEOUT = 72, 900
 PLAN_CELLS = (("qwen3-0.6b", "prefill_32k"), ("xdeepfm", "serve_bulk"),
-              ("gcn-cora", "full_graph_sm"))
+              ("xdeepfm", "train_batch"), ("gcn-cora", "full_graph_sm"))
 PLAN_SEED, PLAN_LM_ROWS = 0, 2
 BRANCH_SHAPE, BRANCH_MESH = (1, 8192), (1, 16)
 # the model-sharded branch's bf16 output against mesh=None: relative
@@ -489,19 +504,35 @@ BRANCH_SHAPE, BRANCH_MESH = (1, 8192), (1, 16)
 # only the gates' gradient reads the combined bf16 partials, as the
 # forward's sum does
 BRANCH_FRO = 2e-2
-# Phase 17: MoE training at full width.  Each arch's depth is cut to the
-# deepest whose step holds in TRAIN_FIT of the card's memory: mixtral's
-# AdamW step (make_train_step) holds ~8 fp32 copies of its parameters
-# (params, grads, mu, nu, the clipped grads, and the new params, mu and nu
-# that adamw_update returns as fresh tensors); llama4-scout's gradient
-# against the plain route holds 3 (params and two gradient trees), and its
-# AdamW step would need 8 at any depth.  train_4k's [256, 4096] is cut to
-# [4, 4096]
-ADAMW_COPIES = 8
-MOE_TRAIN_RUNS = (("mixtral-8x7b", "adamw", ADAMW_COPIES, 4, 4096),  # arch,
-                  ("llama4-scout-17b-a16e", "grad", 3, 4, 4096))  # step,
-TRAIN_FIT = 0.8                                          # copies, b, s
+# Phases 17 and 18: training at full width.  Each step is the donating step
+# of the cut arch's train_4k plan (specs.build_cell at make_test_mesh((1,
+# 1)): make_train_step(..., donate=True)), which holds DONATED_COPIES fp32
+# copies of the parameters (params, grads, mu, nu; adamw_update_ writes the
+# new params, mu and nu into the old in slices of ADAMW_SLICE elements, at
+# most three fp32 slices of temporaries).  Each arch's depth is cut to the
+# deepest whose copies and those slices fit in TRAIN_FIT of the card
+# (depth_cut); train_4k's [256, 4096] is cut to [4, 4096]
+DONATED_COPIES = 4
+MOE_TRAIN_RUNS = (("mixtral-8x7b", 4, 4096),               # arch, b, s
+                  ("llama4-scout-17b-a16e", 4, 4096))
+TRAIN_FIT = 0.8
 ADAMW_STEPS = 3
+# the peak gate: a step's peak, less what the process held beside the
+# parameters before the steps, over its reckoning (depth_cut's), the
+# largest stacked leaf (unbind's backward stacks one leaf's per-layer
+# gradients into a new [L, ...] tensor at a time, at the end of the
+# backward) and the transient a donated step measured above those two
+# fails the phase.  The transients (activations, the tied or untied
+# embedding's gradient sums, the update's slices) as the first card runs
+# of the donated steps read them, rounded up to the next 0.5 GB: gemma-2b
+# 1.64, starcoder2-7b 1.25, mixtral-8x7b 3.30, llama4-scout 3.57 GB (NVIDIA
+# H100 80GB HBM3, 700 W)
+STEP_TRANSIENT_GB = {"gemma-2b": 2.0, "starcoder2-7b": 1.5,
+                     "mixtral-8x7b": 3.5, "llama4-scout-17b-a16e": 4.0}
+# the same-bits gate: at these cuts (arch: layers) ADAMW_STEPS donated steps
+# equal as many returning steps from the same start, bitwise
+SAME_BITS_CUTS = {"qwen3-0.6b": 2, "gemma-2b": 2, "starcoder2-7b": 2,
+                  "mixtral-8x7b": 1}
 # mixtral's extra step: at 4,096 positions its 4,096 window never masks a
 # key; at 8,192 the band reaches K3's forward and attention_vjp_ref's
 # windowed query blocks
@@ -511,8 +542,7 @@ MOE_WINDOW_STEP = (1, 8192)
 FIRST_LOSS_GAP = 1.0
 # Phase 18: the dense LM family at full width.  Each arch prefills and
 # serves at full width and depth from seeded weights, then trains at its
-# depth cut: the first layers of the same parameters, the deepest depth
-# whose AdamW step's ADAMW_COPIES fp32 copies fit in TRAIN_FIT of the card;
+# depth cut (depth_cut): the first layers of the same parameters, stacked;
 # train_4k's [256, 4096] cut to [4, 4096]
 DENSE_RUNS = (("starcoder2-7b", 4, 4096),   # arch, prefill batch, seq
               ("gemma-2b", 1, 4096))
@@ -573,6 +603,24 @@ FIRST_STEP_RTOL, FIRST_LOSS_FLOOR = 1e-5, 0.1
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator growing its segments in place while the
+    block runs (phases 17 and 18), its cache emptied on the way in and
+    out.  The donated steps at starcoder2-7b's 17 layers peak at ~85% of
+    the card; with fixed segments the stacked gradient's 5.4 GiB found no
+    block in 14 GiB of cached, fragmented free space.  The other phases
+    keep fixed segments: growing in place maps pages at each new
+    allocation after an ``empty_cache``, which they call often."""
+    torch.cuda.empty_cache()
+    torch.cuda.memory._set_allocator_settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        torch.cuda.memory._set_allocator_settings("expandable_segments:False")
 
 
 def sync(dev) -> None:
@@ -1859,9 +1907,9 @@ def drive_launcher(dev) -> dict:
     """``python -m repro_torch.launch.serve_truss`` as a subprocess on the
     card: a primary with ``--store``, ``--metrics-port 0`` (scraped while it
     lingers), ``--trace-out``, ``--trace-jsonl`` and ``--profile-dir``;
-    then ``--restore``; then ``--router --replicas 2 --pipeline``.  Checks
-    the exit codes, the restored generation, every profiled region's
-    device records and the merged trace's joins."""
+    then ``--router --replicas 2 --pipeline``.  Checks the exit codes,
+    every profiled region's device records and the merged trace's
+    joins."""
     import urllib.error
     import urllib.request
     from repro_torch.obs import expo, profiling
@@ -1908,17 +1956,6 @@ def drive_launcher(dev) -> dict:
             f"/metrics scraped while lingering ({len(fams)} families, "
             f"committed gen {fams['truss_committed_gen']['values']}), "
             f"/healthz {code} {json.dumps(health)}")
-
-        _, text, out["restore_s"] = run_launcher(
-            common + ["--store", store, "--restore", "--ticks", "2"],
-            env, LAUNCHER_TIMEOUT_S)
-        restored = _stats_after(text, "restored: ")["gen"]
-        final = _stats_after(text, "final: ")["gen"]
-        if restored != gen or final <= gen:
-            raise AssertionError(f"--restore at gen {restored} -> {final}, "
-                                 f"the first run ended at {gen}")
-        log(f"launcher --restore: {out['restore_s']:.1f} s, continued from "
-            f"gen {restored} to {final}")
 
         _, text, out["router_s"] = run_launcher(
             common + ["--store", os.path.join(work, "store2"), "--router",
@@ -4186,17 +4223,22 @@ class LayerRoutes:
 def layer_routes(layers, params, replay=None):
     """Wrap ``layers.moe_route`` (which ``moe_apply`` calls through the
     module) for the calls of a model whose per-layer parameters are
-    ``params["layers"]`` (``i`` counts its MoE layers; a dense model has
-    none).  Each call is keyed by its layer, found by the router leaf's
-    storage (``value_and_grad`` hands the loss detached views of the same
-    storage), and by its count within that layer, not by call order: under
+    ``params["layers"]``, a list or a plan's stacked leaves (``i`` counts
+    its MoE layers; a dense model has none).  Each call is keyed by its
+    layer, found by the router leaf's storage (``value_and_grad`` hands the
+    loss detached views of the same storage), and by its count within that
+    layer, not by call order: under
     the per-layer ``checkpoint`` a layer is called again in the backward,
     in reverse layer order, and each decode step calls every layer once.
     Each call's own routing is recorded on the yielded ``LayerRoutes``.
     With ``replay`` (``replay(i, j)``: a ``gate_idx``), the ``j``-th call
     of layer ``i`` routes by ``replay(i, j)``; its own choice at those
     inputs is still computed (without a gradient) and recorded."""
+    from repro_torch.models import transformer
+
     orig = layers.moe_route
+    if isinstance(params["layers"], dict):       # a plan's stacked layers
+        params = transformer.unstack_layers(params)
     index = {lp["moe"]["router"].data_ptr(): i for i, lp in enumerate(
         [lp for lp in params["layers"] if "moe" in lp])}
     seen = LayerRoutes(len(index))
@@ -4941,6 +4983,8 @@ def _plan_args(arch, cell, plan, dev, batch: dict | None = None) -> tuple:
         params = recsys.init_params(arch.model, gen)
         nb = synthetic.ClickStream(arch.model, cell.params["batch"],
                                    seed=PLAN_SEED).next()
+        if cell.kind == "train_batch":
+            return params, adamw_init(params), recsys.batch_to_torch(nb, dev)
         return params, recsys.batch_to_torch(nb, dev)
     if batch is None:
         batch = gnn_cell_batch(arch, cell)[0]
@@ -4951,17 +4995,20 @@ def _plan_args(arch, cell, plan, dev, batch: dict | None = None) -> tuple:
 
 def _direct(arch, args, n_graphs: int = 0):
     """The model's own entry point on the plan's tensors (xDeepFM and the
-    GNN family): ``recsys.serve``, or a train step of ``gnn.loss_fn`` with
-    the cell's ``n_graphs``."""
+    GNN family): ``recsys.serve``, or on ``(params, opt_state, batch)`` a
+    returning train step of the model's ``loss_fn`` (the GNN's with the
+    cell's ``n_graphs``)."""
     from repro_torch.models import gnn, recsys
     from repro_torch.training import optimizer
 
-    if arch.family == "recsys":
+    if arch.family == "recsys" and len(args) == 2:
         return recsys.serve(arch.model, *args)
-    step = optimizer.make_train_step(
-        lambda p, b: gnn.loss_fn(arch.model, p, b, n_graphs=n_graphs),
-        optimizer.AdamWConfig())
-    return step(*args)
+    if arch.family == "recsys":
+        loss_fn = lambda p, b: recsys.loss_fn(arch.model, p, b)  # noqa: E731
+    else:
+        loss_fn = lambda p, b: gnn.loss_fn(  # noqa: E731
+            arch.model, p, b, n_graphs=n_graphs)
+    return optimizer.make_train_step(loss_fn, optimizer.AdamWConfig())(*args)
 
 
 def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
@@ -4974,7 +5021,12 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
     to 0 just before the call, read just after).  A GNN cell's batch comes
     from ``gnn_cell_batch`` (from ``host_dir`` when the host process built
     it); its step must launch K4 ``k4_per_step`` times, K3 and K5 never,
-    and equal the model's own step bitwise.  In phase 19 the step is also
+    and equal the model's own step bitwise.  A train plan (the GNN cells,
+    ``xdeepfm/train_batch``: K4 once, K5 three times) donates its
+    parameters and optimizer state: it steps on a clone of them
+    (``clone_donated``), each leaf of which must keep its storage, and is
+    held bitwise against the model's own returning step from the
+    originals (``_direct``).  In phase 19 the step is also
     held against ``use_kernels(False)`` (``step_vs_plain``), and
     ``PROFILED_CELL``'s step is profiled and K4 timed on its inputs."""
     from repro_torch.configs import get_config
@@ -4990,7 +5042,8 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
                           lmesh.make_test_mesh((1, 1), device="meta"), "1x1")
     if not rec["ok"]:
         raise AssertionError(f"{arch_id}/{cell_name} on meta: {rec['error']}")
-    plan = specs.build_cell(arch, cell, lmesh.make_test_mesh((1, 1), device=dev))
+    plan = specs.build_cell(arch, cell,
+                            lmesh.make_test_mesh((1, 1), device=dev))
     batch, built, host_s, n_graphs = None, None, None, 0
     if arch.family == "gnn":
         n_graphs = specs._gnn_batch_structs(arch, cell)[1]
@@ -5013,13 +5066,20 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
         raise AssertionError(f"{arch_id}/{cell_name}: {n_bytes} argument bytes "
                              f"on the card, the dry-run says "
                              f"{rec['argument_size_in_bytes']}")
+    # a train plan donates its parameters and optimizer state: it steps on
+    # a clone, so the model's own step and the plain route start from the
+    # same arguments; every donated leaf must keep its storage
+    donated = clone_donated(args) if plan.donate_argnums == (0, 1) else args
+    before = leaf_ptrs(donated[:2]) if donated is not args else None
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     reset_counts(flash_attention, segment_matmul, cin)
     t = time.perf_counter()
-    out = plan.fn(*args)
+    out = plan.fn(*donated)
     sync(dev)
     run_s = time.perf_counter() - t
+    if donated is not args:
+        check_storage_kept(before, donated[:2], f"{arch_id}/{cell_name}")
     launches = {"flash_attention": dict(flash_attention.LAUNCHES_BY_BODY),
                 "segment_matmul": segment_matmul.LAUNCHES, "cin": cin.LAUNCHES}
     res = {"init_s": init_s, "run_s": run_s, "arg_bytes": n_bytes,
@@ -5031,6 +5091,9 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
            "launches": launches}
     if host_s is not None:
         res.update(batch_host_s=host_s, built=built)
+    if donated is not args:
+        res["storage_kept"] = True
+        del donated
     got = dryrun._shape_tree(out)
     if got != rec["outputs"]:
         raise AssertionError(f"{arch_id}/{cell_name}: outputs {got}, the meta "
@@ -5068,7 +5131,7 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
                 raise AssertionError(f"{arch_id}/{cell_name}: {p} differs from "
                                      f"the model's own entry point")
         res["bitwise_vs_direct"] = True
-        if arch.family == "gnn":
+        if plan.donate_argnums:
             res["loss"] = float(out[2]["loss"])
             if not np.isfinite(res["loss"]):
                 raise AssertionError(f"{arch_id}/{cell_name}: loss {res['loss']}")
@@ -5097,10 +5160,11 @@ def gnn_cell_checks(ops, ref, arch, cell, plan, args, n_graphs: int,
     cfg, what = arch.model, f"{arch.arch_id}/{cell.name}"
     out = {}
     if (arch.arch_id, cell.name) == PROFILED_CELL:
-        top = []
-        out["profiled_busy"] = profiled(lambda: plan.fn(*args),
+        top, donated = [], clone_donated(args)
+        out["profiled_busy"] = profiled(lambda: plan.fn(*donated),
                                         require="segment_sum", top=top)
         out["top_ops"] = top
+        del donated
     torch.cuda.reset_peak_memory_stats()
     vs, seen = step_vs_plain(
         ops, ref, lambda p, b: gnn.loss_fn(cfg, p, b, n_graphs=n_graphs),
@@ -5208,10 +5272,13 @@ def check_expert_branches(dev, card: str) -> dict:
     return out
 
 
-def drive_plans(dev, card: str, dryrun_run: dict) -> dict:
-    """Phase 16: the dry-run's result (started before phase 13), the three
-    plans run on the card, the expert block's mesh branches.  ``launches``
-    sums the plans' launches by kernel."""
+def drive_plans(dev, card: str, dryrun_run: dict,
+                recsys_launcher_peak_gb: float) -> dict:
+    """Phase 16: the dry-run's result (started before phase 13), the
+    plans of ``PLAN_CELLS`` run on the card (``xdeepfm/train_batch``'s peak
+    logged beside phase 14's launcher run of the returning loop, whose
+    peak is ``recsys_launcher_peak_gb``), the expert block's mesh branches.
+    ``launches`` sums the plans' launches by kernel."""
     t_phase = time.perf_counter()
     out = {"dryrun": finish_dryrun(dryrun_run, card), "plans": {}}
     launches = {"flash_attention_wgmma": 0, "flash_attention_simt": 0,
@@ -5223,6 +5290,11 @@ def drive_plans(dev, card: str, dryrun_run: dict) -> dict:
         launches["flash_attention_simt"] += r["launches"]["flash_attention"]["simt"]
         launches["segment_matmul"] += r["launches"]["segment_matmul"]
         launches["cin"] += r["launches"]["cin"]
+    r = out["plans"]["xdeepfm/train_batch"]
+    r["launcher_peak_gb"] = recsys_launcher_peak_gb
+    log(f"phase 16 xdeepfm/train_batch ({card}): the plan's donated step "
+        f"peaks at {r['peak_gb']:.2f} GB, phase 14's launcher run (the "
+        f"returning step of loop.run) at {recsys_launcher_peak_gb:.2f} GB")
     out["launches"] = launches
     out["branches"] = check_expert_branches(dev, card)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -5233,33 +5305,37 @@ def drive_plans(dev, card: str, dryrun_run: dict) -> dict:
 # Phase 17: MoE training at full width on the card
 # ---------------------------------------------------------------------------
 
-def depth_cut(arch_id: str, copies: int, card_bytes: int) -> tuple:
+def depth_cut(arch_id: str, card_bytes: int) -> tuple:
     """The full config of the LM arch ``arch_id`` cut to the deepest depth
-    at which ``copies`` fp32 copies of its parameters fit in ``TRAIN_FIT``
-    of ``card_bytes``, and the reckoning: the GB those copies take at each
-    depth up to the first that does not fit (or the full depth), the limit
-    and the card."""
+    at which its donated AdamW step fits in ``TRAIN_FIT`` of
+    ``card_bytes``: ``DONATED_COPIES`` fp32 copies of its parameters and
+    the update's three fp32 slices of ``ADAMW_SLICE`` elements; and the
+    reckoning: the GB these take at each depth up to the first that does
+    not fit (or the full depth), the limit and the card."""
     from repro_torch.models import transformer
+    from repro_torch.training.optimizer import ADAMW_SLICE
 
     full = model_cfg(arch_id)
+    slices = 3 * 4 * ADAMW_SLICE
     limit, gb, depth = TRAIN_FIT * card_bytes, {}, 0
     for d in range(1, full.n_layers + 1):
-        need = 4 * copies * transformer.param_count(
-            dataclasses.replace(full, n_layers=d))
+        need = 4 * DONATED_COPIES * transformer.param_count(
+            dataclasses.replace(full, n_layers=d)) + slices
         gb[d] = need / 1e9
         if need > limit:
             break
         depth = d
     if depth == 0:
-        raise AssertionError(f"{arch_id}: {copies} fp32 copies of one layer's "
-                             f"parameters take {gb[1]:.1f} GB, over "
+        raise AssertionError(f"{arch_id}: {DONATED_COPIES} fp32 copies of one "
+                             f"layer's parameters take {gb[1]:.1f} GB, over "
                              f"{limit / 1e9:.1f} GB")
     return dataclasses.replace(full, n_layers=depth), {
-        "copies": copies, "gb_by_depth": gb, "limit_gb": limit / 1e9,
+        "copies": DONATED_COPIES, "adamw_slices_gb": slices / 1e9,
+        "gb_by_depth": gb, "limit_gb": limit / 1e9,
         "card_gb": card_bytes / 1e9}
 
 
-def log_depth_cut(arch_id: str, cfg, cut: dict, step: str, card: str) -> None:
+def log_depth_cut(arch_id: str, cfg, cut: dict, card: str) -> None:
     from repro_torch.models import transformer
 
     full = model_cfg(arch_id)
@@ -5267,33 +5343,172 @@ def log_depth_cut(arch_id: str, cfg, cut: dict, step: str, card: str) -> None:
     log(f"{arch_id}: DEPTH CUT {full.n_layers} -> {cfg.n_layers} layers at "
         f"full width (d {cfg.d_model}, {cfg.n_heads} q / {cfg.n_kv} kv heads "
         f"of {cfg.head_dim}, d_ff {cfg.d_ff}, {cfg.moe_experts} experts, "
-        f"window {cfg.window}, vocab {cfg.vocab}): the {step} step holds "
-        f"~{cut['copies']} fp32 copies of the "
-        f"{transformer.param_count(cfg):,} parameters; GB by depth "
+        f"window {cfg.window}, vocab {cfg.vocab}): the donated AdamW step "
+        f"holds {cut['copies']} fp32 copies of the "
+        f"{transformer.param_count(cfg):,} parameters and "
+        f"{cut['adamw_slices_gb']:.2f} GB of update slices; GB by depth "
         f"{json.dumps(gb)}, limit {cut['limit_gb']:.1f} of "
         f"{cut['card_gb']:.1f} GB ({card})")
 
 
-def adamw_steps(cfg, loss_fn, init, stream, dev, mods) -> tuple:
-    """``ADAMW_STEPS`` AdamW steps of ``make_train_step`` with
-    ``launch.train.setup``'s optimizer settings, from ``init()``'s
-    parameters (held here alone, so each step frees what it replaces), one
-    batch of ``stream`` a step.  The kernel counts are set to 0 just
-    before the first step and read just after the last; each step is
-    synchronised and timed with its loss read back, the last one under
-    ``torch.profiler``; the peak device memory is read.  Returns the record
-    and the trained parameters."""
-    from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
-                                                make_train_step)
+def train_plan(arch_id: str, cfg, b: int, s: int, dev):
+    """``arch_id``'s ``train_4k`` plan at ``cfg`` (a depth cut) with its
+    batch cut to ``[b, s]``, built at ``make_test_mesh((1, 1))`` on
+    ``dev``; its ``fn`` is the donating step."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeCell
+    from repro_torch.launch import mesh as lmesh, specs
+
+    arch = dataclasses.replace(get_config(arch_id), model=cfg)
+    cell = ShapeCell("train_4k", "train", {"batch": b, "seq": s})
+    plan = specs.build_cell(arch, cell,
+                            lmesh.make_test_mesh((1, 1), device=dev))
+    if plan.donate_argnums != (0, 1) or not plan.fn.donate:
+        raise AssertionError(f"{arch_id}/train_4k: the plan donates "
+                             f"{plan.donate_argnums}, its step donate="
+                             f"{plan.fn.donate}")
+    return plan
+
+
+def stacked_leaf_gb(plan) -> float:
+    """GB of the plan's largest stacked (``[L, ...]``) fp32 parameter:
+    unbind's backward builds one such gradient at a time from the
+    per-layer ones."""
+    from repro_torch.launch.specs import tree_paths
+    return max(x.numel() * x.element_size()
+               for _, x in tree_paths(plan.args[0]["layers"])) / 1e9
+
+
+def leaf_ptrs(tree) -> list:
+    from repro_torch.training.optimizer import tree_leaves
+    return [x.data_ptr() for x in tree_leaves(tree)]
+
+
+def check_storage_kept(before: list, tree, what: str) -> None:
+    """Every leaf of ``tree`` (a donated step's parameters and state) at
+    the ``data_ptr`` it had before the step."""
+    after = leaf_ptrs(tree)
+    moved = [i for i, (a, b) in enumerate(zip(before, after)) if a != b]
+    if len(before) != len(after) or moved:
+        raise AssertionError(f"{what}: {len(moved)} of {len(before)} donated "
+                             f"leaves moved (first {moved[:5]})")
+
+
+def clone_donated(args: tuple) -> tuple:
+    """A train plan's arguments with the donated trees (0 and 1) cloned,
+    the batch as it is."""
+    from repro_torch.training.optimizer import tree_map
+    return (tree_map(torch.clone, args[0]), tree_map(torch.clone, args[1]),
+            *args[2:])
+
+
+def _leaves_differ(a, b) -> list:
+    """Indices of the leaves of two trees that differ in dtype or bits."""
+    from repro_torch.training.optimizer import tree_leaves
+    return [i for i, (x, y) in enumerate(zip(tree_leaves(a), tree_leaves(b)))
+            if x.dtype != y.dtype or not torch.equal(x, y)]
+
+
+def donated_vs_returning(step, init, batches, what: str) -> dict:
+    """``len(batches)`` donated steps (``step``: ``make_train_step(...,
+    donate=True)``) against as many returning steps of the same loss and
+    settings from the same start.  ``init()`` gives the parameters and
+    optimizer state from a seed, each call's held here alone: two calls
+    must agree bitwise (the start is reproducible: the second is a clone
+    of the first), the first takes the returning steps, and a third, with
+    the returning steps' results beside it, the donated ones, so no more
+    than a returning step's 8 copies or 3 + 4 exist at once.  Each donated
+    step must keep every leaf at its storage and return the same tree
+    objects; every leaf of the two results and each step's stats must be
+    equal bitwise (``torch.equal`` and the same dtype)."""
+    from repro_torch.training import optimizer as opt
+
+    t = time.perf_counter()
+    p, o = init()
+    differ = _leaves_differ((p, o), init())
+    if differ:
+        raise AssertionError(f"{what}: two seeded inits differ in leaves "
+                             f"{differ[:5]}")
+    gc.collect()
+    returning = opt.make_train_step(step.loss_fn, step.opt_cfg,
+                                    step.compression)
+    d_stats, r_stats = [], []
+    for batch in batches:
+        p, o, stats = returning(p, o, batch)
+        r_stats.append({k: v.item() for k, v in stats.items()})
+    params, opt_state = init()
+    before = leaf_ptrs((params, opt_state))
+    for batch in batches:
+        got = step(params, opt_state, batch)
+        check_storage_kept(before, got[:2], what)
+        if got[0] is not params or got[1] is not opt_state:
+            raise AssertionError(f"{what}: the donated step returned new "
+                                 f"trees")
+        d_stats.append({k: v.item() for k, v in got[2].items()})
+    differ = _leaves_differ((params, opt_state), (p, o))
+    del p, o, params, opt_state, got
+    if differ or d_stats != r_stats:
+        raise AssertionError(f"{what}: the donated steps differ from the "
+                             f"returning ones in leaves {differ[:5]}; stats "
+                             f"{d_stats} vs {r_stats}")
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+    return {"steps": len(batches), "leaves": len(before), "bitwise": True,
+            "losses": [x["loss"] for x in d_stats],
+            "s": time.perf_counter() - t}
+
+
+def same_bits_at_cut(arch_id: str, dev, card: str) -> dict:
+    """``donated_vs_returning`` at ``SAME_BITS_CUTS[arch_id]`` layers of the
+    full width: the cut's ``train_4k`` plan at ``[DENSE_TRAIN_BATCH,
+    DENSE_TRAIN_SEQ]``, ``ADAMW_STEPS`` batches of ``TokenStream``, the
+    parameters from ``PLAN_SEED`` (``stacked_params``)."""
+    from repro_torch.data.synthetic import TokenStream
+    from repro_torch.training.optimizer import adamw_init
+
+    cfg = dataclasses.replace(model_cfg(arch_id),
+                              n_layers=SAME_BITS_CUTS[arch_id])
+    b, s = DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ
+    plan = train_plan(arch_id, cfg, b, s, dev)
+    stream = TokenStream(cfg.vocab, b, s, seed=0)
+    batches = [{k: torch.as_tensor(v, device=dev)
+                for k, v in stream.next().items()} for _ in range(ADAMW_STEPS)]
+    def init():
+        params = stacked_params(cfg, dev)
+        return params, adamw_init(params)
+
+    rec = donated_vs_returning(plan.fn, init, batches,
+                               f"{arch_id} at {cfg.n_layers} layers")
+    rec["layers"] = cfg.n_layers
+    log(f"{arch_id}: {ADAMW_STEPS} donated steps == {ADAMW_STEPS} returning "
+        f"steps bitwise at {cfg.n_layers} layers, [{b}, {s}] ({card}): "
+        f"{json.dumps(rec)}")
+    return rec
+
+
+def adamw_steps(plan, arch_id: str, params, stream, dev, mods) -> tuple:
+    """``ADAMW_STEPS`` donated AdamW steps of a cut ``train_4k`` plan
+    (``train_plan``) from ``params`` (its stacked parameters), one batch of
+    ``stream`` a step.  The kernel counts are set to 0 just before the first
+    step and read just after the last; each step is synchronised and timed
+    with its loss read back, the last one under ``torch.profiler``; after
+    every step each leaf of params, ``mu`` and ``nu`` must keep its storage;
+    the peak device memory is read, and what the process held beside the
+    parameters before the steps (``other_gb``).  Returns the record and
+    the trained parameters."""
+    from repro_torch.training.optimizer import adamw_init, tree_leaves
 
     steps = ADAMW_STEPS
-    train_step = make_train_step(loss_fn, AdamWConfig(
-        total_steps=steps, warmup_steps=max(1, steps // 10)))
     batches = [{k: torch.as_tensor(v, device=dev)
                 for k, v in stream.next().items()} for _ in range(steps)]
-    params = init()
-    opt_state = adamw_init(params)
+    if _tree_sig(params) != _tree_sig(plan.args[0]):
+        raise AssertionError(f"{arch_id}: the parameters differ from the "
+                             f"plan's tree")
     gc.collect()
+    other = torch.cuda.memory_allocated(dev) - sum(
+        x.numel() * x.element_size() for x in tree_leaves(params))
+    opt_state = adamw_init(params)
+    before = leaf_ptrs((params, opt_state))
     reset_counts(*mods)
     torch.cuda.reset_peak_memory_stats(dev)
     rec = {"step_s": [], "loss": [], "grad_norm": [], "last_step_top_ops": []}
@@ -5301,7 +5516,7 @@ def adamw_steps(cfg, loss_fn, init, stream, dev, mods) -> tuple:
     for i, batch in enumerate(batches):
         session = profile_open() if i == steps - 1 else None
         t = time.perf_counter()
-        params, opt_state, stats = train_step(params, opt_state, batch)
+        params, opt_state, stats = plan.fn(params, opt_state, batch)
         rec["loss"].append(float(stats["loss"]))
         sync(dev)
         rec["step_s"].append(time.perf_counter() - t)
@@ -5309,8 +5524,11 @@ def adamw_steps(cfg, loss_fn, init, stream, dev, mods) -> tuple:
         if session is not None:
             rec["last_step_busy"] = profile_close(
                 session, top=rec["last_step_top_ops"])
+        check_storage_kept(before, (params, opt_state),
+                           f"{arch_id} donated step {i}")
     rec.update(s=time.perf_counter() - t0,
                peak_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+               other_gb=other / 1e9, storage_kept=True,
                launches={m.__name__.rsplit(".", 1)[-1]: m.LAUNCHES
                          for m in mods},
                by_body={m.__name__.rsplit(".", 1)[-1]: dict(m.LAUNCHES_BY_BODY)
@@ -5318,82 +5536,71 @@ def adamw_steps(cfg, loss_fn, init, stream, dev, mods) -> tuple:
     del opt_state, batches
     torch.cuda.empty_cache()
     if not np.all(np.isfinite(rec["loss"])):
-        raise AssertionError(f"{cfg.name} AdamW steps: {json.dumps(rec)}")
+        raise AssertionError(f"{arch_id} AdamW steps: {json.dumps(rec)}")
     return rec, params
+
+
+def check_step_peak(arch_id: str, plan, cfg, cut: dict, rec: dict) -> None:
+    """The peak gate: ``rec["peak_gb"]`` less ``rec["other_gb"]`` within
+    the reckoning at ``cfg``'s depth, the plan's largest stacked leaf and
+    ``STEP_TRANSIENT_GB[arch_id]``; the terms and the step's own transient
+    over the first two are written into ``rec``."""
+    reckoned = cut["gb_by_depth"][cfg.n_layers]
+    rec.update(reckoned_gb=reckoned, stacked_leaf_gb=stacked_leaf_gb(plan),
+               allowed_transient_gb=STEP_TRANSIENT_GB[arch_id])
+    own = rec["peak_gb"] - rec["other_gb"]
+    rec["transient_gb"] = own - reckoned - rec["stacked_leaf_gb"]
+    if rec["transient_gb"] > rec["allowed_transient_gb"]:
+        raise AssertionError(f"{arch_id}: peak {rec['peak_gb']:.2f} GB "
+                             f"({rec['other_gb']:.2f} held beside) over the "
+                             f"reckoning {reckoned:.2f} + the stacked leaf "
+                             f"{rec['stacked_leaf_gb']:.2f} + the allowed "
+                             f"transient {rec['allowed_transient_gb']} GB")
 
 
 def drive_moe_training(dev, card: str) -> dict:
     """Phase 17: the MoE archs' training at full width (``MOE_TRAIN_RUNS``,
-    depth and batch cuts labelled): mixtral-8x7b's AdamW steps
-    (``adamw_steps``) with ``launch.train._lm_setup``'s stream, loss and
-    initialiser, as ``launch.train.main`` builds them (the loop and its
-    checkpoint run in phase 14); llama4-scout's loss and gradients (its
-    AdamW step holds 8 copies at any depth), profiled once.  The kernel
-    counts are set to 0 just before each arch's run and read just after:
-    K3's wgmma body twice a layer a step (each layer and its recompute),
-    its SIMT body, K4 and K5 never.  Each arch's step is held against the
-    plain route at matched routing, and mixtral's once more at
-    ``MOE_WINDOW_STEP``.  ``launches`` sums K3's by body."""
+    depth and batch cuts labelled): each arch's ``ADAMW_STEPS`` donated
+    steps of its cut ``train_4k`` plan (``adamw_steps``; parameters from
+    ``PLAN_SEED``, batches of ``TokenStream``), the storage and peak gates.
+    The kernel counts are set to 0 just before each arch's steps and read
+    just after: K3's wgmma body twice a layer a step (each layer and its
+    recompute), its SIMT body, K4 and K5 never.  Then each arch's step is
+    held against the plain route at matched routing on the trained
+    parameters, mixtral's once more at ``MOE_WINDOW_STEP``, and mixtral's
+    same-bits gate (``same_bits_at_cut``).  ``launches`` sums K3's by
+    body."""
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.kernels import cin, flash_attention, ops, ref, segment_matmul
-    from repro_torch.launch import train
     from repro_torch.models import layers, transformer
-    from repro_torch.training import optimizer as opt
 
     t_phase = time.perf_counter()
     mods = (flash_attention, segment_matmul, cin)
     out = {"archs": {}, "launches": {"wgmma": 0, "simt": 0}}
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
-    for arch_id, step, copies, b, s in MOE_TRAIN_RUNS:
+    for arch_id, b, s in MOE_TRAIN_RUNS:
         t_arch = time.perf_counter()
-        cfg, cut = depth_cut(arch_id, copies, card_bytes)
+        cfg, cut = depth_cut(arch_id, card_bytes)
         n_full = model_cfg(arch_id).n_layers
-        adamw_gb = 4e-9 * ADAMW_COPIES * transformer.param_count(cfg)
         rec = {"reduced": f"depth {n_full} -> {cfg.n_layers} layers (full "
                           f"width); train_4k [256, 4096] cut to [{b}, {s}]",
                "layers": cfg.n_layers, "cut": cut,
                "cap": layers.moe_capacity(s, cfg.moe_experts,
                                           cfg.moe_top_k, cfg.moe_capacity),
-               "params": transformer.param_count(cfg),
-               "adamw_8p_gb": adamw_gb}
-        log_depth_cut(arch_id, cfg, cut, step, card)
+               "params": transformer.param_count(cfg)}
+        log_depth_cut(arch_id, cfg, cut, card)
         log(f"{arch_id}: BATCH CUT train_4k [256, 4096] -> [{b}, {s}]; "
             f"capacity {rec['cap']} slots an expert a row")
-        stream, loss_fn, init = train._lm_setup(cfg, b, s, 0, str(dev))
-        if step == "adamw":
-            rec["train"], params = adamw_steps(cfg, loss_fn, init, stream,
-                                               dev, mods)
-            got, loss0 = rec["train"], rec["train"]["loss"][0]
-            want = {"wgmma": 2 * cfg.n_layers * ADAMW_STEPS, "simt": 0}
-            log(f"phase 17 {arch_id} AdamW steps ({card}): "
-                f"{json.dumps(rec['train'])}")
-        else:
-            log(f"{arch_id}: no AdamW step: adamw_update returns new "
-                f"params, mu and nu beside the old, ~{ADAMW_COPIES} fp32 "
-                f"copies = {adamw_gb:.1f} GB at depth {cfg.n_layers}, over "
-                f"the card's {cut['card_gb']:.1f} GB; loss and gradients only")
-            params = init()
-            reset_counts(*mods)
-            got, want = None, {"wgmma": 2 * cfg.n_layers, "simt": 0}
-        batch = {k: torch.as_tensor(v, device=dev)
-                 for k, v in stream.next().items()}
-        t = time.perf_counter()
-        vs = lm_step_vs_plain(ops, ref, flash_attention, loss_fn, params,
-                               batch, f"{arch_id} step")
-        vs["s"] = time.perf_counter() - t
-        rec["vs_plain"] = vs
-        if got is None:
-            got = {"by_body": {"flash_attention": vs["launches"]},
-                   "launches": {"segment_matmul": segment_matmul.LAUNCHES,
-                                "cin": cin.LAUNCHES}}
-            loss0 = vs["loss"]
-            rec["grad_s"], rec["grad_peak_gb"] = \
-                vs["kernel_s"], vs["kernel_peak_gb"]
-            prof_top = []
-            rec["grad_busy"] = profiled(
-                lambda: opt.value_and_grad(loss_fn, params, batch),
-                top=prof_top)
-            rec["grad_top_ops"] = prof_top
+        plan = train_plan(arch_id, cfg, b, s, dev)
+        stream = TokenStream(cfg.vocab, b, s, seed=0)
+        rec["train"], params = adamw_steps(plan, arch_id,
+                                           stacked_params(cfg, dev), stream,
+                                           dev, mods)
+        check_step_peak(arch_id, plan, cfg, cut, rec["train"])
+        got, loss0 = rec["train"], rec["train"]["loss"][0]
+        want = {"wgmma": 2 * cfg.n_layers * ADAMW_STEPS, "simt": 0}
+        log(f"phase 17 {arch_id} donated AdamW steps at depth {cfg.n_layers} "
+            f"({card}): {json.dumps(rec['train'])}")
         if got["by_body"]["flash_attention"] != want or \
                 got["launches"]["segment_matmul"] or got["launches"]["cin"]:
             raise AssertionError(f"{arch_id} training launched "
@@ -5406,16 +5613,24 @@ def drive_moe_training(dev, card: str) -> dict:
         rec["launches"] = got["by_body"]["flash_attention"]
         for body, n in rec["launches"].items():
             out["launches"][body] += n
+        batch = {k: torch.as_tensor(v, device=dev)
+                 for k, v in stream.next().items()}
+        t = time.perf_counter()
+        vs = lm_step_vs_plain(ops, ref, flash_attention, plan.fn.loss_fn,
+                              params, batch, f"{arch_id} step")
+        vs["s"] = time.perf_counter() - t
+        rec["vs_plain"] = vs
         log(f"{arch_id} step vs plain at matched routing [{b}, {s}] "
             f"({card}; loss rtol {LM_STEP_LOSS_RTOL}, leaves "
             f"{LM_STEP_GRAD_FRO} relative Frobenius): {json.dumps(vs)}")
         del batch
-        if step == "adamw":
+        if cfg.window:
             wb, ws = MOE_WINDOW_STEP
             batch = {k: torch.as_tensor(v, device=dev) for k, v in
                      TokenStream(cfg.vocab, wb, ws, seed=1).next().items()}
             loss_w = lambda p, bb: transformer.loss_fn(  # noqa: E731
-                cfg, p, bb, xent_chunk=min(512, ws))
+                cfg, transformer.unstack_layers(p), bb,
+                xent_chunk=min(512, ws))
             t = time.perf_counter()
             vw = lm_step_vs_plain(ops, ref, flash_attention, loss_w,
                                    params, batch, f"{arch_id} [{wb}, {ws}]")
@@ -5424,8 +5639,11 @@ def drive_moe_training(dev, card: str) -> dict:
             log(f"{arch_id} step vs plain at matched routing [{wb}, {ws}] "
                 f"(window {cfg.window} masks) ({card}): {json.dumps(vw)}")
             del batch
-        del params, stream, loss_fn, init
+        del params, stream, plan
+        gc.collect()
         torch.cuda.empty_cache()
+        if arch_id in SAME_BITS_CUTS:
+            rec["same_bits"] = same_bits_at_cut(arch_id, dev, card)
         rec["s"] = time.perf_counter() - t_arch
         out["archs"][arch_id] = rec
     out["phase_s"] = time.perf_counter() - t_phase
@@ -5445,11 +5663,13 @@ def drive_dense_arch(ops, ref, fa, arch_id: str, batch: int, seq: int, dev,
     ``DecodeEngine`` serving ``SERVE_SLOTS`` requests of ``SERVE_PROMPT +
     SERVE_NEW`` tokens with phase 10's consistency gates; the kernel counts set to 0 just before and read just
     after (``launches["serving"]``).  Then the first layers of the same
-    parameters at the depth cut (``depth_cut``, ``ADAMW_COPIES``): the
-    first step's loss and gradients on ``[DENSE_TRAIN_BATCH,
-    DENSE_TRAIN_SEQ]`` against the plain route (``lm_step_vs_plain``),
-    then ``adamw_steps`` from the same parameters and batches
-    (``launches["training"]``: K3's wgmma body twice a layer a step)."""
+    parameters at the depth cut (``depth_cut``), stacked a leaf at a time
+    (``stack_leafwise``): the first step's loss and gradients on
+    ``[DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ]`` against the plain route
+    (``lm_step_vs_plain``), then ``adamw_steps``, the donated steps of the
+    cut ``train_4k`` plan, from the same parameters and batches
+    (``launches["training"]``: K3's wgmma body twice a layer a step), with
+    the storage and peak gates."""
     from repro_torch.data.synthetic import TokenStream
     from repro_torch.models import transformer
 
@@ -5498,7 +5718,7 @@ def drive_dense_arch(ops, ref, fa, arch_id: str, batch: int, seq: int, dev,
                              f"{[(m.__name__, m.LAUNCHES) for m in mods]}")
 
     t = time.perf_counter()
-    cut_cfg, cut = depth_cut(arch_id, ADAMW_COPIES,
+    cut_cfg, cut = depth_cut(arch_id,
                              torch.cuda.get_device_properties(dev).total_memory)
     b, s = DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ
     out["train"] = {"reduced": f"depth {cfg.n_layers} -> {cut_cfg.n_layers} "
@@ -5506,24 +5726,24 @@ def drive_dense_arch(ops, ref, fa, arch_id: str, batch: int, seq: int, dev,
                                f"cut to [{b}, {s}]",
                     "layers": cut_cfg.n_layers, "cut": cut,
                     "params": transformer.param_count(cut_cfg)}
-    log_depth_cut(arch_id, cut_cfg, cut, "AdamW", card)
-    held = {"params": dict(params, layers=params["layers"][:cut_cfg.n_layers])}
-    del params
+    log_depth_cut(arch_id, cut_cfg, cut, card)
+    params["layers"] = params["layers"][:cut_cfg.n_layers]
     gc.collect()
+    params = stack_leafwise(params)
     torch.cuda.empty_cache()
-    loss_fn = lambda p, bb: transformer.loss_fn(  # noqa: E731
-        cut_cfg, p, bb, xent_chunk=min(512, s))
+    plan = train_plan(arch_id, cut_cfg, b, s, dev)
     first = {k: torch.as_tensor(v, device=dev)
              for k, v in TokenStream(cfg.vocab, b, s, seed=0).next().items()}
-    vs = lm_step_vs_plain(ops, ref, fa, loss_fn, held["params"], first,
+    vs = lm_step_vs_plain(ops, ref, fa, plan.fn.loss_fn, params, first,
                           f"{arch_id} step")
     out["train"]["vs_plain"] = vs
     log(f"{arch_id} first step vs plain [{b}, {s}] ({card}; loss rtol "
         f"{LM_STEP_LOSS_RTOL}, leaves {LM_STEP_GRAD_FRO} relative Frobenius): "
         f"{json.dumps(vs)}")
     del first
-    rec, params = adamw_steps(cut_cfg, loss_fn, lambda: held.pop("params"),
+    rec, params = adamw_steps(plan, arch_id, params,
                               TokenStream(cfg.vocab, b, s, seed=0), dev, mods)
+    check_step_peak(arch_id, plan, cut_cfg, cut, rec)
     out["train"]["steps"] = rec
     want = {"wgmma": 2 * cut_cfg.n_layers * ADAMW_STEPS, "simt": 0}
     if rec["by_body"]["flash_attention"] != want or \
@@ -5542,19 +5762,21 @@ def drive_dense_arch(ops, ref, fa, arch_id: str, batch: int, seq: int, dev,
                              f"{cfg.vocab} = {np.log(cfg.vocab)}")
     out["launches"]["training"] = rec["by_body"]["flash_attention"]
     out["train"]["s"] = time.perf_counter() - t
-    log(f"phase 18 {arch_id} AdamW steps at depth {cut_cfg.n_layers} "
+    log(f"phase 18 {arch_id} donated AdamW steps at depth {cut_cfg.n_layers} "
         f"({card}): {json.dumps(rec)}; the first step's loss "
         f"{rec['loss'][0]} against {vs['loss']} in the check before it")
-    del params
+    del params, plan
+    gc.collect()
     torch.cuda.empty_cache()
     return out
 
 
 def drive_dense_family(dev, card: str) -> dict:
     """Phase 18: each arch of ``DENSE_RUNS`` through ``drive_dense_arch``,
-    built, driven and freed in turn, then K3 at starcoder2-7b's layout
-    (``DENSE_K3_LAYOUTS``) against its plain version and timed beside its
-    bound and ``scaled_dot_product_attention``."""
+    built, driven and freed in turn; the same-bits gate of the dense archs
+    of ``SAME_BITS_CUTS`` (``same_bits_at_cut``); then K3 at starcoder2-7b's
+    layout (``DENSE_K3_LAYOUTS``) against its plain version and timed beside
+    its bound and ``scaled_dot_product_attention``."""
     from repro_torch.kernels import cin, flash_attention, ops, ref, segment_matmul
 
     t_phase = time.perf_counter()
@@ -5567,6 +5789,8 @@ def drive_dense_family(dev, card: str) -> dict:
         res["s"] = time.perf_counter() - t
         out["archs"][arch_id] = res
         log(f"phase 18 {arch_id} ({card}): {json.dumps(res)}")
+    out["same_bits"] = {a: same_bits_at_cut(a, dev, card)
+                        for a in SAME_BITS_CUTS if a not in MOE_ARCHS}
     out["k3"] = time_k3_layouts(ops, ref, flash_attention, dev,
                                 DENSE_K3_LAYOUTS)
     out["phase_s"] = time.perf_counter() - t_phase
@@ -5759,16 +5983,10 @@ def log_decode_cut(arch, cut: dict, card: str) -> None:
         f"limit {cut['limit_gb']:.1f} of {cut['card_gb']:.1f} GB ({card})")
 
 
-def stacked_params(cfg, dev) -> dict:
-    """``_plan_args``'s LM parameters (``transformer.stack_layers`` of
-    ``init_params`` from ``PLAN_SEED``), stacked one leaf at a time with
-    each layer's copy of it freed as it goes, so the card never holds two
-    copies of the layers (mixtral's eight are 47.5 GB)."""
-    from repro_torch.models import transformer
-
-    params = transformer.init_params(
-        cfg, torch.Generator(dev).manual_seed(PLAN_SEED))
-
+def stack_leafwise(params: dict) -> dict:
+    """``transformer.stack_layers(params)``, stacked one leaf at a time
+    with each layer's copy of it freed as it goes, so the card never holds
+    two copies of the layers (mixtral's eight are 47.5 GB)."""
     def stack(trees):
         out = {}
         for k in list(trees[0]):
@@ -5780,6 +5998,15 @@ def stacked_params(cfg, dev) -> dict:
 
     params["layers"] = stack(params["layers"])
     return params
+
+
+def stacked_params(cfg, dev) -> dict:
+    """``_plan_args``'s LM parameters (``transformer.stack_layers`` of
+    ``init_params`` from ``PLAN_SEED``), stacked by ``stack_leafwise``."""
+    from repro_torch.models import transformer
+
+    return stack_leafwise(transformer.init_params(
+        cfg, torch.Generator(dev).manual_seed(PLAN_SEED)))
 
 
 def fill_cache(cache: dict, seed: int, start: int = 0) -> None:
@@ -6363,10 +6590,10 @@ def main() -> int:
     log(f"MoE serving ({card}): {moe['phase_s']:.1f} s; launches "
         f"{moe['launches']}")
 
-    # the cell plans: the dry-run's result, three plans on the card (K3,
+    # the cell plans: the dry-run's result, four plans on the card (K3,
     # K4's gathered and rows entries, K5; the counts set to 0 just before
     # each plan's call and read just after it), the expert branches
-    plans = drive_plans(dev, card, dry)
+    plans = drive_plans(dev, card, dry, lt["recsys"]["peak_gb"])
     stop_dryrun()
     for cell, r in plans["plans"].items():
         if r["launches"]["flash_attention"]["wgmma"]:
@@ -6377,10 +6604,11 @@ def main() -> int:
     log(f"cell plans ({card}): {plans['phase_s']:.1f} s; launches "
         f"{plans['launches']}")
 
-    # MoE training at full width (K3's wgmma body on mixtral's AdamW steps
-    # and llama4-scout's gradient); the counts are set to 0 inside, just
+    # MoE training at full width (K3's wgmma body on mixtral's and
+    # llama4-scout's donated AdamW steps); the counts are set to 0 inside, just
     # before each arch's run, and read just after it
-    mt = drive_moe_training(dev, card)
+    with expandable_segments():
+        mt = drive_moe_training(dev, card)
     for arch_id, r in mt["archs"].items():
         wgmma_paths[f"{arch_id} training (depth {r['layers']})"] = \
             r["launches"]["wgmma"]
@@ -6395,7 +6623,8 @@ def main() -> int:
     # and gemma-2b's prefills and AdamW steps); the counts are set to 0
     # inside, just before each arch's serving and its steps, and read just
     # after them
-    dn = drive_dense_family(dev, card)
+    with expandable_segments():
+        dn = drive_dense_family(dev, card)
     dense_paths = {}
     for arch_id, r in dn["archs"].items():
         for path, by in r["launches"].items():

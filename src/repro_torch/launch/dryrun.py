@@ -46,8 +46,10 @@ NO_COUNTERPART = {
     "temp_size_in_bytes": "XLA's buffer assignment of a compiled program; "
                           "the port compiles nothing ahead of a run",
     "generated_code_size_in_bytes": "no ahead-of-time executable",
-    "alias_size_in_bytes": "XLA's donation aliasing; the plan records "
-                           "donate_argnums only",
+    "alias_size_in_bytes": "XLA's accounting of donated buffers; the "
+                           "train plans update their donated arguments in "
+                           "place (adamw_update_), with no buffer "
+                           "assignment to count",
     "bytes_accessed": "XLA's cost analysis of a fused HLO module; meta ops "
                       "have no fusion or memory traffic",
     "transcendentals": "XLA's cost analysis; flop_counter counts no "

@@ -9,9 +9,13 @@ shapes.  The LM plan describes its parameters in the reference's stacked
 layout (``transformer.stack_layers``: ``layers`` as ``[L, ...]`` leaves),
 so every leaf's path, shape, partition spec and shard shape compares one to
 one with the reference's plan; its ``fn`` unstacks them with views, so
-gradients and AdamW act on the stacked leaves.  ``fn`` binds the plan's
-mesh (the MoE expert block's model-sharded branch reads it).  Leaf paths
-are jax's ``keystr`` form, e.g. ``['layers']['attn']['wq']``.
+gradients and AdamW act on the stacked leaves.  A plan whose
+``donate_argnums`` is ``(0, 1)`` (every train cell) steps with
+``make_train_step(..., donate=True)``: its parameters and optimizer state
+are updated in place, as the reference's donated buffers are.  ``fn``
+binds the plan's mesh (the MoE expert block's model-sharded branch reads
+it).  Leaf paths are jax's ``keystr`` form, e.g.
+``['layers']['attn']['wq']``.
 """
 from __future__ import annotations
 
@@ -208,7 +212,8 @@ def build_lm_cell(arch: ArchConfig, cell: ShapeCell, mesh) -> CellPlan:
         step_fn = opt_lib.make_train_step(
             lambda p, batch: transformer.loss_fn(
                 cfg, transformer.unstack_layers(p), batch,
-                xent_chunk=min(512, s), mesh=mesh), opt_lib.AdamWConfig())
+                xent_chunk=min(512, s), mesh=mesh), opt_lib.AdamWConfig(),
+            donate=True)
         o_structs = _opt_structs(p_structs)
         batch_structs = {"tokens": S((b, s), I32), "targets": S((b, s), I32)}
         batch_shard = {"tokens": named(mesh, dp, None),
@@ -333,7 +338,7 @@ def build_gnn_cell(arch: ArchConfig, cell: ShapeCell, mesh) -> CellPlan:
     repl = replicated(mesh)
     step_fn = opt_lib.make_train_step(
         lambda p, b: gnn.loss_fn(m, p, b, n_graphs=n_graphs),
-        opt_lib.AdamWConfig())
+        opt_lib.AdamWConfig(), donate=True)
     o_structs = _opt_structs(p_structs)
     o_shard = _opt_shardings(repl_tree, mesh)
     b_shard = _gnn_batch_shardings(batch_structs, mesh)
@@ -379,7 +384,8 @@ def build_recsys_cell(arch: ArchConfig, cell: ShapeCell, mesh) -> CellPlan:
     if cell.kind == "train_batch":
         b = cell.params["batch"]
         step_fn = opt_lib.make_train_step(
-            lambda p, bt: recsys.loss_fn(cfg, p, bt), opt_lib.AdamWConfig())
+            lambda p, bt: recsys.loss_fn(cfg, p, bt), opt_lib.AdamWConfig(),
+            donate=True)
         o_structs = _opt_structs(p_structs)
         o_shard = _opt_shardings(p_shard, mesh)
         return CellPlan(

@@ -22,7 +22,10 @@ expert block's mesh branches and their gradients against mesh=None, and
 one mixtral smoke training step on the card against the CPU at matched
 routing, keyed by layer under the remat; RoPE's frequency table on the
 card equal to the CPU's for the five LM configs, and a decode wave at a
-32,768-slot cache against float64 attention over its valid slots.
+32,768-slot cache against float64 attention over its valid slots; the
+train plans' donated step on the card equal to the returning step
+bitwise and peaking lower (``chip_smoke.depth_cut``'s reckoning of it is
+arithmetic, held on the CPU by ``tests/test_torch_transformer.py``).
 
 These tests need a CUDA device and ``nvcc`` and skip elsewhere; run them on
 the machine with the card with ``python -m pytest -m cuda tests/test_torch_cuda.py``.
@@ -1543,3 +1546,63 @@ def test_decode_wave_at_a_32k_cache_against_float64(cuda, monkeypatch,
     assert int(valid.sum()) == min(pos + 1, cache_len)
     err = float((out - exp).abs().max())
     assert err <= 1e-4 * float(exp.abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# donation in the train plans' steps
+# ---------------------------------------------------------------------------
+
+def _donation_plan(cuda, n_layers, b, s):
+    """qwen3-0.6b's train plan at full width cut to ``n_layers``, its cell
+    at ``[b, s]``, on the card, and a seeded init of its arguments."""
+    from repro_torch.launch import specs
+    from repro_torch.launch.mesh import make_test_mesh
+
+    arch = get_config("qwen3-0.6b")
+    cfg = dataclasses.replace(arch.model, n_layers=n_layers)
+    cell = ShapeCell("train_4k", "train", {"batch": b, "seq": s})
+    plan = specs.build_cell(dataclasses.replace(arch, model=cfg), cell,
+                            make_test_mesh((1, 1), device=cuda))
+    rng = np.random.default_rng(0)
+    batches = [{k: torch.from_numpy(rng.integers(0, cfg.vocab, (b, s)).astype(
+        np.int32)).to(cuda) for k in ("tokens", "targets")} for _ in range(3)]
+
+    def init():
+        params = transformer.stack_layers(transformer.init_params(
+            cfg, torch.Generator(cuda).manual_seed(0)))
+        return params, adamw_init(params)
+
+    return plan, cfg, init, batches
+
+
+def test_donated_step_equals_returning_step_on_card(cuda):
+    """Three donated steps of the plan on the card (qwen3-0.6b at 2
+    layers, ``[2, 256]``; K3's wgmma body) equal three returning steps
+    from the same seeded start bitwise, every donated leaf at its storage
+    (``chip_smoke.donated_vs_returning``)."""
+    cs = _chip_smoke()
+    plan, _, init, batches = _donation_plan(cuda, 2, 2, 256)
+    rec = cs.donated_vs_returning(plan.fn, init, batches, "qwen3 2 layers")
+    assert rec["bitwise"] and rec["steps"] == 3
+    assert all(np.isfinite(rec["losses"]))
+
+
+def test_donated_step_peak_is_below_the_returning_steps(cuda):
+    """One step from the same start: the donated step's peak device memory
+    is more than one fp32 copy of the parameters below the returning
+    step's (which holds the clipped gradients and new params, mu and nu
+    beside the old)."""
+    plan, cfg, init, batches = _donation_plan(cuda, 2, 1, 512)
+    copy = 4 * transformer.param_count(cfg)
+    peaks = {}
+    for donate in (True, False):
+        step = make_train_step(plan.fn.loss_fn, plan.fn.opt_cfg, donate=donate)
+        params, opt_state = init()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = step(params, opt_state, batches[0])
+        torch.cuda.synchronize()
+        peaks[donate] = torch.cuda.max_memory_allocated()
+        del params, opt_state, out
+        torch.cuda.empty_cache()
+    assert peaks[True] + copy < peaks[False], (peaks, copy)

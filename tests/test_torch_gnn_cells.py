@@ -232,7 +232,8 @@ def test_gold_takes_along_axis_as_jax():
 def test_cell_inputs_equal_the_plan(cs, arch_id, kind):
     """The card's arguments (``_plan_args`` over ``gnn_cell_batch``) have
     the plan's paths, shapes and dtypes and the dry-run's argument bytes;
-    the plan's step equals the model's own step bitwise on the CPU."""
+    the plan's step (on a clone of the arguments it donates) equals the
+    model's own step bitwise on the CPU."""
     arch, cell = _scaled(arch_id), CELLS[kind]
     plan = specs.build_cell(arch, cell, make_test_mesh((1, 1), device="cpu"))
     args = cs._plan_args(arch, cell, plan, "cpu")
@@ -244,7 +245,10 @@ def test_cell_inputs_equal_the_plan(cs, arch_id, kind):
         == rec["argument_size_in_bytes"]
     n_graphs = specs._gnn_batch_structs(arch, cell)[1]
     assert n_graphs == (8 if kind == "batched_graphs" else 0)
-    out, direct = plan.fn(*args), cs._direct(arch, args, n_graphs)
+    # the plan's step donates its parameters and optimizer state: it steps
+    # on a clone, the model's own (returning) step on the originals
+    out = plan.fn(*cs.clone_donated(args))
+    direct = cs._direct(arch, args, n_graphs)
     for (p, x), (_, y) in zip(specs.tree_paths(out), specs.tree_paths(direct)):
         assert torch.equal(x, y), p
     assert np.isfinite(float(out[2]["loss"]))

@@ -225,13 +225,15 @@ def test_plan_train_step_matches_jax_grad_in_fp32(fp32_compute, arch,
     rng = np.random.default_rng(0)
     toks = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
     tgts = rng.integers(0, cfg.vocab, (4, 32)).astype(np.int32)
-    seen, update = [], opt_lib.adamw_update
+    # the plan's step donates (adamw_update_), whose clipping scales the
+    # gradients in place: a copy is recorded
+    seen, update = [], opt_lib.adamw_update_
 
     def recorded(c, grads, state, params):
-        seen.append(grads)
+        seen.append(opt_lib.tree_map(torch.clone, grads))
         return update(c, grads, state, params)
 
-    monkeypatch.setattr(opt_lib, "adamw_update", recorded)
+    monkeypatch.setattr(opt_lib, "adamw_update_", recorded)
     _, new_o, stats = plan.fn(stacked, adamw_init(stacked), {
         "tokens": torch.from_numpy(toks), "targets": torch.from_numpy(tgts)})
     assert len(seen) == 1 and int(new_o["step"]) == 1

@@ -268,14 +268,18 @@ def test_sharded_lm_train_step_runs():
     for (path, a), (_, leaf) in zip(tspecs.tree_paths(plan.args),
                                     tspecs.tree_paths((stacked, adamw_init(stacked), batch))):
         assert (tuple(a.shape), a.dtype) == (tuple(leaf.shape), leaf.dtype), path
+    # the plan's step donates: it writes the stacked parameters (whose
+    # embedding and final norm are params' own tensors) in place, so the
+    # direct loss is taken before it
+    with torch.no_grad():
+        direct = tt.loss_fn(cfg, params, batch)
     new_p, new_o, stats = plan.fn(stacked, adamw_init(stacked), batch)
     loss = float(stats["loss"])
     ref_loss = float(jt.loss_fn(jget(arch.arch_id).smoke, jp,
                                 {"tokens": jnp.asarray(toks), "targets": jnp.asarray(tgts)}))
     assert abs(loss - ref_loss) < 0.05, (loss, ref_loss)
-    with torch.no_grad():
-        direct = tt.loss_fn(cfg, params, batch)
     assert loss == float(direct)
+    assert new_p is stacked
     assert new_p["layers"]["attn"]["wq"].shape == stacked["layers"]["attn"]["wq"].shape
     assert int(new_o["step"]) == 1
 

@@ -197,22 +197,27 @@ def test_chip_smoke_param_check_counts_every_leaf(arch):
         smoke.check_param_count(cfg, params, tt.param_count(cfg) + 1)
 
 
-@pytest.mark.parametrize("arch,copies,depth", [
-    ("mixtral-8x7b", 8, 1), ("llama4-scout-17b-a16e", 3, 1),
-    ("starcoder2-7b", 8, 7), ("gemma-2b", 8, 14)])
-def test_chip_smoke_depth_cut(arch, copies, depth):
+@pytest.mark.parametrize("arch,depth", [
+    ("qwen3-0.6b", 28), ("gemma-2b", 18), ("starcoder2-7b", 17),
+    ("mixtral-8x7b", 2), ("llama4-scout-17b-a16e", 1)])
+def test_chip_smoke_depth_cut(arch, depth):
     """``chip_smoke.depth_cut`` at an H100's 85.0 GB: the deepest depth whose
-    ``copies`` fp32 copies of the parameters fit in 80% of it, the full
-    width kept, and the reckoning up to the first depth that does not."""
+    donated AdamW step fits in 80% of it (4 fp32 copies of the parameters
+    and the update's three fp32 slices of ``ADAMW_SLICE`` elements), the
+    full width kept, and the reckoning up to the first depth that does not
+    (gemma-2b and qwen3-0.6b at full depth)."""
+    from repro_torch.training.optimizer import ADAMW_SLICE
+
     smoke = _chip_smoke()
-    cfg, cut = smoke.depth_cut(arch, copies, 85_000_000_000)
+    cfg, cut = smoke.depth_cut(arch, 85_000_000_000)
     full = get_config(arch).model
-    assert cfg.n_layers == depth
+    assert cfg.n_layers == depth and cut["copies"] == 4
     assert dataclasses.replace(cfg, n_layers=full.n_layers) == full
     assert cut["gb_by_depth"][depth] <= cut["limit_gb"] == 68.0
-    assert cut["gb_by_depth"][depth + 1] > 68.0
+    if depth < full.n_layers:
+        assert cut["gb_by_depth"][depth + 1] > 68.0
     assert cut["gb_by_depth"][depth] == pytest.approx(
-        4e-9 * copies * tt.param_count(cfg))
+        (16 * tt.param_count(cfg) + 12 * ADAMW_SLICE) / 1e9)
 
 
 def test_sampling_draws_from_the_generator():
