@@ -35,13 +35,17 @@
    against the plain version and against each other.
 4. Drives the truss path: ``DynamicGraph(support_method="bitmap")`` on the
    slashdot-like power-law graph (77,360 nodes, 980,614 edges), checked
-   against the pure-Python oracle; three fused 2,000-update batches, a few
+   against the pure-Python oracle; two fused 2,000-update batches, a few
    progressive single updates, one batch with ``engine="recompute"``, one
    more batch of each engine under ``torch.profiler`` (each must show the
    digest body's ``digest_rows`` among its device ops, and every K1 and K2
    call of the path must have run the digest body), then
    ``max_truss``/``k_truss``/``index.query`` checked against a host
-   connected-components pass, and a final from-scratch oracle check.
+   connected-components pass, and a final from-scratch oracle check.  Each
+   phi == oracle check of phases 4-6 (``OracleChecks``: ~15 s of pure
+   Python each) runs in a worker process from phase 17 on, beside the
+   device-bound phases, and is read at the end; one that differs fails
+   the smoke there.
 5. Drives the WAL-backed truss service on the same graph:
    ``TrussService(support_method="bitmap")`` tracking the slashdot
    config's ``query_ks`` (34, 30, 25, 15) over a ``TrussStore`` in a
@@ -61,21 +65,21 @@
    order with its generation, phi equal to the oracle); a pipelined
    restore losing one generation's landing, which must self-heal from the
    store and end bitwise equal to a serial replay of the same log and phi
-   equal to the oracle (heal seconds); and one serial flush under
-   ``torch.profiler`` (device-busy share).  Every K1 and K2 call of this
-   path must run the digest body.
+   equal to the oracle (heal seconds).  Every K1 and K2 call of this path
+   must run the digest body.
 6. Drives the replica cluster on the same graph: a ``bitmap`` primary and
    two ``Replica(support_method="bitmap")`` on the card tailing its store
    (a temporary directory, removed at the end) behind a ``QueryRouter``,
    with ``MixedWorkloadStream`` traffic (read fraction 0.9, zipf 1.1,
-   levels 3, 5 and the max truss) for four generations of 1,000 writes
+   levels 3, 5 and the max truss) for three generations of 1,000 writes
    through a ``Session``.  One read record in 60 goes out ``bounded``
    (bound 2) mid-generation and must be served within 2 generations; at
    each boundary replica-0 applies the generation (K1) and must equal the
    primary bitwise, 40 reads go out ``strong`` (the primary) and
    ``read_your_writes`` (replica-0) with the same answers, and the
    session reads its own last insert and delete.  Replica-1 stays parked
-   (so bounded reads must pass it over once it lags 3), then steps up one
+   (within the bound it serves bounded reads; once it lags 3, after the
+   last generation, 8 bounded reads must pass it over), then steps up one
    group at a time, bitwise equal to the primary's state at each
    generation.  Then the primary drops with 500 writes acked and
    unflushed; ``router.promote()`` must pick replica-0, whose state must
@@ -98,7 +102,7 @@
    -m repro_torch.obs.merge``) must join the replicas' applies to the
    router's writes.
 8. Drives the sharded substrate at full width on ``make_shard_mesh(S)``
-   (every shard on the one card) for S = 2 and 4: ``DynamicGraph(...,
+   (every shard on the one card) for S = 4: ``DynamicGraph(...,
    mesh=..., partition=...)`` with ``partition="replicated"`` (K1 on each
    shard's row block) and ``"nodes"`` (K2 on each shard's word slab, one
    partial support a slab summed each wave), each decompose bitwise equal
@@ -160,19 +164,20 @@
    K5's plan (grid and k slices) is printed for each layer of the path.
 13. Drives truss-filtered GCN training (``examples/evolving_graph_training
     .py``) at ``gcn-cora``'s full width on the slashdot-like graph:
-    ``DynamicGraph(support_method="bitmap", tracked_ks=(5,))``, two
-    rounds of a ``GraphUpdateStream`` chunk of 2,000 updates (K1 in every
-    round's fused batch, digest body), each followed by the k = 5 truss
+    ``DynamicGraph(support_method="bitmap", tracked_ks=(5,))``, one
+    round of a ``GraphUpdateStream`` chunk of 2,000 updates (K1 in its
+    fused batch, digest body), followed by the k = 5 truss
     community batched by ``sampler.make_gnn_batch`` (d_feat 1,433, edges
-    padded to 4 x 980,614) and 5 AdamW steps (K4 three times a step: the
+    padded to 4 x 980,614) and 3 AdamW steps (K4 three times a step: the
     degree count and each layer's aggregation; the backward a plain row
     gather; the last step of the last round under ``torch.profiler``).
     Logs each round's apply seconds, community edges, batch-build seconds,
     step ms and losses.  Then ``launch.train.main --full --steps 6`` for
     gcn-cora, gin-tu, meshgraphnet and dimenet, each against 3 steps of
     the launcher's setup cut by the preemption flag and resumed to 6 by
-    ``main`` (bitwise), and gcn-cora once more as a subprocess whose path
-    holds ``repro_torch`` alone.  The launch counts are read there.  Then
+    ``main`` (bitwise; phase 15 runs ``launch.train`` as subprocesses
+    whose path holds ``repro_torch`` alone).  The launch counts are read
+    there.  Then
     a step's loss and gradients through K4 against ``use_kernels(False)``
     (``step_vs_plain``: loss within 1e-5 of itself, each gradient leaf
     within 1e-4 of its largest magnitude, the plain route replaying the
@@ -227,9 +232,11 @@
     once (smoke configs, exit 0, finite losses), ``launch.train`` in
     process on the card and the CPU from the same parameters (first loss
     within ``MOE_LAUNCH_RTOL``; the aux loss nonzero), and K3 at both MoE
-    prefill layouts and mixtral's training layout ``[4, 4096]`` (llama4's
-    is its prefill's) against its plain version and timed beside its bound
-    and ``scaled_dot_product_attention``.
+    prefill layouts, mixtral's training layout ``[4, 4096]`` (llama4's is
+    its prefill's) and a row of each arch's ``prefill_32k`` (``[1,
+    32768]``: mixtral's 4,096 window an eighth of it) against its plain
+    version and timed beside its bound and
+    ``scaled_dot_product_attention``.
 16. The cell plans (``launch/specs.py``, ``launch/dryrun.py``).  The
     dry-run of all 36 cells on both production meshes, started as a
     subprocess before phase 13 on a path holding ``repro_torch`` alone,
@@ -309,9 +316,11 @@
     after: K3's wgmma body once a layer a prefill call and twice a layer a
     step, its SIMT body, K4 and K5 never.  Then the same-bits gate at 2
     layers of qwen3-0.6b, gemma-2b and starcoder2-7b.  Then
-    K3 at starcoder2-7b's layout ``[4, 4096, 36 q / 4 kv, 128]`` against
-    its plain version, timed in turns with ``scaled_dot_product_attention``
-    (causal, ``enable_gqa``) beside its bound.
+    K3 at starcoder2-7b's layout ``[4, 4096, 36 q / 4 kv, 128]`` and at a
+    row of ``prefill_32k`` of starcoder2-7b and of gemma-2b (``[1, 32768,
+    8 q / 1 kv, 256]``) against its plain version, timed in turns with
+    ``scaled_dot_product_attention`` (causal, ``enable_gqa``) beside its
+    bound.
 19. The GNN family at its cells' global shapes (``GNN_CELLS``): all four
     archs on ``full_graph_sm`` (gcn-cora's is phase 16's), ``molecule``
     and ``minibatch_lg``, and gcn-cora on ``ogb_products`` (the other
@@ -346,14 +355,29 @@
     ``long_500k`` takes 8 waves at its last positions first.  Readings:
     wave ms (median of 5 after a warm-up), the cache and peak GB, the byte
     bound (only the experts the wave chose, only the embedding rows it
-    reads), one wave profiled.
+    reads), one wave profiled.  Then ``prefill_32k`` (``[32, 32768]``)
+    for gemma-2b, starcoder2-7b, mixtral-8x7b and llama4-scout
+    (``PREFILL_ARCHS``; qwen3-0.6b's is phase 16's) on the same parameters,
+    under the allocator's expandable segments: the batch cut to the largest
+    whose call fits in ``TRAIN_FIT`` of the card (``prefill_cut``: the fp32
+    parameters, the weight casts and each sequence's peak in a layer, by
+    phase; logged with its reckoning), at phase 15's depth for the MoE
+    archs, through ``run_plan_on_card``: the cut plan's meta trace against
+    the card's arguments and outputs, finite logits, K3's wgmma body once a
+    layer and no other kernel (the counts set to 0 just before the call,
+    read just after), rows 0-1 against a direct ``prefill``; then
+    ``prefill_checks``: the peak within the reckoning and
+    ``PREFILL_TRANSIENT_GB``, the first ``DECODE_CPU_LAYERS`` layers at row
+    0 against the plain route (MoE at matched routing); the median of
+    ``PREFILL_TIMED`` calls, tokens/s, and for ``PREFILL_PROFILED`` one
+    call profiled.
 21. Fails unless every kernel was launched by its path (K1 and K2 on the
     truss path, on the service path and on the sharded path, K1 on the
     cluster path and the training rounds, K4 on the recsys and training
     paths, K3 and K5 on the LM and recsys training paths too, K3 on the
     MoE prefills and the MoE training, K3, K4 and K5 on the cell plans,
     K3 on the dense family's prefills, serving and training, K4 on the
-    GNN cells),
+    GNN cells, K3 on phase 20's prefill cells),
     prints the smoke's total seconds, the kernels line, the card line,
     and last the device line.
 
@@ -424,10 +448,11 @@ P99_CALLS, BULK_CALLS, RETRIEVAL_CALLS, TOP_K = 200, 3, 10, 100
 TF32_FLOPS_PER_S = 495e12     # H100 SXM dense TF32 tensor-core peak
 # Phase 13: the truss-filtered GCN loop of examples/evolving_graph_training.py
 # at gcn-cora's full width on the slashdot-like graph (the example's AdamW
-# settings), then every GNN arch at full config through the launcher; two
-# rounds (the example runs 6 of 8): each round repeats the same work, and
-# with four beside phase 17 the smoke took 1,042 s on an H100
-TRAIN_ARCH, TRAIN_K, TRAIN_ROUNDS, TRAIN_STEPS = "gcn-cora", 5, 2, 5
+# settings), then every GNN arch at full config through the launcher; one
+# round of 3 steps (the example runs 6 of 8 rounds of 5): each round and
+# each step repeats the same work (4 rounds until phase 17, 2 until phase
+# 20's prefill cells took the smoke past 1,200 s on an H100)
+TRAIN_ARCH, TRAIN_K, TRAIN_ROUNDS, TRAIN_STEPS = "gcn-cora", 5, 1, 3
 TRAIN_CHUNK = 2_000                # updates a round (GraphUpdateStream)
 TRAIN_D_FEAT = 1_433               # full_graph_sm's d_feat (GNN_SHAPES)
 TRAIN_PAD_EDGES = 4 * N_EDGES      # directed edges padded as the example pads
@@ -485,7 +510,10 @@ MOE_LAUNCH_RTOL = 5e-3       # the launcher's first loss, card vs CPU
 MOE_LAUNCH_TIMEOUT = 600
 MOE_K3_LAYOUTS = {"mixtral": (1, 8192, 32, 8, 128, 4096),   # b, s, hq, hkv, dh,
                   "llama4": (4, 4096, 40, 8, 128, None),    # window; llama4's
-                  "mixtral_train": (4, 4096, 32, 8, 128, 4096)}  # training too
+                  "mixtral_train": (4, 4096, 32, 8, 128, 4096),  # training too
+                  # a row of phase 20's prefill_32k: the window at 1/8 of it
+                  "mixtral_32k": (1, 32768, 32, 8, 128, 4096),
+                  "llama4_32k": (1, 32768, 40, 8, 128, None)}
 # Phase 16: the cell plans.  The dry-run of all 36 cells on both production
 # meshes as a subprocess (started before phase 13, it runs beside phases
 # 13-15), then four plans on the card at each cell's global shape and full
@@ -549,8 +577,11 @@ DENSE_RUNS = (("starcoder2-7b", 4, 4096),   # arch, prefill batch, seq
 DENSE_PARAMS = {"starcoder2-7b": 7_399_047_168,   # transformer.param_count
                 "gemma-2b": 2_506_170_368}
 DENSE_TRAIN_BATCH, DENSE_TRAIN_SEQ = 4, 4096
-# K3 at starcoder2-7b's layout: a GQA group of 9 (b, s, hq, hkv, dh, window)
-DENSE_K3_LAYOUTS = {"starcoder2": (4, 4096, 36, 4, 128, None)}
+# K3 at starcoder2-7b's layout: a GQA group of 9 (b, s, hq, hkv, dh, window),
+# and at a row of phase 20's prefill_32k of each dense arch
+DENSE_K3_LAYOUTS = {"starcoder2": (4, 4096, 36, 4, 128, None),
+                    "gemma_32k": (1, 32768, 8, 1, 256, None),
+                    "starcoder2_32k": (1, 32768, 36, 4, 128, None)}
 # Phase 19: the GNN family at its cells' global shapes (GNN_SHAPES), each
 # cell through its plan at make_test_mesh((1, 1)) and full config: all four
 # archs on full_graph_sm (gcn-cora's runs in phase 16), molecule and
@@ -592,6 +623,22 @@ ROPE_ENDS, ROPE_ATOL = (32767, 524287), 2e-6
 # layers and the cache's first rows (host copies under ~16 GB)
 DECODE_CPU_LAYERS = {"dense": 2, "moe": 1}
 DECODE_CPU_ROWS = 2
+# Phase 20 also runs prefill_32k ([32, 32768]) through its plan for each LM
+# arch but qwen3-0.6b (phase 16 runs its), on the decode cells' parameters:
+# the batch cut to the largest whose call fits in TRAIN_FIT of the card
+# (prefill_cut), the gated call, then PREFILL_TIMED synchronised calls
+PREFILL_ARCHS = tuple(a for a, _ in DECODE_RUNS if a != LM_ARCH)
+PREFILL_TIMED = 2
+PREFILL_PROFILED = ("gemma-2b", "mixtral-8x7b")
+# the peak gate: a prefill call's peak, less what the process held beside
+# its arguments, within prefill_cut's reckoning and the transient the first
+# card runs measured above it, rounded up to the next 0.5 GB (NVIDIA H100
+# 80GB HBM3, 700 W; PERF.md section 6): gemma-2b +0.81, starcoder2-7b -0.89,
+# mixtral-8x7b -2.22, llama4-scout -4.85 GB.  Negative where the reckoning
+# counts more than lives: it counts a layer's weight casts all at once, and
+# the MoE layers' three expert casts are used, and freed, one at a time
+PREFILL_TRANSIENT_GB = {"gemma-2b": 1.0, "starcoder2-7b": -0.5,
+                        "mixtral-8x7b": -2.0, "llama4-scout-17b-a16e": -4.5}
 K3_MIN_SEQ = 512     # layers.attention_apply takes K3 from 512 positions
 # the first AdamW step's loss against the checked step's (the same function
 # of the same tensors), and how far below ln(vocab) a mean loss over
@@ -608,10 +655,12 @@ def log(msg: str) -> None:
 @contextlib.contextmanager
 def expandable_segments():
     """The caching allocator growing its segments in place while the
-    block runs (phases 17 and 18), its cache emptied on the way in and
-    out.  The donated steps at starcoder2-7b's 17 layers peak at ~85% of
-    the card; with fixed segments the stacked gradient's 5.4 GiB found no
-    block in 14 GiB of cached, fragmented free space.  The other phases
+    block runs (phases 17 and 18, phase 20's prefill cells), its cache
+    emptied on the way in and out.  The donated steps at starcoder2-7b's
+    17 layers peak at ~85% of the card; with fixed segments the stacked
+    gradient's 5.4 GiB found no block in 14 GiB of cached, fragmented free
+    space, nor starcoder2-7b's [10, 32768, 18432] GELU input (11.25 GiB)
+    in 17.5 GiB at its prefill_32k cut.  The other phases
     keep fixed segments: growing in place maps pages at each new
     allocation after an ``empty_cache``, which they call often."""
     torch.cuda.empty_cache()
@@ -1194,10 +1243,68 @@ def profile_close(session, forbid: str | None = None,
     return busy / wall
 
 
-def drive_main_path(core, edges: np.ndarray, dev):
+def oracle_equal(n_nodes: int, edges: np.ndarray, phi: np.ndarray,
+                 present: np.ndarray) -> tuple:
+    """``{(u, v): phi}`` of a graph's active ``edges`` against
+    ``core.oracle.scratch_phi`` of the edge set ``present``: ``(equal,
+    seconds)``.  Runs in ``OracleChecks``' worker."""
+    from repro_torch.core import oracle
+
+    t = time.perf_counter()
+    got = dict(zip(zip(edges[:, 0].tolist(), edges[:, 1].tolist()),
+                   phi.tolist()))
+    want = oracle.scratch_phi(n_nodes, map(tuple, present.tolist()))
+    return got == want, time.perf_counter() - t
+
+
+class OracleChecks:
+    """The truss phases' phi == oracle gates, ~15 s of pure Python each at
+    full width, run in one worker process (spawned) while the card's later
+    phases keep the host mostly idle: ``submit`` copies a graph's active
+    edges and phi and the edge set the smoke tracked to the host, as
+    arrays; ``start`` hands every check to the worker (``oracle_equal``);
+    ``finish`` waits for them in order, fails at the first whose phi
+    differs, and stops the worker."""
+
+    def __init__(self):
+        import multiprocessing
+        from concurrent.futures import ProcessPoolExecutor
+
+        self.pool = ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"))
+        self.checks, self.futures = [], []
+
+    def submit(self, what: str, graph, present) -> None:
+        act = graph.state.active.cpu().numpy()
+        self.checks.append((what, (
+            N_NODES, graph.state.edges.cpu().numpy()[act],
+            graph.state.phi.cpu().numpy()[act],
+            np.array(list(present), dtype=np.int64).reshape(-1, 2))))
+
+    def start(self) -> None:
+        self.futures += [(what, self.pool.submit(oracle_equal, *args))
+                         for what, args in self.checks]
+        self.checks = []
+
+    def finish(self) -> dict:
+        out = {}
+        try:
+            self.start()
+            for what, fut in self.futures:
+                equal, out[what] = fut.result()
+                if not equal:
+                    raise AssertionError(f"{what}: phi differs from the "
+                                         f"oracle")
+        finally:
+            self.pool.shutdown(cancel_futures=True)
+        return out
+
+
+def drive_main_path(core, edges: np.ndarray, dev, oracle: OracleChecks):
     """The port's main path at full width; returns the graph, the seconds
     of each phase and the initial decomposition (spec, phi, stats), which
-    phase 8 holds its sharded decompositions against."""
+    phase 8 holds its sharded decompositions against.  The initial phi
+    goes to ``oracle``."""
     sec = {}
     rng = np.random.default_rng(1)
     t = time.perf_counter()
@@ -1209,10 +1316,7 @@ def drive_main_path(core, edges: np.ndarray, dev):
     log(f"initial decomposition: {sec['decompose']:.2f} s, {stats}, "
         f"max truss {g.max_truss()}")
     present = set(map(tuple, edges.tolist()))
-    t = time.perf_counter()
-    if g.phi_dict() != core.oracle.scratch_phi(N_NODES, present):
-        raise AssertionError("initial phi differs from the oracle")
-    log(f"initial phi == oracle ({time.perf_counter() - t:.1f} s)")
+    oracle.submit("initial phi", g, present)
 
     def apply(name, ups, profile=False, **kw):
         t0 = time.perf_counter()
@@ -1228,7 +1332,7 @@ def drive_main_path(core, edges: np.ndarray, dev):
         log(f"{name}: {len(ups)} updates, {sec[name]:.2f} s, "
             f"{core.stats_dict(g.last_peel_stats)}")
 
-    for i in range(3):
+    for i in range(2):
         apply(f"fused_{i}", update_batch(rng, present, 1000, 1000))
     apply("progressive", update_batch(rng, present, 3, 3))
     apply("recompute", update_batch(rng, present, 1000, 1000),
@@ -1371,10 +1475,11 @@ def check_queries(svc, service) -> dict:
     return {"max_k_ms": median_ms(max_k), "levels": levels}
 
 
-def drive_service_path(edges: np.ndarray, dev) -> dict:
+def drive_service_path(edges: np.ndarray, dev, oracle: OracleChecks) -> dict:
     """The WAL-backed ``TrussService`` at full width, in a temporary store
-    removed at the end; returns its readings."""
-    from repro_torch import core, service
+    removed at the end; returns its readings.  The restored and the healed
+    phi go to ``oracle``."""
+    from repro_torch import service
     from repro_torch.configs.truss_paper import SLASHDOT
     from repro_torch.faults import PeelChaos
     from repro_torch.kernels import bitmap_support, peel_wave
@@ -1470,11 +1575,9 @@ def drive_service_path(edges: np.ndarray, dev) -> dict:
                 range(len(acked))):
             raise AssertionError("the WAL does not hold every acked write "
                                  "in order with its generation")
-        t = time.perf_counter()
-        if back.graph.phi_dict() != core.oracle.scratch_phi(N_NODES, present):
-            raise AssertionError("restored phi differs from the oracle")
+        oracle.submit("the service's restored phi", back.graph, present)
         log(f"service restore == live bitwise; WAL == the {len(acked)} acked "
-            f"writes; phi == oracle ({time.perf_counter() - t:.1f} s)")
+            f"writes; phi to the oracle check")
         back.store.close()
         del svc, back
         torch.cuda.empty_cache()
@@ -1500,28 +1603,12 @@ def drive_service_path(edges: np.ndarray, dev) -> dict:
         same_state(heal.graph.state, replay.graph.state, "healed vs replay")
         if replay.store.read_wal() != [x[:4] for x in acked]:
             raise AssertionError("the WAL does not hold every acked write")
-        t = time.perf_counter()
-        if heal.graph.phi_dict() != core.oracle.scratch_phi(N_NODES, present):
-            raise AssertionError("healed phi differs from the oracle")
+        oracle.submit("the service's healed phi", heal.graph, present)
         out["heal"] = {"heal_s": heal_s, "gen": st["gen"]}
         log(f"service heal: {json.dumps(out['heal'])}; healed == replay "
-            f"bitwise; phi == oracle ({time.perf_counter() - t:.1f} s)")
-        del heal
-        torch.cuda.empty_cache()
-
-        # 7. one profiled serial flush
-        ups = update_batch(rng, present, SERVICE_WRITES // 2,
-                           SERVICE_WRITES // 2)
-        for op, a, b in ups[:-1]:
-            replay.submit(op, a, b)
-        busy = profiled(replay.flush, require="digest_rows",
-                        detail=DIGEST_PASSES)
-        if replay.stats()["pending"]:
-            raise AssertionError("the profiled flush left writes pending")
-        out["profiled_flush"] = {"busy": busy,
-                                 "peel": replay.stats()["peel"]}
+            f"bitwise; phi to the oracle check")
         replay.store.close()
-        del replay
+        del heal, replay
         torch.cuda.empty_cache()
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -1529,12 +1616,16 @@ def drive_service_path(edges: np.ndarray, dev) -> dict:
 
 
 CLUSTER_WRITES = 1000         # a generation of the mixed workload's writes
-CLUSTER_GENS = 4              # generations the router drives
+CLUSTER_GENS = 3              # generations the router drives
 CLUSTER_BOUND = 2             # staleness bound of the bounded reads
 CLUSTER_READ_STRIDE = 60      # one read record in this many goes out bounded
 CLUSTER_BOUNDARY_READS = 40   # read records asked at each boundary, strong
                               # and read-your-writes each
 CLUSTER_PARKED_UNTIL = 3      # replica-1 steps up to this generation only
+CLUSTER_PARKED_READS = 8      # bounded reads after the last generation,
+                              # replica-1 lagging past the bound (a fourth
+                              # generation showed it until phase 20's
+                              # prefill cells needed the time)
 CLUSTER_TAIL_WRITES = 500     # acked and unflushed when the primary drops
 
 
@@ -1566,13 +1657,13 @@ def _percentiles(ms: list) -> dict:
             "p99": float(np.percentile(ms, 99))} if ms else {"n": 0}
 
 
-def drive_cluster_path(edges: np.ndarray, dev) -> dict:
+def drive_cluster_path(edges: np.ndarray, dev, oracle: OracleChecks) -> dict:
     """A ``bitmap`` primary and two replicas on the card behind a
     ``QueryRouter``, driven by the mixed workload at full width, then the
     primary's loss and a promotion; returns the readings and the K1/K2
     launches by path (``primary``, ``replica``, ``promotion``,
-    ``replay_check``)."""
-    from repro_torch import cluster, core, service
+    ``replay_check``); the promoted primary's phi goes to ``oracle``."""
+    from repro_torch import cluster, service
     from repro_torch.data.streams import READ, MixedWorkloadStream
 
     out: dict = {"writes_per_gen": CLUSTER_WRITES, "bound": CLUSTER_BOUND}
@@ -1716,6 +1807,20 @@ def drive_cluster_path(edges: np.ndarray, dev) -> dict:
                 f"session reads its own writes; replica-1 at gen {r1.gen}")
         out["gens"] = gens
         out["ack_us_median"] = float(np.median(ack_us))
+        # replica-1, parked at gen 0, lags CLUSTER_GENS > CLUSTER_BOUND now:
+        # bounded reads must pass it over (the router round-robins over the
+        # replicas within the bound, so it would serve every other one)
+        if r1.gen != 0 or primary.gen <= CLUSTER_BOUND:
+            raise AssertionError(f"replica-1 at gen {r1.gen}, the primary at "
+                                 f"{primary.gen}: no lag past the bound")
+        resps = [route(rec, "bounded") for rec in held[:CLUSTER_PARKED_READS]]
+        out["parked_reads"] = [(r.served_by, primary.gen - r.gen) for r in resps]
+        if len(resps) < CLUSTER_PARKED_READS or any(
+                r.served_by == "replica-1" or primary.gen - r.gen > CLUSTER_BOUND
+                for r in resps):
+            raise AssertionError(f"bounded reads with replica-1 "
+                                 f"{primary.gen} generations behind went to "
+                                 f"(node, lag) {out['parked_reads']}")
 
         # replica-1 steps up one generation group at a time, each boundary
         # bitwise equal to the primary's at that generation
@@ -1739,7 +1844,9 @@ def drive_cluster_path(edges: np.ndarray, dev) -> dict:
             f"bitwise at gens 1-{CLUSTER_PARKED_UNTIL}; primary ack "
             f"{out['ack_us_median']:.1f} us (median); reads ms "
             f"{json.dumps(out['reads_ms'])}; lag in generations by level "
-            f"and node {json.dumps(out['lag_gens'])}")
+            f"and node {json.dumps(out['lag_gens'])}; with replica-1 "
+            f"{CLUSTER_GENS} behind, bounded reads went to (node, lag) "
+            f"{out['parked_reads']}")
 
         # the primary drops with a tail acked but unflushed
         tail = 0
@@ -1775,10 +1882,7 @@ def drive_cluster_path(edges: np.ndarray, dev) -> dict:
         same_state(new.graph.state, chk.svc.graph.state,
                    "promoted vs a replay of the whole WAL")
         del chk
-        t = time.perf_counter()
-        if new.graph.phi_dict() != core.oracle.scratch_phi(N_NODES, present):
-            raise AssertionError("promoted phi differs from the oracle")
-        oracle_s = time.perf_counter() - t
+        oracle.submit("the promoted primary's phi", new.graph, present)
         # replica-1 tails the promoted primary
         _counted(launches, "replica", r1.poll)
         same_state(new.graph.state, r1.svc.graph.state,
@@ -1786,7 +1890,7 @@ def drive_cluster_path(edges: np.ndarray, dev) -> dict:
         log(f"cluster promotion: {out['promotion_s']:.2f} s, replica-0 "
             f"(most caught up) at gen {new.gen}; == a replay of the whole "
             f"WAL bitwise ({out['replay_check_s']:.1f} s); WAL == the "
-            f"{len(acked)} acked writes; phi == oracle ({oracle_s:.1f} s); "
+            f"{len(acked)} acked writes; phi to the oracle check; "
             f"replica-1 tails it bitwise")
         new.store.close()
         del new, r0, r1, reps, router, sess
@@ -1807,7 +1911,12 @@ def drive_cluster_path(edges: np.ndarray, dev) -> dict:
     return out
 
 
-LAUNCHER_TICKS = 3
+# ticks of the primary's launcher run and of the router's: each repeats the
+# same ingest, flush and queries (3 each until the prefill cells of phase
+# 20 needed the time); the router's replicas apply a generation once its
+# writes pass --flush-every 8, which its 64-record ticks (~6 writes) reach
+# in the second
+LAUNCHER_TICKS = {"primary": 1, "router": 2}
 # The launcher runs its own (and the reference's) default support method,
 # ``sorted``, whose waves hold [E_cap, d_max] int64 intermediates: 57 GB each
 # at full width (``sorted_sizing`` logs it), several at once, so this phase
@@ -1937,7 +2046,8 @@ def drive_launcher(dev) -> dict:
                 scraped["health"] = (exc.code, json.loads(exc.read()))
 
         _, text, out["primary_s"] = run_launcher(
-            common + ["--store", store, "--ticks", str(LAUNCHER_TICKS),
+            common + ["--store", store, "--ticks",
+                      str(LAUNCHER_TICKS["primary"]),
                       "--metrics-port", "0", "--linger", "2",
                       "--trace-out", os.path.join(work, "trace.json"),
                       "--trace-jsonl", jsonl[0], "--profile-dir", prof],
@@ -1960,7 +2070,8 @@ def drive_launcher(dev) -> dict:
         _, text, out["router_s"] = run_launcher(
             common + ["--store", os.path.join(work, "store2"), "--router",
                       "--replicas", "2", "--pipeline", "--ticks",
-                      str(LAUNCHER_TICKS), "--chunk", "64", "--flush-every",
+                      str(LAUNCHER_TICKS["router"]), "--chunk", "64",
+                      "--flush-every",
                       "8", "--trace-jsonl", jsonl[1]],
             env, LAUNCHER_TIMEOUT_S)
         log(f"launcher --router --replicas 2 --pipeline: "
@@ -2010,7 +2121,10 @@ def drive_launcher(dev) -> dict:
 # their launches; it measures no multi-card speed-up.  The sorted method
 # under a mesh holds [E/S, d_max] int64 intermediates (14 GB a shard at
 # S = 4 and full width), so it runs in the CPU tests only.
-SHARD_COUNTS = (2, 4)
+# shard counts on the one card (2 and 4 until phase 20's prefill cells
+# needed the time: each count runs the same engines over its own slabs,
+# and the CPU tests hold S = 1, 2, 4 and 8)
+SHARD_COUNTS = (4,)
 SHARD_BATCH = 1000            # deletes and inserts: one fused batch of 2,000
 SHARD_WRITES = 500            # deletes and inserts: a generation of 1,000
 PROFILED_REPEEL = 2000        # edges of the profiled re-peel under the mesh
@@ -2684,6 +2798,19 @@ def uncounted_params(cfg) -> int:
             + cfg.d_model * (1 + bias) + bias * cfg.n_layers * 2 * cfg.d_model)
 
 
+def lm_fixed_bytes(cfg) -> tuple:
+    """An LM's bytes on the card whatever its batch: the fp32 parameters
+    (``uncounted_params`` included), and the bf16 weight casts of a call
+    (one layer's weights, each cast where it is used, and the
+    unembedding's)."""
+    from repro_torch.models import transformer
+
+    layer = transformer.param_count(dataclasses.replace(cfg, n_layers=1)) - \
+        transformer.param_count(dataclasses.replace(cfg, n_layers=0))
+    return (4 * (transformer.param_count(cfg) + uncounted_params(cfg)),
+            2 * (layer + cfg.vocab * cfg.d_model))
+
+
 def check_param_count(cfg, params, expect: int | None = None) -> int:
     """The elements of every leaf of ``params`` less ``uncounted_params``
     must equal ``transformer.param_count(cfg)`` (and ``expect``); returns
@@ -2726,27 +2853,56 @@ def lm_prefill(fa, cfg, params, tokens, body: str = "wgmma") -> tuple:
     return logits, dt
 
 
-def prefill_vs_plain(ops, cfg, params, tokens, logits) -> dict:
+def prefill_vs_plain(ops, cfg, params, tokens, logits=None) -> dict:
     """The same prefill through ``use_kernels(False)`` (the chunked plain
     attention): the largest |logit difference| within ``LOGIT_RTOL`` of
-    the largest |logit|."""
-    from repro_torch.models import transformer
+    the largest |logit|.  ``logits`` are the kernel route's, computed here
+    when not given.  An MoE model is compared at matched routing: the
+    kernel route runs (again) under ``layer_routes``, the plain route
+    replays its expert choices, and each route's own choices at those
+    inputs may differ only within ``ROUTE_TIE_GAP`` of a tie; its dropped
+    slots by layer are returned too."""
+    from repro_torch.models import layers, transformer
 
+    moe = bool(cfg.moe_experts)
+
+    def routes(replay=None):
+        return layer_routes(layers, params, replay) if moe else \
+            contextlib.nullcontext()
+
+    if moe or logits is None:
+        with routes() as tape_k:
+            logits = transformer.prefill(cfg, params, tokens)
+    replay = (lambda i, j: tape_k.routes[i][j].gate_idx) if moe else None
     ops.use_kernels(False)
     try:
-        plain = transformer.prefill(cfg, params, tokens)
+        with routes(replay) as tape_p:
+            plain = transformer.prefill(cfg, params, tokens)
     finally:
         ops.use_kernels(True)
     dmax = float((logits - plain).abs().max())
     lmax = float(plain.abs().max())
-    log(f"{cfg.name} prefill {list(tokens.shape)} vs the plain route: max "
-        f"|logit difference| {dmax:.4g} (largest |logit| {lmax:.4g}; limit "
-        f"{LOGIT_RTOL:g} x that = {LOGIT_RTOL * lmax:.4g}); argmax "
-        f"{logits.argmax(-1).tolist()} vs {plain.argmax(-1).tolist()}")
+    out = {"dlogit": dmax, "largest_logit": lmax}
+    if moe:
+        out["routing"] = route_differences(tape_k.forward, tape_p.forward)
+        out["drops_by_layer"] = [int((~r.keep).sum()) for r in tape_k.forward]
+    log(f"{cfg.name} prefill {list(tokens.shape)} vs the plain route"
+        f"{' at matched routing' if moe else ''}: max |logit difference| "
+        f"{dmax:.4g} (largest |logit| {lmax:.4g}; limit {LOGIT_RTOL:g} x that"
+        f" = {LOGIT_RTOL * lmax:.4g}); argmax {logits.argmax(-1).tolist()} vs "
+        f"{plain.argmax(-1).tolist()}" + (
+            f"; on each route's own choices {out['routing']['differ']} of "
+            f"{out['routing']['decisions']} (token, choice) decisions differ,"
+            f" largest gap from a tie {out['routing']['max_gap']:.3g} (limit "
+            f"{ROUTE_TIE_GAP}); dropped slots a layer {out['drops_by_layer']}"
+            f" of {tokens.numel() * cfg.moe_top_k}" if moe else ""))
     if not dmax <= LOGIT_RTOL * lmax:
         raise AssertionError(f"{cfg.name} prefill differs from the plain "
                              f"route by {dmax} > {LOGIT_RTOL} x {lmax}")
-    return {"dlogit": dmax, "largest_logit": lmax}
+    if moe:
+        check_route_gaps(out["routing"], f"{cfg.name} prefill, kernel vs "
+                                         f"plain route")
+    return out
 
 
 def engine_waves(cfg, params, prompts: np.ndarray, new: int, max_seq: int,
@@ -3614,9 +3770,8 @@ def _k4_training_shapes(ops, ref, seen, errs: dict, n_real: int | None,
 
 def drive_training_path(core, edges: np.ndarray, dev, card: str) -> dict:
     """Phase 13: the truss-filtered GCN rounds, then each GNN arch at full
-    config through the launcher (in process, a restart check each, one as
-    a subprocess whose path holds ``repro_torch`` alone); the launch counts
-    are read just after them.  Then each arch's step and the truss-filtered
+    config through the launcher (in process, a restart check each); the
+    launch counts are read just after them.  Then each arch's step and the truss-filtered
     step against the plain route, and K4 timed on the inputs that step
     handed it (launches not counted)."""
     from repro_torch.configs import get_config
@@ -3725,21 +3880,6 @@ def drive_training_path(core, edges: np.ndarray, dev, card: str) -> dict:
         out["by_body"] = {"peel_wave": dict(peel_wave.LAUNCHES_BY_BODY),
                           "bitmap_support": dict(
                               bitmap_support.LAUNCHES_BY_BODY)}
-        pkg = os.path.join(work, "pkg")
-        os.makedirs(pkg)
-        t = time.perf_counter()
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch",
-             TRAIN_ARCH, "--full", "--steps", "3", "--device", str(dev),
-             "--ckpt", os.path.join(work, "sub.npz")],
-            env=_launcher_env(pkg), cwd=ROOT, capture_output=True, text=True,
-            timeout=LAUNCHER_TIMEOUT_S)
-        line = proc.stdout.strip().splitlines()[-1] if proc.stdout else ""
-        if proc.returncode != 0 or not line.endswith(f"on {dev}"):
-            raise AssertionError(f"launch.train subprocess exited "
-                                 f"{proc.returncode}: {proc.stdout[-2000:]}"
-                                 f"{proc.stderr[-4000:]}")
-        out["subprocess"] = {"s": time.perf_counter() - t, "line": line}
     finally:
         shutil.rmtree(work, ignore_errors=True)
 
@@ -4454,35 +4594,9 @@ def drive_moe_arch(ops, fa, arch_id: str, n_layers: int, batch: int,
 
     # the plain route (chunked attention) at the kernel route's routing,
     # and each route's own decisions at those matched inputs
-    with layer_routes(layers, params) as tape_k:
-        logits_k = transformer.prefill(cfg, params, tokens)
-    ops.use_kernels(False)
-    try:
-        with layer_routes(layers, params, replay=lambda i, j: tape_k.routes[
-                i][j].gate_idx) as tape_p:
-            logits_p = transformer.prefill(cfg, params, tokens)
-    finally:
-        ops.use_kernels(True)
-    dmax = float((logits_k - logits_p).abs().max())
-    lmax = float(logits_p.abs().max())
-    diffs = route_differences(tape_k.forward, tape_p.forward)
-    drops = [int((~r.keep).sum()) for r in tape_k.forward]
-    out.update(dlogit=dmax, largest_logit=lmax, routing=diffs,
-               drops_by_layer=drops,
+    out.update(prefill_vs_plain(ops, cfg, params, tokens),
                slots=batch * seq * cfg.moe_top_k * n_layers)
-    log(f"{arch_id} prefill vs the plain route at matched routing: max "
-        f"|logit difference| {dmax:.4g} (largest |logit| {lmax:.4g}; limit "
-        f"{LOGIT_RTOL:g} x that = {LOGIT_RTOL * lmax:.4g}); on each route's "
-        f"own choices {diffs['differ']} of {diffs['decisions']} (token, "
-        f"choice) decisions differ, largest gap from a tie "
-        f"{diffs['max_gap']:.3g} (limit {ROUTE_TIE_GAP}); dropped slots a "
-        f"layer {drops} of {batch * seq * cfg.moe_top_k}")
-    if not dmax <= LOGIT_RTOL * lmax:
-        raise AssertionError(f"{arch_id} prefill differs from the plain route "
-                             f"at matched routing by {dmax} > {LOGIT_RTOL} x "
-                             f"{lmax}")
-    check_route_gaps(diffs, f"{arch_id} prefill, kernel vs plain route")
-    del tape_k, tape_p, logits_k, logits_p, tokens
+    del tokens
     torch.cuda.empty_cache()
 
     t = time.perf_counter()
@@ -4593,41 +4707,50 @@ def time_k3_layouts(ops, ref, fa, dev, layouts: dict) -> dict:
     """K3 at model layouts (``{key: (b, s, hq, hkv, dh, window)}``: phase
     15's ``MOE_K3_LAYOUTS``, mixtral's windowed GQA group of 4 at its
     prefill's and its training's shapes and llama4-scout's causal group of
-    5; phase 18's ``DENSE_K3_LAYOUTS``, starcoder2-7b's causal group of 9):
-    held against the plain version, then timed in turns (kernel, SDPA,
-    SDPA, kernel; CUDA events, median of 10; plain median of 3) beside its
-    bound (the pairs inside the mask) and ``scaled_dot_product_attention``
-    for the same function (where the window masks no key: one causal
-    ``enable_gqa`` call; mixtral's prefill: the K/V heads expanded before
-    the clock and an explicit boolean band mask, as SDPA's GQA flag takes
-    no mask but on its math backend)."""
+    5, each also at a row of ``prefill_32k``; phase 18's
+    ``DENSE_K3_LAYOUTS``, starcoder2-7b's causal group of 9, and a row of
+    ``prefill_32k`` of it and of gemma-2b's MQA at head dim 256): held
+    against the plain version (``ref.chunked_attention_ref``,
+    ``attention_ref``'s math over 1,024-query by 1,024-key blocks, whose
+    scores a 32,768-position layout's whole ``[S, S]`` would not hold: 4.3
+    GB a head in fp32; that call timed by CUDA events), then timed in turns
+    (kernel, SDPA, SDPA, kernel; CUDA events, median of 10) beside its bound (the
+    pairs inside the mask) and ``scaled_dot_product_attention`` for the
+    same function (where the window masks no key: one causal
+    ``enable_gqa`` call; where it does: the K/V heads expanded before the
+    clock and an explicit boolean band mask on SDPA's memory-efficient
+    backend, as its GQA flag takes no mask but on its math backend, which
+    at 32,768 positions would hold 69 GB of scores)."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
 
     out, errs = {}, {}
-    rng = np.random.default_rng(4)
+    gen = torch.Generator(dev).manual_seed(4)
     for key, (b, s, hq, hkv, dh, window) in layouts.items():
-        q = _normal(rng, (b, s, hq, dh), torch.bfloat16, dev)
-        k, v = (_normal(rng, (b, s, hkv, dh), torch.bfloat16, dev)
-                for _ in range(2))
+        q = torch.randn((b, s, hq, dh), generator=gen, device=dev,
+                        dtype=torch.bfloat16)
+        k, v = (torch.randn((b, s, hkv, dh), generator=gen, device=dev,
+                            dtype=torch.bfloat16) for _ in range(2))
         kern = lambda: fa.flash_attention_cuda(q, k, v, window=window)  # noqa: E731
         n = dict(fa.LAUNCHES_BY_BODY)
         got = kern()
         if fa.LAUNCHES_BY_BODY["wgmma"] != n["wgmma"] + 1:
             raise AssertionError(f"K3 at {key}'s layout did not run the "
                                  f"wgmma body")
-        exp = ref.chunked_attention_ref(
-            q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            causal=True, window=window).transpose(1, 2)
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ops.use_kernels(False)
+        try:
+            t0.record()
+            exp = ops.flash_attention_heads(q, k, v, window=window)
+            t1.record()
+        finally:
+            ops.use_kernels(True)
+        t1.synchronize()
+        pm = t0.elapsed_time(t1)
         name = f"{key} [{b}, {s}, {hq} q / {hkv} kv, {dh}] window {window}"
         errs[name] = check_close(got, exp, K3_PATH_ATOL, f"K3 {name}",
                                  K3_PATH_RTOL)
         del got, exp
-        ops.use_kernels(False)
-        try:
-            pm = time_ms(lambda: ops.flash_attention_heads(
-                q, k, v, window=window), 3)
-        finally:
-            ops.use_kernels(True)
         qt = q.transpose(1, 2)
         if window is None or window >= s:
             lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
@@ -4639,12 +4762,15 @@ def time_k3_layouts(ops, ref, fa, dev, layouts: dict) -> dict:
             pos = torch.arange(s, device=dev)
             band = (pos[:, None] >= pos[None, :]) & \
                 (pos[:, None] - pos[None, :] < window)
-            lib_fn = lambda: F.scaled_dot_product_attention(  # noqa: E731
-                qt, ke, ve, attn_mask=band)
+
+            def lib_fn():
+                with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                    return F.scaled_dot_product_attention(qt, ke, ve,
+                                                          attn_mask=band)
             lib_out = lib_fn().transpose(1, 2)
             errs[f"SDPA at {name} (yardstick, not held)"] = float(
                 (lib_out.float() - kern().float()).abs().max())
-            del lib_out
+            del lib_out, pos
         t = [time_ms(kern, 10), time_ms(lib_fn, 10), time_ms(lib_fn, 10),
              time_ms(kern, 10)]
         pairs = attention_pairs(s, True, window)
@@ -4662,7 +4788,7 @@ def time_k3_layouts(ops, ref, fa, dev, layouts: dict) -> dict:
             f"{pm:.3f} ms, scaled_dot_product_attention {t[1]:.4f} / "
             f"{t[2]:.4f} ms; bound {bound[0]:.4f} ms by {bound[1]} "
             f"({flops / 1e9:.1f} GFLOP; {bound[2] / 1e6:.1f} MB)")
-        del q, k, v
+        del q, k, v, qt, lib_fn
         torch.cuda.empty_cache()
     return {"layouts": out, "errs": errs}
 
@@ -4962,10 +5088,13 @@ def k4_per_step(cfg, n_graphs: int) -> int:
             + (bool(n_graphs) and cfg.model in ("gin", "dimenet")))
 
 
-def _plan_args(arch, cell, plan, dev, batch: dict | None = None) -> tuple:
+def _plan_args(arch, cell, plan, dev, batch: dict | None = None,
+               params: dict | None = None) -> tuple:
     """The plan's arguments on the card: the port's own init from a seeded
-    generator, the batch from ``PLAN_SEED`` (a GNN cell's numpy batch from
-    ``gnn_cell_batch``, built here unless ``batch`` gives it)."""
+    generator (an LM's stacked parameters as ``params`` give them, where
+    they do: ``stacked_params``, the same values), the batch from
+    ``PLAN_SEED`` (a GNN cell's numpy batch from ``gnn_cell_batch``, built
+    here unless ``batch`` gives it)."""
     from repro_torch.data import synthetic
     from repro_torch.models import gnn, recsys, transformer
     from repro_torch.training.optimizer import adamw_init
@@ -4973,8 +5102,9 @@ def _plan_args(arch, cell, plan, dev, batch: dict | None = None) -> tuple:
     gen = torch.Generator(dev).manual_seed(PLAN_SEED)
     rng = np.random.default_rng(PLAN_SEED)
     if arch.family == "lm":
-        params = transformer.stack_layers(
-            transformer.init_params(arch.model, gen))
+        if params is None:
+            params = transformer.stack_layers(
+                transformer.init_params(arch.model, gen))
         b, s = cell.params["batch"], cell.params["seq"]
         tokens = torch.from_numpy(rng.integers(
             0, arch.model.vocab, (b, s), dtype=np.int32)).to(dev)
@@ -5011,14 +5141,19 @@ def _direct(arch, args, n_graphs: int = 0):
     return optimizer.make_train_step(loss_fn, optimizer.AdamWConfig())(*args)
 
 
-def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
-                     phase: int = 16, host_dir: str | None = None) -> dict:
-    """One cell's plan run on the card at ``make_test_mesh((1, 1))``: the
-    cell's global shape at full config.  The plan is first traced on
+def run_plan_on_card(arch, cell_name: str, dev, card: str,
+                     phase: int = 16, host_dir: str | None = None,
+                     params: dict | None = None, checks=None) -> dict:
+    """One cell of the ``ArchConfig`` ``arch`` (its full config, or a cut
+    one) run through its plan on the card at ``make_test_mesh((1, 1))``, at
+    the cell's shape.  The plan is first traced on
     ``meta`` at the same mesh (``dryrun.run_cell``); the card's arguments
     must match its tree and its ``argument_size_in_bytes`` exactly, the
     outputs its shapes and dtypes; outputs finite; launches counted (set
-    to 0 just before the call, read just after).  A GNN cell's batch comes
+    to 0 just before the call, read just after).  An LM plan (``params``:
+    its stacked parameters, else initialised here) must launch K3's wgmma
+    body once a layer, its SIMT body, K4 and K5 never, and its rows 0-1
+    lie within ``LOGIT_RTOL`` of a direct ``prefill``.  A GNN cell's batch comes
     from ``gnn_cell_batch`` (from ``host_dir`` when the host process built
     it); its step must launch K4 ``k4_per_step`` times, K3 and K5 never,
     and equal the model's own step bitwise.  A train plan (the GNN cells,
@@ -5026,17 +5161,15 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
     parameters and optimizer state: it steps on a clone of them
     (``clone_donated``), each leaf of which must keep its storage, and is
     held bitwise against the model's own returning step from the
-    originals (``_direct``).  In phase 19 the step is also
-    held against ``use_kernels(False)`` (``step_vs_plain``), and
-    ``PROFILED_CELL``'s step is profiled and K4 timed on its inputs."""
-    from repro_torch.configs import get_config
-    from repro_torch.kernels import (cin, flash_attention, ops, ref,
-                                     segment_matmul)
+    originals (``_direct``).  ``checks(plan, args, res)``, where given,
+    runs after these gates, its dict merged into the readings (phase 19's
+    ``gnn_cell_checks``, phase 20's ``prefill_checks``)."""
+    from repro_torch.kernels import cin, flash_attention, segment_matmul
     from repro_torch.launch import dryrun, mesh as lmesh, specs
     from repro_torch.launch.specs import tree_paths
     from repro_torch.models import transformer
 
-    arch = get_config(arch_id)
+    arch_id = arch.arch_id
     cell = next(c for c in arch.cells() if c.name == cell_name)
     rec = dryrun.run_cell(arch, cell_name,
                           lmesh.make_test_mesh((1, 1), device="meta"), "1x1")
@@ -5054,8 +5187,8 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
             batch = load_host_batch(host_dir, arch_id, cell_name, plan.args[2])
         host_s = time.perf_counter() - t
     t = time.perf_counter()
-    args = _plan_args(arch, cell, plan, dev, batch)
-    del batch
+    args = _plan_args(arch, cell, plan, dev, batch, params)
+    del batch, params
     sync(dev)
     init_s = time.perf_counter() - t
     if _tree_sig(args) != _tree_sig(plan.args):
@@ -5103,10 +5236,11 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
             raise AssertionError(f"{arch_id}/{cell_name}: {p} not finite")
     if arch.family == "lm":
         n = arch.model.n_layers
-        if launches["flash_attention"] != {"wgmma": n, "simt": 0}:
-            raise AssertionError(f"{arch_id}/{cell_name} launched K3's bodies "
-                                 f"{launches['flash_attention']}, expected the "
-                                 f"wgmma body {n} times")
+        want = {"flash_attention": {"wgmma": n, "simt": 0},
+                "segment_matmul": 0, "cin": 0}
+        if launches != want:
+            raise AssertionError(f"{arch_id}/{cell_name} launched {launches}, "
+                                 f"expected {want}")
         # rows 0-1 against a direct prefill of those two rows
         direct = transformer.prefill(arch.model,
                                      transformer.unstack_layers(args[0]),
@@ -5137,9 +5271,8 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
                 raise AssertionError(f"{arch_id}/{cell_name}: loss {res['loss']}")
         del direct
     del out
-    if phase == 19:
-        res.update(gnn_cell_checks(ops, ref, arch, cell, plan, args, n_graphs,
-                                   dev))
+    if checks is not None:
+        res.update(checks(plan, args, res))
     log(f"phase {phase} plan {arch_id}/{cell_name} on the card ({card}): "
         f"{json.dumps(res)}")
     del args
@@ -5147,17 +5280,19 @@ def run_plan_on_card(arch_id: str, cell_name: str, dev, card: str,
     return res
 
 
-def gnn_cell_checks(ops, ref, arch, cell, plan, args, n_graphs: int,
-                    dev) -> dict:
+def gnn_cell_checks(arch, cell, plan, args, dev) -> dict:
     """Phase 19's checks of a GNN cell past its plan's call: the step held
     against ``use_kernels(False)`` at phase 13's gates, K4's rows entry
     against its plain version on every input the step handed it (as many
     as ``k4_per_step``), the peak memory of the two steps; on
     ``PROFILED_CELL``, one plan step profiled (busy share, top ops) and K4
     timed on the step's inputs beside ``index_add_`` and its byte bound."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import specs
     from repro_torch.models import gnn
 
     cfg, what = arch.model, f"{arch.arch_id}/{cell.name}"
+    n_graphs = specs._gnn_batch_structs(arch, cell)[1]
     out = {}
     if (arch.arch_id, cell.name) == PROFILED_CELL:
         top, donated = [], clone_donated(args)
@@ -5279,12 +5414,14 @@ def drive_plans(dev, card: str, dryrun_run: dict,
     logged beside phase 14's launcher run of the returning loop, whose
     peak is ``recsys_launcher_peak_gb``), the expert block's mesh branches.
     ``launches`` sums the plans' launches by kernel."""
+    from repro_torch.configs import get_config
+
     t_phase = time.perf_counter()
     out = {"dryrun": finish_dryrun(dryrun_run, card), "plans": {}}
     launches = {"flash_attention_wgmma": 0, "flash_attention_simt": 0,
                 "segment_matmul": 0, "cin": 0}
     for arch_id, cell_name in PLAN_CELLS:
-        r = run_plan_on_card(arch_id, cell_name, dev, card)
+        r = run_plan_on_card(get_config(arch_id), cell_name, dev, card)
         out["plans"][f"{arch_id}/{cell_name}"] = r
         launches["flash_attention_wgmma"] += r["launches"]["flash_attention"]["wgmma"]
         launches["flash_attention_simt"] += r["launches"]["flash_attention"]["simt"]
@@ -5900,6 +6037,8 @@ def drive_gnn_cells(dev, card: str, host_run: dict) -> dict:
     """Phase 19: each of ``GNN_CELLS`` through ``run_plan_on_card`` (the
     host process's batches for ``HOST_CELLS``, waited for at the first
     such cell).  ``launches`` sums K4's launches in the plans' calls."""
+    from repro_torch.configs import get_config
+
     t_phase = time.perf_counter()
     out = {"cells": {}, "launches": 0, "cut": {
         f"{a}/ogb_products": why for a, why in OGB_CUT.items()}}
@@ -5910,8 +6049,12 @@ def drive_gnn_cells(dev, card: str, host_run: dict) -> dict:
             if "host" not in out:
                 out["host"] = finish_host_cells(host_run, card)
             host_dir = host_run["work"]
-        r = run_plan_on_card(arch_id, cell_name, dev, card, phase=19,
-                             host_dir=host_dir)
+        arch = get_config(arch_id)
+        cell = next(c for c in arch.cells() if c.name == cell_name)
+        r = run_plan_on_card(
+            arch, cell_name, dev, card, phase=19, host_dir=host_dir,
+            checks=lambda plan, args, res: gnn_cell_checks(arch, cell, plan,
+                                                           args, dev))
         out["cells"][f"{arch_id}/{cell_name}"] = r
         out["launches"] += r["launches"]["segment_matmul"]
     out["phase_s"] = time.perf_counter() - t_phase
@@ -5940,10 +6083,7 @@ def decode_cut(arch, cell_name: str, n_layers: int | None,
         dataclasses.replace(arch.model, n_layers=n_layers)
     c = transformer.cache_len(cfg, cell.params["seq"])
     kv = c * cfg.n_kv * cfg.head_dim      # a layer's K (or V) slots a sequence
-    layer = transformer.param_count(dataclasses.replace(cfg, n_layers=1)) - \
-        transformer.param_count(dataclasses.replace(cfg, n_layers=0))
-    params = 4 * (transformer.param_count(cfg) + uncounted_params(cfg))
-    casts = 2 * (layer + cfg.vocab * cfg.d_model)
+    params, casts = lm_fixed_bytes(cfg)
     cache, temps = 2 * 2 * cfg.n_layers * kv, 2 * 4 * kv
     limit = TRAIN_FIT * card_bytes
     need = lambda b: params + casts + b * (cache + temps)  # noqa: E731
@@ -5981,6 +6121,103 @@ def log_decode_cut(arch, cut: dict, card: str) -> None:
         f"{cut['cache_gb_a_seq']:.3f} GB and fp32 K/V copies of a layer "
         f"{cut['temps_gb_a_seq']:.3f} GB; GB by batch {json.dumps(gb)}, "
         f"limit {cut['limit_gb']:.1f} of {cut['card_gb']:.1f} GB ({card})")
+
+
+def prefill_seq_bytes(cfg, s: int) -> dict:
+    """One sequence's bytes at the peak of a prefill layer of ``cfg`` at
+    ``s`` positions (``transformer._layer_fwd`` under ``no_grad``), by
+    phase, each the tensors live at its peak; the weight casts are
+    ``lm_fixed_bytes``'.  ``norm``: the residual x, x + h and h (bf16)
+    beside ``norm_apply``'s three fp32 ``[s, d]`` temporaries.
+    ``attention``: x and its norm, q, k and v (bf16) beside ``rope``'s fp32
+    temporaries on q (the angles, cos and sin; two half-width products
+    each of its two halves, and their concatenation) or, with qk-norm,
+    ``norm_apply``'s three on q.  ``ffn``: x, x + h, h and the norm (bf16)
+    beside the MLP's intermediates (gated: the activated gate, the up
+    projection and their product; GELU: the projection and its
+    activation) or the expert block's: ``updates`` and ``buf`` (``xe`` is
+    a view of it), then the gate, the up projection and their product over
+    the ``E · cap`` slots beside ``ye``, or at the combine ``got`` and
+    ``got · gates`` beside the gate, the up projection and ``ye``.  The
+    K3 output and ``wo``'s product come after rope's temporaries are
+    freed, and take less."""
+    from repro_torch.models import layers
+
+    d, dh = cfg.d_model, cfg.head_dim
+    sd, sq, sk = s * d, s * cfg.n_heads * dh, s * cfg.n_kv * dh
+    out = {"norm": 2 * 3 * sd + 4 * 3 * sd,
+           "attention": 2 * (2 * sd + sq + 2 * sk) + max(
+               4 * 2 * sq + 4 * 3 * s * dh // 2, 4 * 3 * sq * cfg.qk_norm)}
+    if cfg.moe_experts:
+        tk = s * cfg.moe_top_k
+        slots = cfg.moe_experts * layers.moe_capacity(
+            s, cfg.moe_experts, cfg.moe_top_k, cfg.moe_capacity)
+        inner = 2 * slots * d + max(2 * 3 * slots * cfg.d_ff,
+                                    2 * 2 * slots * cfg.d_ff + 2 * 2 * tk * d)
+        ffn = 2 * tk * d + 2 * (slots + 1) * d + inner
+    else:
+        ffn = 2 * s * cfg.d_ff * (3 if cfg.mlp in ("swiglu", "geglu") else 2)
+    out["ffn"] = 2 * 4 * sd + ffn
+    return out
+
+
+def prefill_cut(arch, n_layers: int | None, card_bytes: int) -> tuple:
+    """The LM ``ArchConfig`` ``arch`` with its ``prefill`` cell's batch cut
+    to the largest whose call fits in ``TRAIN_FIT`` of ``card_bytes``: the
+    fp32 parameters and the weight casts (``lm_fixed_bytes``) and each
+    sequence's peak transients (``prefill_seq_bytes``), at depth
+    ``n_layers`` (``None``: full depth) or, where one sequence does not fit
+    there, the deepest depth at which it does.  GShard's capacity is per
+    row, so the batch changes how many rows run, not what a row computes.
+    Returns the ``ArchConfig`` whose model and one cell are cut, and the
+    reckoning; raises where one sequence does not fit at one layer."""
+    from repro_torch.configs.base import ShapeCell
+
+    cell = next(c for c in arch.cells() if c.kind == "prefill")
+    full_batch, s = cell.params["batch"], cell.params["seq"]
+    depth = n_layers or arch.model.n_layers
+    phases = prefill_seq_bytes(arch.model, s)
+    per_seq, limit = max(phases.values()), TRAIN_FIT * card_bytes
+    for n in range(depth, 0, -1):
+        cfg = dataclasses.replace(arch.model, n_layers=n)
+        params, casts = lm_fixed_bytes(cfg)
+        batch = min(full_batch, int((limit - params - casts) // per_seq))
+        if batch >= 1:
+            break
+    else:
+        raise AssertionError(f"{arch.arch_id}/{cell.name}: one sequence at one "
+                             f"layer needs {(params + casts + per_seq) / 1e9:.1f}"
+                             f" GB, over {limit / 1e9:.1f} GB")
+    need = lambda b: params + casts + b * per_seq  # noqa: E731
+    cut = ShapeCell(cell.name, cell.kind, dict(cell.params, batch=batch))
+    return dataclasses.replace(arch, model=cfg, shapes=(cut,)), {
+        "batch": batch, "full_batch": full_batch, "layers": cfg.n_layers,
+        "asked_layers": depth, "full_layers": arch.model.n_layers,
+        "params_gb": params / 1e9, "weight_casts_gb": casts / 1e9,
+        "seq_gb_by_phase": {k: v / 1e9 for k, v in phases.items()},
+        "gb_by_batch": {b: need(b) / 1e9 for b in (batch, batch + 1)
+                        if b <= full_batch},
+        "limit_gb": limit / 1e9, "card_gb": card_bytes / 1e9}
+
+
+def log_prefill_cut(arch, cut: dict, card: str) -> None:
+    cfg, cell = arch.model, arch.shapes[0]
+    gb = {b: round(g, 2) for b, g in cut["gb_by_batch"].items()}
+    depth = "full depth" if cut["layers"] == cut["full_layers"] else (
+        f"DEPTH CUT {cut['full_layers']} -> {cut['layers']} layers"
+        + (" (phase 15's)" if cut["layers"] == cut["asked_layers"] else
+           f" (phase 15's {cut['asked_layers']} leave no room for one "
+           f"sequence)"))
+    log(f"{arch.arch_id}/{cell.name}: BATCH CUT {cut['full_batch']} -> "
+        f"{cut['batch']} at full width and {depth} (d {cfg.d_model}, "
+        f"{cfg.n_heads} q / {cfg.n_kv} kv heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, {cfg.moe_experts} experts, window {cfg.window}, vocab "
+        f"{cfg.vocab}; seq {cell.params['seq']}): fp32 parameters "
+        f"{cut['params_gb']:.2f} GB, a call's bf16 weight casts "
+        f"{cut['weight_casts_gb']:.2f} GB, a sequence's peak in a layer by "
+        f"phase {json.dumps({k: round(v, 3) for k, v in cut['seq_gb_by_phase'].items()})}"
+        f" GB; GB by batch {json.dumps(gb)}, limit {cut['limit_gb']:.1f} of "
+        f"{cut['card_gb']:.1f} GB ({card})")
 
 
 def stack_leafwise(params: dict) -> dict:
@@ -6309,18 +6546,74 @@ def decode_cell_on_card(arch, cut: dict, params, dev, card: str) -> dict:
     return res
 
 
+def prefill_checks(arch, cut: dict, plan, args, res: dict, card: str) -> dict:
+    """Phase 20's gates of a ``prefill_32k`` plan past ``run_plan_on_card``'s
+    (the meta trace's arguments and outputs, finite logits, K3's wgmma body
+    once a layer and no other kernel, rows 0-1 against a direct prefill):
+    the peak gate, the call's peak (``res``) less what the process held
+    beside its arguments within ``prefill_cut``'s reckoning and
+    ``PREFILL_TRANSIENT_GB``; the plain route on the first
+    ``DECODE_CPU_LAYERS`` layers of the same parameters at row 0
+    (``prefill_vs_plain``, an MoE arch at matched routing).  Readings: the
+    median of ``PREFILL_TIMED`` synchronised calls after the gated one,
+    prefill tokens/s; for ``PREFILL_PROFILED``, one call profiled."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+
+    cfg, cell = arch.model, arch.shapes[0]
+    tag = f"{arch.arch_id}/{cell.name}"
+    out = {"reckoned_gb": cut["gb_by_batch"][cut["batch"]],
+           "allowed_transient_gb": PREFILL_TRANSIENT_GB[arch.arch_id],
+           "other_gb": res["peak_gb"] - res["peak_above_args_gb"]
+           - res["arg_bytes"] / 1e9}
+    out["transient_gb"] = res["peak_gb"] - out["other_gb"] - out["reckoned_gb"]
+    if out["transient_gb"] > out["allowed_transient_gb"]:
+        raise AssertionError(f"{tag}: peak {res['peak_gb']:.2f} GB "
+                             f"({out['other_gb']:.2f} held beside) over the "
+                             f"reckoning {out['reckoned_gb']:.2f} + the allowed"
+                             f" transient {out['allowed_transient_gb']} GB")
+    n = DECODE_CPU_LAYERS["moe" if cfg.moe_experts else "dense"]
+    per = transformer.unstack_layers(args[0])
+    t = time.perf_counter()
+    out["vs_plain"] = dict(prefill_vs_plain(
+        ops, dataclasses.replace(cfg, n_layers=n),
+        dict(per, layers=list(per["layers"][:n])), args[1][:1]), layers=n,
+        rows=1, s=time.perf_counter() - t)
+    del per
+    ms = _time_call(lambda: plan.fn(*args), PREFILL_TIMED)
+    tokens = args[1].numel()
+    out.update(call_ms=ms, call_s_median=float(np.median(ms)) / 1e3,
+               tokens_per_s=tokens / (float(np.median(ms)) / 1e3))
+    if arch.arch_id in PREFILL_PROFILED:
+        top = []
+        out["busy"] = profiled(lambda: plan.fn(*args), top=top)
+        out["top_ops"] = top[:5]
+    log(f"phase 20 {tag} [{cut['batch']}, {cell.params['seq']}] at "
+        f"{cfg.n_layers} layers ({card}): {out['call_s_median']:.3f} s a call "
+        f"(median of {ms}), {out['tokens_per_s']:,.0f} tokens/s; peak "
+        f"{res['peak_gb']:.2f} GB against the reckoning "
+        f"{out['reckoned_gb']:.2f} GB (transient {out['transient_gb']:.2f}, "
+        f"allowed {out['allowed_transient_gb']})")
+    return out
+
+
 def drive_decode_cells(dev, card: str) -> dict:
     """Phase 20: each arch of ``DECODE_RUNS`` from one seeded
     initialisation (``stacked_params``), its decode cells (``decode_32k``;
     mixtral-8x7b's ``long_500k`` too, on the same parameters) cut by
-    ``decode_cut`` and driven by ``decode_cell_on_card``; then freed."""
+    ``decode_cut`` and driven by ``decode_cell_on_card``, then, for
+    ``PREFILL_ARCHS``, its ``prefill_32k`` cut by ``prefill_cut`` through
+    ``run_plan_on_card`` on the same parameters (their first layers where
+    the cut is deeper) with ``prefill_checks``; then freed.
+    ``prefill_launches`` holds each prefill call's K3 launches by body."""
     from repro_torch.configs import get_config
+    from repro_torch.models import transformer
 
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     card_bytes = torch.cuda.get_device_properties(dev).total_memory
-    out = {"cells": {}}
+    out = {"cells": {}, "prefill_launches": {}}
     for arch_id, n_layers in DECODE_RUNS:
         params = None
         for cell in get_config(arch_id).cells():
@@ -6336,6 +6629,24 @@ def drive_decode_cells(dev, card: str) -> dict:
             res = decode_cell_on_card(arch, cut, params, dev, card)
             res["cut"], res["s"] = cut, time.perf_counter() - t
             out["cells"][f"{arch_id}/{cell.name}"] = res
+            gc.collect()
+            torch.cuda.empty_cache()
+        if arch_id in PREFILL_ARCHS:
+            t = time.perf_counter()
+            arch, cut = prefill_cut(get_config(arch_id), n_layers, card_bytes)
+            log_prefill_cut(arch, cut, card)
+            first = dict(params, layers=transformer._map(
+                params["layers"], lambda x: x[:cut["layers"]]))
+            with expandable_segments():
+                res = run_plan_on_card(
+                    arch, "prefill_32k", dev, card, phase=20, params=first,
+                    checks=lambda plan, args, res: prefill_checks(
+                        arch, cut, plan, args, res, card))
+            del first
+            res["cut"], res["s"] = cut, time.perf_counter() - t
+            out["cells"][f"{arch_id}/prefill_32k"] = res
+            out["prefill_launches"][arch_id] = \
+                res["launches"]["flash_attention"]
             gc.collect()
             torch.cuda.empty_cache()
         del params
@@ -6392,6 +6703,10 @@ def main() -> int:
         shutil.rmtree(host_work, ignore_errors=True)
 
     atexit.register(stop_host)
+    # the truss phases' phi == oracle gates (~85 s of pure Python) run in a
+    # worker from phase 17 on, beside device-bound phases, read at the end
+    oracle = OracleChecks()
+    atexit.register(oracle.pool.shutdown, cancel_futures=True)
     k3_compile_report(_build, flash_attention)
     k5_compile = cin_compile_report(_build)
 
@@ -6408,7 +6723,7 @@ def main() -> int:
 
     reset_counts(peel_wave, bitmap_support, flash_attention)
     t = time.perf_counter()
-    g, sec, initial = drive_main_path(core, edges, dev)
+    g, sec, initial = drive_main_path(core, edges, dev, oracle)
     launches = {"peel_wave": peel_wave.LAUNCHES,
                 "bitmap_support": bitmap_support.LAUNCHES}
     by_body = {"peel_wave": dict(peel_wave.LAUNCHES_BY_BODY),
@@ -6420,18 +6735,15 @@ def main() -> int:
             raise AssertionError(f"{name}: {n} calls on the truss path ran "
                                  f"{by_body[name]}, expected the digest body "
                                  f"in every one")
-    t = time.perf_counter()
-    final = g.edge_list()
-    if g.phi_dict() != core.oracle.scratch_phi(N_NODES, map(tuple, final.tolist())):
-        raise AssertionError("final phi differs from a from-scratch oracle")
-    log(f"final phi == oracle over {len(final)} edges "
-        f"({time.perf_counter() - t:.1f} s); phases {sec}")
+    oracle.submit("the truss path's final phi", g,
+                  map(tuple, g.edge_list().tolist()))
+    log(f"final phi to the oracle check; phases {sec}")
     del g
     torch.cuda.empty_cache()
 
     reset_counts(peel_wave, bitmap_support, flash_attention)
     t = time.perf_counter()
-    svc_out = drive_service_path(edges, dev)
+    svc_out = drive_service_path(edges, dev, oracle)
     svc_launches = {"peel_wave": peel_wave.LAUNCHES,
                     "bitmap_support": bitmap_support.LAUNCHES}
     svc_by_body = {"peel_wave": dict(peel_wave.LAUNCHES_BY_BODY),
@@ -6448,7 +6760,7 @@ def main() -> int:
     # applies and the promotion's replay), then the launcher
     reset_counts(peel_wave, bitmap_support, flash_attention)
     t = time.perf_counter()
-    cl_out = drive_cluster_path(edges, dev)
+    cl_out = drive_cluster_path(edges, dev, oracle)
     cl_launches = {"peel_wave": peel_wave.LAUNCHES,
                    "bitmap_support": bitmap_support.LAUNCHES}
     cl_by_body = {"peel_wave": dict(peel_wave.LAUNCHES_BY_BODY),
@@ -6607,6 +6919,7 @@ def main() -> int:
     # MoE training at full width (K3's wgmma body on mixtral's and
     # llama4-scout's donated AdamW steps); the counts are set to 0 inside, just
     # before each arch's run, and read just after it
+    oracle.start()
     with expandable_segments():
         mt = drive_moe_training(dev, card)
     for arch_id, r in mt["archs"].items():
@@ -6649,18 +6962,32 @@ def main() -> int:
     log(f"GNN cells ({card}): {gnn_cells['phase_s']:.1f} s; K4 launched "
         f"{gnn_cells['launches']} times in {len(gnn_cells['cells'])} plan steps")
     # decode_32k for the five LM archs and mixtral-8x7b's long_500k through
-    # their plans (decode bypasses K3: no kernel may launch); the counts are
-    # set to 0 inside, just before each cell's plan wave, and read just
-    # after it
+    # their plans (decode bypasses K3: no kernel may launch), and
+    # prefill_32k for the four archs of PREFILL_ARCHS (K3's wgmma body once
+    # a layer a call); the counts are set to 0 inside, just before each
+    # cell's plan call, and read just after it
     dc = drive_decode_cells(dev, card)
-    log(f"decode cells ({card}): {dc['phase_s']:.1f} s; " + "; ".join(
-        f"{cell} batch {r['batch']} at {r['layers']} layers: wave "
-        f"{r['wave_ms_median']:.1f} ms (bound {r['bound_ms']:.1f} ms), peak "
-        f"{r['peak_gb']:.2f} GB" for cell, r in dc["cells"].items()))
+    for arch_id, by in dc["prefill_launches"].items():
+        wgmma_paths[f"{arch_id} prefill_32k plan"] = by["wgmma"]
+        launches["flash_attention_wgmma"] += by["wgmma"]
+    log(f"decode and prefill cells ({card}): {dc['phase_s']:.1f} s; "
+        + "; ".join(
+            f"{cell} batch {r['batch']} at {r['layers']} layers: wave "
+            f"{r['wave_ms_median']:.1f} ms (bound {r['bound_ms']:.1f} ms), "
+            f"peak {r['peak_gb']:.2f} GB" if "wave_ms_median" in r else
+            f"{cell} batch {r['cut']['batch']} at {r['cut']['layers']} layers:"
+            f" {r['call_s_median']:.3f} s a call, {r['tokens_per_s']:,.0f} "
+            f"tokens/s, peak {r['peak_gb']:.2f} GB (reckoned "
+            f"{r['reckoned_gb']:.2f})" for cell, r in dc["cells"].items()))
 
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on its path")
+    t = time.perf_counter()
+    oracle_s = oracle.finish()
+    log(f"phi == oracle ({card}; the worker's seconds each, from phase 17 "
+        f"on; waited for {time.perf_counter() - t:.1f} s at the end): "
+        f"{json.dumps(oracle_s)}")
 
     sources = {"peel_wave": "src/repro/kernels/peel_wave.py:50",
                "bitmap_support": "src/repro/kernels/bitmap_support.py:41"}

@@ -15,7 +15,8 @@ the LM and recsys training entries (K3, K4's gathered entry and K5 as
 autograd Functions with plain backwards) and one training step of the
 qwen3 and xDeepFM smoke configs against the plain route, and one of the
 starcoder2 smoke config against the CPU; K3 at starcoder2-7b's GQA group
-of 9; the MoE layer of both MoE smoke configs on the card against the CPU
+of 9, at a window an eighth of the sequence and at gemma-2b's MQA over
+8,192 positions; the MoE layer of both MoE smoke configs on the card against the CPU
 at matched routing, and
 the int8 KV cache's values and scales on the card equal to the CPU's; the
 expert block's mesh branches and their gradients against mesh=None, and
@@ -601,6 +602,30 @@ def test_wgmma_body_at_a_gqa_group_of_9(cuda, s):
     exp = ref.chunked_attention_ref(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
         window=None).transpose(1, 2)
+    assert flash_attention.LAUNCHES_BY_BODY == {
+        "wgmma": n["wgmma"] + 1, "simt": n["simt"]}
+    torch.testing.assert_close(got.float(), exp.float(), rtol=1.6e-2,
+                               atol=1e-3)
+
+
+@pytest.mark.parametrize("s,hq,hkv,dh,window", [
+    pytest.param(4096, 8, 2, 128, 512, id="window-at-an-eighth"),
+    pytest.param(8192, 8, 1, 256, None, id="gemma-mqa-8192")])
+def test_wgmma_body_at_prefill_32k_layouts_scaled(cuda, s, hq, hkv, dh, window):
+    """Two of ``prefill_32k``'s layouts at a quarter of their length: a
+    window at 1/8 of the sequence (mixtral's, whose band skip leaves a late
+    query tile 1/8 of the key tiles) and gemma-2b's MQA at head dim 256
+    (64-key tiles, 128 query tiles a head here): the wgmma body against
+    the plain version at the path's tolerance."""
+    rng = np.random.default_rng(s + dh)
+    q = _heads(rng, (1, s, hq, dh), torch.bfloat16, cuda)
+    k = _heads(rng, (1, s, hkv, dh), torch.bfloat16, cuda)
+    v = _asym_v(rng, (1, s, hkv, dh), cuda)
+    n = dict(flash_attention.LAUNCHES_BY_BODY)
+    got = ops.flash_attention_heads(q, k, v, window=window)
+    exp = ref.chunked_attention_ref(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+        window=window).transpose(1, 2)
     assert flash_attention.LAUNCHES_BY_BODY == {
         "wgmma": n["wgmma"] + 1, "simt": n["simt"]}
     torch.testing.assert_close(got.float(), exp.float(), rtol=1.6e-2,
